@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
 
-    python3 chip_smoke.py [--json PATH] [--profile]
+    python3 chip_smoke.py [--json PATH]
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build the CUDA kernels from ``homomorph_tpu_torch/csrc`` (one ``nvcc``
    per source, all at once);
 3. each kernel against its plain torch version on the card, at the shapes
-   the main path gives it (0 mismatches required), timed with CUDA events;
+   the main path gives it (0 mismatches required); each timed by its device
+   time from ``torch.profiler`` (see :func:`device_records`);
 4. replay of the interop fixtures (``tests/fixtures/interop_v1.json``):
    keygen and recorded-stream encryption on the card must give the
    fixture's bytes;
@@ -19,14 +20,12 @@ Phases, in order; any failure exits non-zero before the result line:
    on a few rows; a U8 AND/OR/XOR/NOT gate check;
 6. bulk round-trips: 2^21 bits at ``(128, 128, 64, 128)`` and 2^20 bits at
    ``(1024, 1024, 64, 256)``;
-7. one JSON line of kernels (launches counted over phases 5-6 only);
-8. last line ``{"ok": true, "device": {...}}``.
+7. a ``torch.profiler`` trace of the checked add and of the first bulk
+   round trip: warm wall time, device time by kernel, busy share;
+8. one JSON line of kernels (launches counted over phases 5-6 only);
+9. last line ``{"ok": true, "device": {...}}``.
 
-``--profile`` adds a ``torch.profiler`` trace of the checked add and of the
-first bulk round trip (device time by kernel, busy share) after phase 6.
-Without CUDA it exits 2 and prints no result.  ``--rehearse-cpu`` runs
-phases 3-6 at tiny sizes on the CPU through the plain versions (no build,
-no timing, no result line; exit 3) to check the control flow off the card.
+Without CUDA it exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -76,36 +75,46 @@ def int32_rate(torch):
     return sms * INT32_OPS_PER_SM_PER_CLOCK * mhz * 1e6, sms, mhz
 
 
-class Timer:
-    """CUDA-event timing after warm-up; host clock for end-to-end stages."""
+def device_records(torch, fn, iters=1):
+    """Device time in ms by record name (kernels and copies) over ``iters``
+    calls of ``fn``, from ``torch.profiler``, after one warm-up call.
 
-    def __init__(self, torch, on_card):
-        self.torch = torch
-        self.on_card = on_card
+    This is the card's own time: it leaves out the host's time to issue a
+    call (checks, allocation, the ctypes launch), which for a short kernel
+    is longer than the kernel itself."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    def kernel_ms(self, fn, budget_ms=60.0):
-        if not self.on_card:
-            return None
-        torch = self.torch
-        fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        one = max(start.elapsed_time(end), 1e-3)
-        iters = int(max(3, min(200, budget_ms / one)))
-        start.record()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
+        torch.cuda.synchronize()
+    per_name = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            per_name[ev.name] = per_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    return per_name
 
-    def sync(self):
-        if self.on_card:
-            self.torch.cuda.synchronize()
+
+def device_ms(torch, fn, iters):
+    """Device time of one call of ``fn``, averaged over ``iters`` calls."""
+    return sum(device_records(torch, fn, iters).values()) / iters
+
+
+def call_ms(torch, fn, iters=50):
+    """CUDA-event time per call over back-to-back calls: for a short kernel
+    this is the host's issue rate of the wrapper, not the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def compare(torch, got, want):
@@ -114,6 +123,15 @@ def compare(torch, got, want):
     w = want.to(torch.int64) & 0xFFFFFFFF
     diff = (g - w).abs()
     return int((diff != 0).sum()), int(diff.max()) if diff.numel() else 0
+
+
+def clmul_ops(B, La, Lb):
+    """K1's work on [B, La] x [B, Lb]: per row, Ls*(Lg+1) pairs of a limb of
+    the smaller operand and an output limb (``csrc/clmul.cu``'s loops), each
+    32 mask-and-XOR steps, counted at 2 ops a step as
+    ``homomorph_tpu/utils/profiling.py::clmul_sol`` counts them."""
+    Ls, Lg = min(La, Lb), max(La, Lb)
+    return B * 32 * Ls * (Lg + 1) * 2
 
 
 def phase_kernels(ctx):
@@ -125,48 +143,45 @@ def phase_kernels(ctx):
     def words(shape):
         return torch.randint(-(2**31), 2**31, shape, dtype=torch.int32, device=dev, generator=rng)
 
+    def timed(kernel_fn, plain_fn):
+        return dict(ms=device_ms(torch, kernel_fn, 20), call_ms=call_ms(torch, kernel_fn),
+                    plain_ms=device_ms(torch, plain_fn, 3))
+
     rows = []
     # (label, B, La, Lb): keygen S*Q_i, the adder's whole-tensor AND, its last
     # chain step, and small-batch wide operands
-    tiny = ctx["tiny"]
-    clmul_shapes = [
-        ("keygen", 128, 5, 5),
-        ("add-and", 64 if tiny else 65536, 9, 9),
-        ("add-chain", 16 if tiny else 2048, 9, 256),
-        ("wide48", 7, 9, 48),
-        ("wide96", 7, 9, 96),
-    ]
-    for label, B, La, Lb in clmul_shapes:
+    for label, B, La, Lb in (("keygen", 128, 5, 5), ("add-and", 65536, 9, 9),
+                             ("add-chain", 2048, 9, 256), ("wide48", 7, 9, 48),
+                             ("wide96", 7, 9, 96)):
         a, b = words((B, La)), words((B, Lb))
         got = k.clmul_flat(a, b)
-        ctx["timer"].sync()
+        torch.cuda.synchronize()
         want = k.clmul_plain(a, b)
         bad, err = compare(torch, got, want)
         check(bad == 0, f"clmul {label} ({B}, {La}x{Lb}): {bad} mismatches")
-        Ls, Lg = min(La, Lb), max(La, Lb)
-        ops = B * 32 * Lg * (Ls + 1) * 2
+        ops = clmul_ops(B, La, Lb)
         nbytes = B * (La + Lb) * 4 * 2
         rows.append(dict(
             kernel="clmul", label=label, shape=f"B={B} La={La} Lb={Lb}",
             mismatches=bad, max_abs_err=err,
-            ms=ctx["timer"].kernel_ms(lambda: k.clmul_flat(a, b)),
-            plain_ms=ctx["timer"].kernel_ms(lambda: k.clmul_plain(a, b)),
+            **timed(lambda: k.clmul_flat(a, b), lambda: k.clmul_plain(a, b)),
             ops=ops, ops_rate=ctx["int32_rate"], bytes=nbytes,
         ))
         log(f"[kernels] clmul {label:9s} B={B} {La}x{Lb}: mismatches {bad}, "
-            f"kernel {rows[-1]['ms']} ms, plain {rows[-1]['plain_ms']} ms")
+            f"kernel {rows[-1]['ms']} ms (call {rows[-1]['call_ms']} ms), "
+            f"plain {rows[-1]['plain_ms']} ms")
 
     # (tau, Lpk): the slice's and the first bulk's key, the scaled key, an
     # unaligned tau
     for tau, Lpk in ((128, 9), (256, 65), (33, 9)):
-        for B in ((256, 1024) if tiny else (65536, 1 << 21)):
+        for B in (65536, 1 << 21):
             W, D, L = -(-tau // 32), 32 * Lpk, Lpk
             pk = words((tau, Lpk))
             pkcol = enc.pk_columns(pk)
             selw = words((B, W))
             plain = (words((B,)) & 1).contiguous()
             got = enc.encrypt_bits_fused(selw, pkcol, plain, L)
-            ctx["timer"].sync()
+            torch.cuda.synchronize()
             want = enc.encrypt_plain(selw, pkcol, plain, L)
             bad, err = compare(torch, got, want)
             check(bad == 0, f"encrypt tau={tau} B={B}: {bad} mismatches")
@@ -174,16 +189,16 @@ def phase_kernels(ctx):
             rows.append(dict(
                 kernel="encrypt", label=f"tau{tau}", shape=f"B={B} tau={tau} D={D} L={L}",
                 mismatches=bad, max_abs_err=err,
-                ms=ctx["timer"].kernel_ms(lambda: enc.encrypt_bits_fused(selw, pkcol, plain, L)),
-                plain_ms=ctx["timer"].kernel_ms(
-                    lambda: enc.encrypt_plain(selw, pkcol, plain, L), budget_ms=200.0),
+                **timed(lambda: enc.encrypt_bits_fused(selw, pkcol, plain, L),
+                        lambda: enc.encrypt_plain(selw, pkcol, plain, L)),
                 ops=2 * B * tau * D, ops_rate=INT8_TC_OPS_PER_S, bytes=nbytes,
             ))
             log(f"[kernels] encrypt tau={tau} B={B}: mismatches {bad}, "
-                f"kernel {rows[-1]['ms']} ms, plain {rows[-1]['plain_ms']} ms")
+                f"kernel {rows[-1]['ms']} ms (call {rows[-1]['call_ms']} ms), "
+                f"plain {rows[-1]['plain_ms']} ms")
             del got, want, selw, plain
     for r in rows:
-        t_ops = r["ops"] / r["ops_rate"] * 1e3 if r["ops_rate"] else 0.0
+        t_ops = r["ops"] / r["ops_rate"] * 1e3
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         r["bound_ms"] = max(t_ops, t_bytes)
         r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
@@ -243,13 +258,13 @@ def phase_main(ctx):
         HomomorphicOrGate, HomomorphicXorGate,
     )
 
-    timer, dev, seed = ctx["timer"], ctx["dev"], ctx["seed"]
-    n = 16 if ctx["tiny"] else 2048
+    torch, dev, seed = ctx["torch"], ctx["dev"], ctx["seed"]
+    n = 2048
     rng = np.random.default_rng(seed)
     params = ht.Parameters(128, 128, 1, 128)
     t0 = time.perf_counter()
     c = seeded_context(ht, params, seed, dev)
-    timer.sync()
+    torch.cuda.synchronize()
     t_keygen = time.perf_counter() - t0
     xs = rng.integers(0, 2**32, size=n, dtype=np.uint64)
     ys = rng.integers(0, 2**32, size=n, dtype=np.uint64)
@@ -257,13 +272,13 @@ def phase_main(ctx):
     t0 = time.perf_counter()
     ca = c.encrypt(xs.tolist(), ht.U32, batch=True)
     cb = c.encrypt(ys.tolist(), ht.U32, batch=True)
-    timer.sync()
+    torch.cuda.synchronize()
     t_enc = time.perf_counter() - t0
     check(tuple(ca.limbs.shape) == (n, 32, 9), f"ciphertext shape {tuple(ca.limbs.shape)}")
 
     t0 = time.perf_counter()
     cs = c.apply2(HomomorphicAddition, ca, cb)
-    timer.sync()
+    torch.cuda.synchronize()
     t_add = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -312,18 +327,16 @@ def phase_bulk(ctx):
 
     import homomorph_tpu_torch as ht
 
-    timer, dev, seed = ctx["timer"], ctx["dev"], ctx["seed"]
+    torch, dev, seed = ctx["torch"], ctx["dev"], ctx["seed"]
     rng = np.random.default_rng(seed + 10)
     out = []
     for params, n_bits in ((ht.Parameters(128, 128, 64, 128), 1 << 21),
                            (ht.Parameters(1024, 1024, 64, 256), 1 << 20)):
-        if ctx["tiny"]:
-            n_bits = 1 << 10
         c = seeded_context(ht, params, seed + 20, dev)
         vals = rng.integers(0, 2**32, size=n_bits // 32, dtype=np.uint64)
         t0 = time.perf_counter()
         ct = c.encrypt(vals.tolist(), ht.U32, batch=True)
-        timer.sync()
+        torch.cuda.synchronize()
         t_enc = time.perf_counter() - t0
         t0 = time.perf_counter()
         back = np.array(c.decrypt(ct).tolist(), dtype=np.uint64)
@@ -343,13 +356,11 @@ def phase_bulk(ctx):
 def phase_profile(ctx, main_stats, bulk_stats):
     """Warm wall time, device time by kernel and the device's busy share of
     the checked add and of the first bulk round trip.  Each stage runs once
-    more unprofiled (warm: phases 5-6 ran it cold) and once under
-    ``torch.profiler``; the busy share is the profiled device time over the
-    warm wall time."""
+    more unprofiled for its warm wall time (phases 5-6 ran it cold), then
+    under ``torch.profiler`` (:func:`device_records`); the busy share is the
+    profiled device time over the warm wall time."""
     import homomorph_tpu_torch as ht
     from homomorph_tpu_torch.models import HomomorphicAddition
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     torch = ctx["torch"]
     c, ca, cb = ctx["add_inputs"]
@@ -367,19 +378,13 @@ def phase_profile(ctx, main_stats, bulk_stats):
         fn()
         torch.cuda.synchronize()
         warm_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        per_kernel = {}
-        for ev in prof.events():  # device-side records only: kernels and copies
-            if ev.device_type == DeviceType.CUDA:
-                per_kernel[ev.name] = per_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
-        device_ms = sum(per_kernel.values())
+        per_kernel = device_records(torch, fn)
+        dev_ms = sum(per_kernel.values())
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
-        out[name] = dict(cold_ms=cold_ms, warm_ms=warm_ms, device_ms=device_ms,
-                         busy_share=device_ms / warm_ms, top=top)
+        out[name] = dict(cold_ms=cold_ms, warm_ms=warm_ms, device_ms=dev_ms,
+                         busy_share=dev_ms / warm_ms, top=top)
         log(f"[profile] {name}: cold {cold_ms:.3f} ms, warm {warm_ms:.3f} ms wall, device "
-            f"{device_ms:.3f} ms (busy {device_ms / warm_ms:.1%}); top: "
+            f"{dev_ms:.3f} ms (busy {dev_ms / warm_ms:.1%}); top: "
             + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
     return out
 
@@ -387,15 +392,11 @@ def phase_profile(ctx, main_stats, bulk_stats):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement to this file")
-    ap.add_argument("--profile", action="store_true",
-                    help="after the result phases, trace the add and a bulk round trip")
-    ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="tiny sizes on the CPU through the plain versions; no result")
     args = ap.parse_args(argv)
 
     import torch
 
-    if not args.rehearse_cpu and not torch.cuda.is_available():
+    if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
@@ -404,32 +405,26 @@ def main(argv=None):
     from homomorph_tpu_torch.gf2 import encrypt_kernel as enc
     from homomorph_tpu_torch.gf2 import kernels as k
 
-    on_card = not args.rehearse_cpu
-    dev = torch.device("cuda" if on_card else "cpu")
-    ctx = dict(torch=torch, dev=dev, seed=SEED, tiny=not on_card,
-               timer=Timer(torch, on_card),
+    dev = torch.device("cuda")
+    ctx = dict(torch=torch, dev=dev, seed=SEED,
                gen=torch.Generator(device=dev).manual_seed(SEED))
     t_start = time.perf_counter()
 
     # 1. device line
-    card = "cpu rehearsal"
-    if on_card:
-        card = nvidia_smi("name,power.limit")
-        log(card)
-        ctx["int32_rate"], sms, mhz = int32_rate(torch)
-        log(f"[device] {torch.cuda.get_device_name(0)}: {sms} SMs, max SM clock {mhz:.0f} MHz "
-            f"-> INT32 {ctx['int32_rate'] / 1e12:.2f} Tops/s; torch {torch.__version__}, "
-            f"CUDA {torch.version.cuda}")
-        # 2. build
-        t0 = time.perf_counter()
-        cuda_build.build()
-        log(f"[build] {', '.join(cuda_build.SOURCES)} built in {time.perf_counter() - t0:.3f} s")
-        for name, text in cuda_build.build_logs.items():
-            for line in text.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"[build] {name}: {line.strip()}")
-    else:
-        ctx["int32_rate"] = 0.0
+    card = nvidia_smi("name,power.limit")
+    log(card)
+    ctx["int32_rate"], sms, mhz = int32_rate(torch)
+    log(f"[device] {torch.cuda.get_device_name(0)}: {sms} SMs, max SM clock {mhz:.0f} MHz "
+        f"-> INT32 {ctx['int32_rate'] / 1e12:.2f} Tops/s; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    # 2. build
+    t0 = time.perf_counter()
+    cuda_build.build()
+    log(f"[build] {', '.join(cuda_build.SOURCES)} built in {time.perf_counter() - t0:.3f} s")
+    for name, text in cuda_build.build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
 
     # 3-4. kernels against plain versions, fixture replay
     rows = phase_kernels(ctx)
@@ -438,16 +433,16 @@ def main(argv=None):
     # 5-6. the main path, with launch counts
     k.clmul_flat.launches = 0
     enc.encrypt_bits_fused.launches = 0
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_memory_stats()
     main_stats = phase_main(ctx)
     bulk_stats = phase_bulk(ctx)
     launches = {"clmul": k.clmul_flat.launches, "encrypt": enc.encrypt_bits_fused.launches}
-    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+    peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"[main] launches in phases 5-6: {launches}; peak device memory {peak:.3f} GB")
-    profile_stats = phase_profile(ctx, main_stats, bulk_stats) if args.profile and on_card else None
+    # 7. where the time of the add and the bulk round trip goes
+    profile_stats = phase_profile(ctx, main_stats, bulk_stats)
 
-    # 7. kernels line: each kernel at its busiest main-path shape
+    # 8. kernels line: each kernel at its busiest main-path shape
     meta = {
         "clmul": ("homomorph_tpu_torch/csrc/clmul.cu", "homomorph_tpu/gf2/kernels.py:56", "add-chain"),
         "encrypt": ("homomorph_tpu_torch/csrc/encrypt.cu",
@@ -472,10 +467,6 @@ def main(argv=None):
                            launches=launches, peak_gb=peak, kernels=kernels,
                            profile=profile_stats,
                            seconds=time.perf_counter() - t_start), f, indent=1)
-    if not on_card:
-        log(f"[rehearsal] all phases passed on the CPU in {time.perf_counter() - t_start:.1f} s; "
-            "no result without a card")
-        return 3
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} was not launched on the main path")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -13,6 +13,9 @@ plain versions and of the dispatch around the kernels; parity is bit-exact
 CUDA kernels against the plain versions on the card.
 """
 
+import importlib.util
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -69,6 +72,20 @@ class TestClmul:
             tk.clmul_flat(a.T, a.T)  # non-contiguous
         with pytest.raises(ValueError):
             tk.clmul_flat(a[:, :0], a)
+
+    @pytest.mark.parametrize("La,Lb", [(5, 5), (9, 9), (9, 256), (256, 9), (9, 48)])
+    def test_smoke_bound_counts_the_kernels_work(self, La, Lb):
+        """chip_smoke.py's bound counts the (limb, output limb) pairs that
+        csrc/clmul.cu's loops visit, 32 steps of 2 ops each."""
+        path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "chip_smoke.py")
+        spec = importlib.util.spec_from_file_location("chip_smoke", path)
+        smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(smoke)
+        Ls, Lg = min(La, Lb), max(La, Lb)
+        pairs = sum(
+            min(Ls - 1, m) - max(0, m - Lg) + 1 for m in range(Ls + Lg)
+        )  # the kernel's i0..i1 range for each output limb m
+        assert smoke.clmul_ops(3, La, Lb) == 3 * pairs * 32 * 2
 
     def test_cpu_tensor_takes_the_plain_version(self, rng):
         before = tk.clmul_flat.launches
