@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA card.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -9,8 +9,10 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build the CUDA kernels from ``homomorph_tpu_torch/csrc`` (one ``nvcc``
    per source, all at once);
 3. each kernel against its plain torch version on the card, at the shapes
-   the main path gives it (0 mismatches required); each timed by its device
-   time from ``torch.profiler`` (see :func:`device_records`);
+   the paths give it (0 mismatches required), timed by its device time
+   from ``torch.profiler`` (see :func:`device_records`): K1 clmul, the
+   encrypt kernels K2, K3 and X1 at tau 128, 256 and 33, and T1 threefry,
+   whose first words must also equal ``jax.random.bits``' (:data:`JAX_BITS`);
 4. replay of the interop fixtures (``tests/fixtures/interop_v1.json``):
    keygen and recorded-stream encryption on the card must give the
    fixture's bytes;
@@ -20,9 +22,19 @@ Phases, in order; any failure exits non-zero before the result line:
    on a few rows; a U8 AND/OR/XOR/NOT gate check;
 6. bulk round-trips: 2^21 bits at ``(128, 128, 64, 128)`` and 2^20 bits at
    ``(1024, 1024, 64, 256)``;
-7. a ``torch.profiler`` trace of the checked add and of the first bulk
-   round trip: warm wall time, device time by kernel, busy share;
-8. one JSON line of kernels (launches counted over phases 5-6 only);
+5b. the multiply/compare path at the same parameters with
+   ``HOMOMORPH_TPU_TORCH_ENC_IMPL=pallas_v1`` (encrypt through K3): checked
+   u8 multiplication of 1,024 pairs, u32 ``lt`` of 2,048 pairs, u8 max, eq
+   and sub, each decrypted and asserted; 4 rows of the product and of
+   ``lt`` against the CPU's plain path (limbs, bound, noise);
+6b. the encrypt experiment's entry (``homomorph_tpu_torch.experiments.
+   exp_enc``): K2, K3 and X1 on 2^21 bits, K3 and X1 held to K2;
+3b. K1 at the busiest shapes phase 5b launched it with;
+7. ``torch.profiler`` traces of the checked add, the first bulk round trip,
+   the u8 multiplication and the u32 ``lt``: warm wall time, device time by
+   kernel, busy share;
+8. one JSON line of kernels (launches counted over the paths: phases 5-6,
+   5b and 6b, each counted from 0);
 9. last line ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits 2 and prints no result.
@@ -32,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -45,6 +58,23 @@ SEED = 1234  # keys, plaintexts and selection words all derive from it
 HBM_BYTES_PER_S = 3.35e12
 INT8_TC_OPS_PER_S = 1979e12
 INT32_OPS_PER_SM_PER_CLOCK = 64  # CUDA C guide, arithmetic throughput, cc 9.0
+# 32-bit operations of one threefry-2x32-20 word (csrc/threefry.cu) that only
+# the INT32 pipe executes: 20 rotates (funnel shifts) and 21 XORs.  Its 32
+# adds may also issue as IMAD on the FMA pipe, so they set no lower bound of
+# their own (all 73 operations at twice the INT32 rate take less time).
+THREEFRY_ALU_OPS_PER_WORD = 20 + 21
+
+#: jax.random.bits(jax.random.key(seed), (8,), uint32), computed by the JAX
+#: package on the CPU (JAX 0.9.0; tests/test_torch_threefry.py holds the
+#: same words); T1 must reproduce them on the card
+JAX_BITS = {
+    0: [4070199207, 4202968722, 1427181096, 2012915765,
+        2447653815, 710830403, 1332275837, 2961296638],
+    17: [1083326455, 3794755506, 3288344309, 1599061380,
+         3175417854, 1130779688, 1775367574, 3399734426],
+    1234: [3715183467, 3461522409, 1578076316, 3641478021,
+           607760917, 2701805931, 3332195204, 1640115702],
+}
 
 
 class SmokeFailure(AssertionError):
@@ -75,27 +105,32 @@ def int32_rate(torch):
     return sms * INT32_OPS_PER_SM_PER_CLOCK * mhz * 1e6, sms, mhz
 
 
-def device_records(torch, fn, iters=1):
+def device_records(torch, fn, iters=1, attempts=3):
     """Device time in ms by record name (kernels and copies) over ``iters``
-    calls of ``fn``, from ``torch.profiler``, after one warm-up call.
+    calls of ``fn``, from ``torch.profiler`` tracing the card only, after
+    one warm-up call.
 
     This is the card's own time: it leaves out the host's time to issue a
     call (checks, allocation, the ctypes launch), which for a short kernel
-    is longer than the kernel itself."""
+    is longer than the kernel itself.  A trace that comes back without
+    device records is taken again, up to ``attempts`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per_name = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            per_name[ev.name] = per_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
-    return per_name
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        per_name = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                per_name[ev.name] = per_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+        if per_name:
+            return per_name
+    raise SmokeFailure(f"torch.profiler recorded no device time in {attempts} traces")
 
 
 def device_ms(torch, fn, iters):
@@ -134,74 +169,131 @@ def clmul_ops(B, La, Lb):
     return B * 32 * Ls * (Lg + 1) * 2
 
 
-def phase_kernels(ctx):
-    """K1 and K2 against their plain versions at the main path's shapes."""
-    torch, dev, rng = ctx["torch"], ctx["dev"], ctx["gen"]
-    from homomorph_tpu_torch.gf2 import encrypt_kernel as enc
-    from homomorph_tpu_torch.gf2 import kernels as k
+def random_words(ctx, shape):
+    torch = ctx["torch"]
+    return torch.randint(-(2**31), 2**31, shape, dtype=torch.int32, device=ctx["dev"],
+                         generator=ctx["gen"])
 
-    def words(shape):
-        return torch.randint(-(2**31), 2**31, shape, dtype=torch.int32, device=dev, generator=rng)
 
-    def timed(kernel_fn, plain_fn):
-        return dict(ms=device_ms(torch, kernel_fn, 20), call_ms=call_ms(torch, kernel_fn),
-                    plain_ms=device_ms(torch, plain_fn, 3))
+def timed(torch, kernel_fn, plain_fn):
+    return dict(ms=device_ms(torch, kernel_fn, 20), call_ms=call_ms(torch, kernel_fn),
+                plain_ms=device_ms(torch, plain_fn, 3))
 
-    rows = []
-    # (label, B, La, Lb): keygen S*Q_i, the adder's whole-tensor AND, its last
-    # chain step, and small-batch wide operands
-    for label, B, La, Lb in (("keygen", 128, 5, 5), ("add-and", 65536, 9, 9),
-                             ("add-chain", 2048, 9, 256), ("wide48", 7, 9, 48),
-                             ("wide96", 7, 9, 96)):
-        a, b = words((B, La)), words((B, Lb))
-        got = k.clmul_flat(a, b)
-        torch.cuda.synchronize()
-        want = k.clmul_plain(a, b)
-        bad, err = compare(torch, got, want)
-        check(bad == 0, f"clmul {label} ({B}, {La}x{Lb}): {bad} mismatches")
-        ops = clmul_ops(B, La, Lb)
-        nbytes = B * (La + Lb) * 4 * 2
-        rows.append(dict(
-            kernel="clmul", label=label, shape=f"B={B} La={La} Lb={Lb}",
-            mismatches=bad, max_abs_err=err,
-            **timed(lambda: k.clmul_flat(a, b), lambda: k.clmul_plain(a, b)),
-            ops=ops, ops_rate=ctx["int32_rate"], bytes=nbytes,
-        ))
-        log(f"[kernels] clmul {label:9s} B={B} {La}x{Lb}: mismatches {bad}, "
-            f"kernel {rows[-1]['ms']} ms (call {rows[-1]['call_ms']} ms), "
-            f"plain {rows[-1]['plain_ms']} ms")
 
-    # (tau, Lpk): the slice's and the first bulk's key, the scaled key, an
-    # unaligned tau
-    for tau, Lpk in ((128, 9), (256, 65), (33, 9)):
-        for B in (65536, 1 << 21):
-            W, D, L = -(-tau // 32), 32 * Lpk, Lpk
-            pk = words((tau, Lpk))
-            pkcol = enc.pk_columns(pk)
-            selw = words((B, W))
-            plain = (words((B,)) & 1).contiguous()
-            got = enc.encrypt_bits_fused(selw, pkcol, plain, L)
-            torch.cuda.synchronize()
-            want = enc.encrypt_plain(selw, pkcol, plain, L)
-            bad, err = compare(torch, got, want)
-            check(bad == 0, f"encrypt tau={tau} B={B}: {bad} mismatches")
-            nbytes = (B * W + B + B * L + D * W) * 4
-            rows.append(dict(
-                kernel="encrypt", label=f"tau{tau}", shape=f"B={B} tau={tau} D={D} L={L}",
-                mismatches=bad, max_abs_err=err,
-                **timed(lambda: enc.encrypt_bits_fused(selw, pkcol, plain, L),
-                        lambda: enc.encrypt_plain(selw, pkcol, plain, L)),
-                ops=2 * B * tau * D, ops_rate=INT8_TC_OPS_PER_S, bytes=nbytes,
-            ))
-            log(f"[kernels] encrypt tau={tau} B={B}: mismatches {bad}, "
-                f"kernel {rows[-1]['ms']} ms (call {rows[-1]['call_ms']} ms), "
-                f"plain {rows[-1]['plain_ms']} ms")
-            del got, want, selw, plain
+def set_bounds(rows):
     for r in rows:
         t_ops = r["ops"] / r["ops_rate"] * 1e3
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         r["bound_ms"] = max(t_ops, t_bytes)
         r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    return rows
+
+
+def clmul_rows(ctx, shapes):
+    """K1 against its plain version at (label, B, La, Lb) shapes."""
+    torch = ctx["torch"]
+    from homomorph_tpu_torch.gf2 import kernels as k
+
+    rows = []
+    for label, B, La, Lb in shapes:
+        a, b = random_words(ctx, (B, La)), random_words(ctx, (B, Lb))
+        got = k.clmul_flat(a, b)
+        torch.cuda.synchronize()
+        want = k.clmul_plain(a, b)
+        bad, err = compare(torch, got, want)
+        check(bad == 0, f"clmul {label} ({B}, {La}x{Lb}): {bad} mismatches")
+        rows.append(dict(
+            kernel="clmul", label=label, shape=f"B={B} La={La} Lb={Lb}",
+            mismatches=bad, max_abs_err=err,
+            **timed(torch, lambda: k.clmul_flat(a, b), lambda: k.clmul_plain(a, b)),
+            ops=clmul_ops(B, La, Lb), ops_rate=ctx["int32_rate"], bytes=B * (La + Lb) * 4 * 2,
+        ))
+        log(f"[kernels] clmul {label:9s} B={B} {La}x{Lb}: mismatches {bad}, "
+            f"kernel {rows[-1]['ms']} ms (call {rows[-1]['call_ms']} ms), "
+            f"plain {rows[-1]['plain_ms']} ms")
+    return set_bounds(rows)
+
+
+def phase_kernels(ctx):
+    """K1 at the add path's shapes, K2, K3 and X1 at the encrypt grid, T1."""
+    torch, dev = ctx["torch"], ctx["dev"]
+    from homomorph_tpu_torch import prng
+    from homomorph_tpu_torch import rng as hrng
+    from homomorph_tpu_torch.gf2 import encrypt_kernel as enc
+    from homomorph_tpu_torch.gf2 import poly as gf2
+
+    # (label, B, La, Lb): keygen S*Q_i, the adder's whole-tensor AND, its last
+    # chain step, and small-batch wide operands
+    rows = clmul_rows(ctx, (("keygen", 128, 5, 5), ("add-and", 65536, 9, 9),
+                            ("add-chain", 2048, 9, 256), ("wide48", 7, 9, 48),
+                            ("wide96", 7, 9, 96)))
+
+    # (tau, Lpk): the slice's and the first bulk's key, the scaled key, an
+    # unaligned tau; K2 and K3 share a plain version, X1 has its own
+    enc_rows = []
+    for tau, Lpk in ((128, 9), (256, 65), (33, 9)):
+        for B in (65536, 1 << 21):
+            W, D, L = -(-tau // 32), 32 * Lpk, Lpk
+            pkcol = enc.pk_columns(random_words(ctx, (tau, Lpk)))
+            planes = enc.pk_planes(pkcol)
+            selw = random_words(ctx, (B, W))
+            sel = gf2.unpack_bits(selw, tau, dtype=torch.int8)
+            plain = (random_words(ctx, (B,)) & 1).contiguous()
+            want = enc.encrypt_plain(selw, planes, plain, L)
+            want_sel = enc.encrypt_sel_plain(sel, planes, plain, L)
+            check(torch.equal(want, want_sel), f"plain versions disagree at tau={tau} B={B}")
+            out_bytes = (B + B * L) * 4  # plain in, limbs out
+            variants = (
+                ("encrypt", lambda: enc.encrypt_words_popc(selw, pkcol, plain, L),
+                 lambda: enc.encrypt_plain(selw, enc.pk_planes(pkcol), plain, L),
+                 want, B * W * 4 + D * W * 4),
+                ("encrypt_v1", lambda: enc.encrypt_words_mma(selw, planes, plain, L),
+                 lambda: enc.encrypt_plain(selw, planes, plain, L),
+                 want, B * W * 4 + D * 32 * W),
+                ("encrypt_v3", lambda: enc.encrypt_sel_mma(sel, planes, plain, L),
+                 lambda: enc.encrypt_sel_plain(sel, planes, plain, L),
+                 want_sel, B * tau + D * 32 * W),
+            )
+            for name, fn, plain_fn, ref, in_bytes in variants:
+                got = fn()
+                torch.cuda.synchronize()
+                bad, err = compare(torch, got, ref)
+                check(bad == 0, f"{name} tau={tau} B={B}: {bad} mismatches")
+                enc_rows.append(dict(
+                    kernel=name, label=f"tau{tau}", shape=f"B={B} tau={tau} D={D} L={L}",
+                    mismatches=bad, max_abs_err=err, **timed(torch, fn, plain_fn),
+                    ops=2 * B * tau * D, ops_rate=INT8_TC_OPS_PER_S,
+                    bytes=in_bytes + out_bytes,
+                ))
+                log(f"[kernels] {name} tau={tau} B={B}: mismatches {bad}, "
+                    f"kernel {enc_rows[-1]['ms']} ms (call {enc_rows[-1]['call_ms']} ms), "
+                    f"plain {enc_rows[-1]['plain_ms']} ms")
+                del got
+            del want, want_sel, selw, sel, plain
+    rows += set_bounds(enc_rows)
+
+    # T1: the encrypt path's words for 2^21 bits at tau = 128, and JAX's words
+    key = hrng.threefry_key(ctx["seed"])
+    shape = (1 << 21, 4)
+    got = prng.random_bits(key, shape, dev)
+    torch.cuda.synchronize()
+    bad, err = compare(torch, got, prng.random_bits_plain(key, shape, dev))
+    check(bad == 0, f"threefry {shape}: {bad} mismatches")
+    for seed, want_words in JAX_BITS.items():
+        first = prng.random_bits(hrng.threefry_key(seed), (8,), dev)
+        have = [w & 0xFFFFFFFF for w in first.tolist()]
+        check(have == want_words, f"threefry seed {seed}: {have} != jax.random.bits {want_words}")
+    n = shape[0] * shape[1]
+    rows += set_bounds([dict(
+        kernel="threefry", label="words", shape=f"{shape[0]}x{shape[1]} words",
+        mismatches=bad, max_abs_err=err,
+        **timed(torch, lambda: prng.random_bits(key, shape, dev),
+                lambda: prng.random_bits_plain(key, shape, dev)),
+        ops=n * THREEFRY_ALU_OPS_PER_WORD, ops_rate=ctx["int32_rate"], bytes=n * 4,
+    )])
+    log(f"[kernels] threefry {shape}: mismatches {bad}, seeds {sorted(JAX_BITS)} equal "
+        f"jax.random.bits; kernel {rows[-1]['ms']} ms (call {rows[-1]['call_ms']} ms), "
+        f"plain {rows[-1]['plain_ms']} ms")
     return rows
 
 
@@ -353,19 +445,140 @@ def phase_bulk(ctx):
     return out
 
 
-def phase_profile(ctx, main_stats, bulk_stats):
+def phase_mulcmp(ctx):
+    """Phase 5b: checked u8 multiplication and u32 comparison, encrypt
+    through K3 (the caller selects it)."""
+    import numpy as np
+
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch.gf2 import kernels as k
+    from homomorph_tpu_torch.models import (
+        HomomorphicEquality, HomomorphicLessThan, HomomorphicMaximum,
+        HomomorphicMultiplication, HomomorphicSubtraction,
+    )
+
+    torch, dev, seed = ctx["torch"], ctx["dev"], ctx["seed"] + 30
+    rng = np.random.default_rng(seed)
+    n8, n32 = 1024, 2048
+    a8, b8 = rng.integers(0, 256, size=n8), rng.integers(0, 256, size=n8)
+    b8[::8] = a8[::8]  # some equal pairs for eq
+    x32 = rng.integers(0, 2**32, size=n32, dtype=np.uint64)
+    y32 = rng.integers(0, 2**32, size=n32, dtype=np.uint64)
+    y32[::16] = x32[::16]
+
+    def stage(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    params = ht.Parameters(128, 128, 1, 128)
+    c, keygen_ms = stage(lambda: seeded_context(ht, params, seed, dev))
+    (e8a, e8b, e32a, e32b), enc_ms = stage(lambda: (
+        c.encrypt(a8.tolist(), ht.U8, batch=True), c.encrypt(b8.tolist(), ht.U8, batch=True),
+        c.encrypt(x32.tolist(), ht.U32, batch=True), c.encrypt(y32.tolist(), ht.U32, batch=True)))
+
+    # the multiplication's K1 launches as [B, La] x [B, Lb], for phase 3b
+    shapes = []
+    clmul = k.clmul
+
+    def recording(a, b):
+        rows = math.prod(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]))
+        shapes.append((rows, a.shape[-1], b.shape[-1]))
+        return clmul(a, b)
+
+    k.clmul = recording
+    prod, mul_ms = stage(lambda: c.apply2(HomomorphicMultiplication, e8a, e8b))
+    k.clmul = clmul
+    ctx["mul_shapes"] = shapes
+    lt, lt_ms = stage(lambda: c.apply2(HomomorphicLessThan, e32a, e32b))
+    mx, max_ms = stage(lambda: c.apply2(HomomorphicMaximum, e8a, e8b))
+    eq, eq_ms = stage(lambda: c.apply2(HomomorphicEquality, e8a, e8b))
+    sb, sub_ms = stage(lambda: c.apply2(HomomorphicSubtraction, e8a, e8b))
+
+    t0 = time.perf_counter()
+    got = np.array(c.decrypt(prod).tolist())
+    dec_ms = (time.perf_counter() - t0) * 1e3
+    want = (a8 * b8) % 256
+    check(np.array_equal(got, want), f"u8 mul: {int((got != want).sum())} of {n8} products wrong")
+    got = np.array(c.decrypt(lt).tolist(), dtype=bool)
+    check(np.array_equal(got, x32 < y32), f"u32 lt: {int((got != (x32 < y32)).sum())} wrong")
+    for name, cph, want in (("max", mx, np.maximum(a8, b8)), ("eq", eq, a8 == b8),
+                            ("sub", sb, (a8 - b8) % 256)):
+        got = np.array(c.decrypt(cph).tolist()).astype(want.dtype)
+        check(np.array_equal(got, want), f"u8 {name}: {int((got != want).sum())} wrong")
+
+    # the card's product and comparison against the CPU's plain path
+    def rows4(cph):
+        return ht.Ciphered(cph.limbs[:4].cpu(), cph.bound, cph.desc,
+                           zero_lanes=cph.zero_lanes, noise=cph.noise)
+
+    for name, op, card, a, b in (("mul", HomomorphicMultiplication, prod, e8a, e8b),
+                                 ("lt", HomomorphicLessThan, lt, e32a, e32b)):
+        ref = op.unsafe_apply(rows4(a), rows4(b))
+        check(ref.limbs.shape == card.limbs[:4].shape
+              and bool((ref.limbs == card.limbs[:4].cpu()).all())
+              and (ref.bound, ref.noise, ref.zero_lanes) == (card.bound, card.noise, card.zero_lanes),
+              f"{name}: card limbs, bound or noise differ from the CPU plain path")
+    log(f"[mulcmp] Parameters(128, 128, 1, 128), encrypt through K3: keygen {keygen_ms:.3f} ms, "
+        f"encrypt {n8}+{n8} u8 and {n32}+{n32} u32 {enc_ms:.3f} ms; checked u8 mul "
+        f"{mul_ms:.3f} ms ({len(shapes)} clmul launches; product bound {prod.bound}, noise "
+        f"{prod.noise}, L={prod.num_limbs}), u32 lt {lt_ms:.3f} ms, u8 max {max_ms:.3f} ms, "
+        f"eq {eq_ms:.3f} ms, sub {sub_ms:.3f} ms; decrypt product {dec_ms:.3f} ms; all right, "
+        f"card == CPU on 4 rows of mul and lt")
+    ctx["mulcmp_inputs"] = (c, e8a, e8b, e32a, e32b)
+    return dict(keygen_ms=keygen_ms, encrypt_ms=enc_ms, mul_ms=mul_ms, lt_ms=lt_ms,
+                max_ms=max_ms, eq_ms=eq_ms, sub_ms=sub_ms, decrypt_mul_ms=dec_ms,
+                mul_clmul_launches=len(shapes), u8_pairs=n8, u32_pairs=n32)
+
+
+def phase_exp_enc(ctx):
+    """Phase 6b: the encrypt experiment's entry at its full size."""
+    from homomorph_tpu_torch.experiments import exp_enc
+
+    out = exp_enc.run(bits=1 << 21, device=ctx["dev"])
+    for name, r in out["rows"].items():
+        check(r["mismatches"] == 0, f"exp_enc {name}: {r['mismatches']} limbs differ from K2")
+        log(f"[exp_enc] {name}: {r['ms']:.4f} ms per step (draw + encrypt), "
+            f"{r['bits_per_s']:,.0f} bits/s; equal to pallas_v2")
+    return out
+
+
+def mul_shape_rows(ctx):
+    """Phase 3b: K1 at the busiest shapes of the u8 multiplication: its
+    first launch (the broadcast partial products), and the launch with the
+    most work among stacked groups (more rows than the batch: CSA levels,
+    the ripple's g products) and among single products (the ripple chain)."""
+    shapes = ctx["mul_shapes"]
+    n = ctx["mulcmp_inputs"][1].limbs.shape[0]
+    groups = [s for s in shapes[1:] if s[0] > n]
+    singles = [s for s in shapes[1:] if s[0] == n]
+    check(groups and singles, f"unexpected multiplication launches {shapes}")
+    return clmul_rows(ctx, (("mul-pp", *shapes[0]),
+                            ("mul-group", *max(groups, key=lambda s: clmul_ops(*s))),
+                            ("mul-chain", *max(singles, key=lambda s: clmul_ops(*s)))))
+
+
+def phase_profile(ctx, main_stats, bulk_stats, mul_stats):
     """Warm wall time, device time by kernel and the device's busy share of
-    the checked add and of the first bulk round trip.  Each stage runs once
-    more unprofiled for its warm wall time (phases 5-6 ran it cold), then
-    under ``torch.profiler`` (:func:`device_records`); the busy share is the
+    the checked add, the first bulk round trip, the u8 multiplication and
+    the u32 comparison.  Each stage runs once more unprofiled for its warm
+    wall time (phases 5-6 and 5b ran it cold), then under
+    ``torch.profiler`` (:func:`device_records`); the busy share is the
     profiled device time over the warm wall time."""
     import homomorph_tpu_torch as ht
-    from homomorph_tpu_torch.models import HomomorphicAddition
+    from homomorph_tpu_torch.models import (
+        HomomorphicAddition, HomomorphicLessThan, HomomorphicMultiplication,
+    )
 
     torch = ctx["torch"]
     c, ca, cb = ctx["add_inputs"]
     bc, vals, bct = ctx["bulk_inputs"]
+    mc, e8a, e8b, e32a, e32b = ctx["mulcmp_inputs"]
     stages = {
+        "mul_u8": (lambda: mc.apply2(HomomorphicMultiplication, e8a, e8b), mul_stats["mul_ms"]),
+        "lt_u32": (lambda: mc.apply2(HomomorphicLessThan, e32a, e32b), mul_stats["lt_ms"]),
         "add": (lambda: c.apply2(HomomorphicAddition, ca, cb), main_stats["add_ms"]),
         "bulk_encrypt": (lambda: bc.encrypt(vals.tolist(), ht.U32, batch=True),
                          bulk_stats[0]["encrypt_ms"]),
@@ -401,6 +614,7 @@ def main(argv=None):
         return 2
     sys.path.insert(0, ROOT)
     import homomorph_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from homomorph_tpu_torch import prng
     from homomorph_tpu_torch.gf2 import cuda_build
     from homomorph_tpu_torch.gf2 import encrypt_kernel as enc
     from homomorph_tpu_torch.gf2 import kernels as k
@@ -427,26 +641,68 @@ def main(argv=None):
                 log(f"[build] {name}: {line.strip()}")
 
     # 3-4. kernels against plain versions, fixture replay
+    t0 = time.perf_counter()
     rows = phase_kernels(ctx)
+    log(f"[kernels] phase done in {time.perf_counter() - t0:.3f} s")
     phase_fixtures(ctx)
 
-    # 5-6. the main path, with launch counts
-    k.clmul_flat.launches = 0
-    enc.encrypt_bits_fused.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    main_stats = phase_main(ctx)
-    bulk_stats = phase_bulk(ctx)
-    launches = {"clmul": k.clmul_flat.launches, "encrypt": enc.encrypt_bits_fused.launches}
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[main] launches in phases 5-6: {launches}; peak device memory {peak:.3f} GB")
-    # 7. where the time of the add and the bulk round trip goes
-    profile_stats = phase_profile(ctx, main_stats, bulk_stats)
+    # 5-6, 5b, 6b. the paths, each with its launch counts from 0
+    wrappers = {"clmul": k.clmul_flat, "encrypt": enc.encrypt_words_popc,
+                "encrypt_v1": enc.encrypt_words_mma, "encrypt_v3": enc.encrypt_sel_mma,
+                "threefry": prng.random_bits}
 
-    # 8. kernels line: each kernel at its busiest main-path shape
+    def run_path(fn):
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        log(f"[paths] path done in {time.perf_counter() - t0:.3f} s")
+        return out, {name: w.launches for name, w in wrappers.items()}
+
+    paths = {}
+    torch.cuda.reset_peak_memory_stats()
+    (main_stats, bulk_stats), paths["add"] = run_path(lambda: (phase_main(ctx), phase_bulk(ctx)))
+    saved_impl = os.environ.get(enc.ENC_IMPL_ENV)
+    os.environ[enc.ENC_IMPL_ENV] = "pallas_v1"  # this phase only: encrypt through K3
+    mul_stats, paths["mul_cmp"] = run_path(lambda: phase_mulcmp(ctx))
+    if saved_impl is None:
+        del os.environ[enc.ENC_IMPL_ENV]
+    else:
+        os.environ[enc.ENC_IMPL_ENV] = saved_impl
+    exp_stats, paths["exp_enc"] = run_path(lambda: phase_exp_enc(ctx))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for path, counts in paths.items():
+        log(f"[paths] launches in {path}: {counts}")
+    log(f"[paths] peak device memory over the paths {peak:.3f} GB")
+    # which kernels each path must have run, and K2 must not run under pallas_v1
+    needs = {"add": ("clmul", "encrypt", "threefry"),
+             "mul_cmp": ("clmul", "encrypt_v1", "threefry"),
+             "exp_enc": ("encrypt", "encrypt_v1", "encrypt_v3", "threefry")}
+    for path, names in needs.items():
+        for name in names:
+            check(paths[path][name] > 0, f"{name} was not launched on the {path} path")
+    check(paths["mul_cmp"]["encrypt"] == 0, "K2 ran while pallas_v1 selected K3")
+
+    # 3b. K1 at the multiplication's busiest shapes
+    rows += mul_shape_rows(ctx)
+    # 7. where the time of each path goes
+    t0 = time.perf_counter()
+    profile_stats = phase_profile(ctx, main_stats, bulk_stats, mul_stats)
+    log(f"[profile] phase done in {time.perf_counter() - t0:.3f} s")
+
+    # 8. kernels line: each kernel at its busiest path shape
     meta = {
-        "clmul": ("homomorph_tpu_torch/csrc/clmul.cu", "homomorph_tpu/gf2/kernels.py:56", "add-chain"),
+        "clmul": ("homomorph_tpu_torch/csrc/clmul.cu", "homomorph_tpu/gf2/kernels.py:56",
+                  "add-chain"),
         "encrypt": ("homomorph_tpu_torch/csrc/encrypt.cu",
                     "homomorph_tpu/gf2/encrypt_kernel.py:37", "tau128"),
+        "encrypt_v1": ("homomorph_tpu_torch/csrc/encrypt_mma.cu",
+                       "homomorph_tpu/gf2/encrypt_kernel.py:93", "tau128"),
+        "encrypt_v3": ("homomorph_tpu_torch/csrc/encrypt_mma.cu",
+                       "experiments/exp_enc.py:65", "tau128"),
+        # not a Pallas kernel: the threefry stream XLA generates there
+        "threefry": ("homomorph_tpu_torch/csrc/threefry.cu", "homomorph_tpu/cipher.py:360",
+                     "words"),
     }
     kernels = []
     for name, (source, replaces, label) in meta.items():
@@ -454,7 +710,8 @@ def main(argv=None):
         rep = [r for r in mine if r["label"] == label][-1]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name],
+            launches=sum(counts[name] for counts in paths.values()),
+            launches_by_path={path: counts[name] for path, counts in paths.items()},
             max_abs_err=max(r["max_abs_err"] for r in mine),
             mismatches=sum(r["mismatches"] for r in mine),
             shape=rep["shape"], ms=rep["ms"], plain_ms=rep["plain_ms"],
@@ -464,11 +721,12 @@ def main(argv=None):
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(dict(card=card, rows=rows, main=main_stats, bulk=bulk_stats,
-                           launches=launches, peak_gb=peak, kernels=kernels,
-                           profile=profile_stats,
+                           mulcmp=mul_stats, exp_enc=exp_stats, launches=paths,
+                           peak_gb=peak, kernels=kernels, profile=profile_stats,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     for kern in kernels:
-        check(kern["launches"] > 0, f"{kern['name']} was not launched on the main path")
+        check(kern["launches"] > 0 and kern["mismatches"] == 0,
+              f"{kern['name']}: {kern['launches']} launches, {kern['mismatches']} mismatches")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,10 +13,12 @@ Semantics parity:
 
 Every encryption goes through the fused encrypt kernel
 (:func:`~homomorph_tpu_torch.gf2.encrypt_kernel.encrypt_bits_fused`):
-random selection words drawn on the device from a ``torch.Generator``, or
-the host source's selection bits packed into words.  Decryption is the
-per-key mask and a parity (:func:`~homomorph_tpu_torch.gf2.poly.
-decipher_bits`).  A ``Ciphered`` may carry leading batch dimensions.
+selection words drawn on the device from a threefry key
+(:func:`~homomorph_tpu_torch.prng.random_bits`, the JAX package's
+``jax.random.bits`` stream word for word), or the host source's selection
+bits packed into words.  Decryption is the per-key mask and a parity
+(:func:`~homomorph_tpu_torch.gf2.poly.decipher_bits`).  A ``Ciphered`` may
+carry leading batch dimensions.
 
 Limbs are int32 bit patterns (see :mod:`homomorph_tpu_torch.gf2.poly`); the
 wire formats v1 and v2 are byte-identical to the JAX package's.
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from . import codec as _codec
+from . import prng as _prng
 from . import rng as _rng
 from .device import resolve as _resolve
 from .gf2 import kernels as gf2k
@@ -236,7 +239,7 @@ class Ciphered:
         pk: PublicKey,
         desc: _codec.TypeDescriptor | None = None,
         *,
-        generator: torch.Generator | None = None,
+        key: "tuple[int, int] | None" = None,
         source: _rng.RandomSource | None = None,
         batch: bool = False,
         sharding=None,
@@ -245,8 +248,10 @@ class Ciphered:
 
         Exactly one randomness mode:
 
-        * ``generator`` - a ``torch.Generator`` on ``pk``'s device; the
-          selection words are drawn there (production path).
+        * ``key`` - a threefry key (two uint32 words,
+          :func:`~homomorph_tpu_torch.rng.threefry_key`); the selection
+          words are drawn on ``pk``'s device (production path), the same
+          words ``jax.random.bits`` draws for the JAX package.
         * ``source`` - a host :class:`~homomorph_tpu_torch.rng.RandomSource`;
           bytes are consumed per bit in the reference's exact order
           (``ceil(tau/8)`` bytes each, src/cipher.rs:92-97) for bit-exact
@@ -261,8 +266,8 @@ class Ciphered:
                 "sharding= is not ported yet: it waits for the sharding slice "
                 "(ROADMAP queue 1, item 10)"
             )
-        if (generator is None) == (source is None):
-            raise ValueError("pass exactly one of generator= or source=")
+        if (key is None) == (source is None):
+            raise ValueError("pass exactly one of key= or source=")
         values = list(data) if batch else [data]
         if desc is None:
             desc = _codec.descriptor_for(values[0])
@@ -278,18 +283,21 @@ class Ciphered:
         W = -(-tau // 32)
         dev = pk.device
 
-        if generator is not None:
-            selw = torch.randint(
-                -(2**31), 2**31, (total, W), dtype=torch.int32,
-                device=dev, generator=generator,
-            )
+        if key is not None:
+            # The JAX package draws jax.random.bits(key, (total, W)) when
+            # total % 128 == 0 and jax.random.bits(key, (n_values, n_bits,
+            # W)) otherwise (cipher.py:116-119, 355-377): the same flat
+            # words, so one draw serves both.
+            selw = _prng.random_bits(key, (total, W), dev)
         else:
             sel_host = np.empty((total, tau), dtype=np.uint8)
             for i in range(total):
                 sel_host[i] = _rng.random_selection_bits(source, tau)
             selw = gf2.from_numpy(_pack_selection(sel_host, W), dev)
         plain = torch.from_numpy(all_bits.reshape(total).astype(np.int32)).to(dev)
-        limbs = encrypt_bits_fused(selw, pk.columns(), plain, L).reshape(shape + (L,))
+        limbs = encrypt_bits_fused(
+            selw, pk.columns(), plain, L, planes=pk.planes()
+        ).reshape(shape + (L,))
 
         if not batch:
             limbs = limbs[0]

@@ -11,21 +11,20 @@ raises when CUDA is missing).  Randomness mirrors the JAX package:
 
 * **Key generation** defaults to :class:`~homomorph_tpu_torch.rng.
   OsRandomSource` (``os.urandom``), exactly like the reference.
-* **Encryption** draws its selection words on the device from a
-  ``torch.Generator`` seeded with 64 fresh bits of ``os.urandom`` for every
-  ``encrypt`` call (:func:`~homomorph_tpu_torch.rng.os_entropy_generator`).
+* **Encryption** draws its selection words on the device from a threefry
+  key filled with 64 fresh bits of ``os.urandom`` for every ``encrypt``
+  call (:func:`~homomorph_tpu_torch.rng.os_entropy_key`).
 * **Reproducibility seams** (opt-in): ``source=`` pins key generation AND
   routes encryption through the host byte stream in the reference's exact
-  draw order (byte-identical to the JAX package); ``encrypt_seed=`` seeds
-  one device generator that every ``encrypt`` call advances (its stream is
-  torch's, not ``jax.random``'s).
+  draw order (byte-identical to the JAX package); ``encrypt_seed=`` starts
+  a threefry key chain, ``jax.random.key(encrypt_seed)``, that every
+  ``encrypt`` call splits as the JAX package does, so a seeded context
+  gives the JAX package's ciphertext bytes for the same keys.
 """
 
 from __future__ import annotations
 
 from typing import Any, Sequence, Type
-
-import torch
 
 from . import codec as _codec
 from . import keys as _keys
@@ -93,7 +92,7 @@ d/delta >= 21, got d=32, delta=2
             raise ValueError(
                 "source= and encrypt_seed= are mutually exclusive: with a "
                 "source, encryption replays the host byte stream and the "
-                "seeded device generator would be silently unused"
+                "seeded device key chain would be silently unused"
             )
         self._device = _resolve(device)
         self._parameters = parameters
@@ -101,10 +100,9 @@ d/delta >= 21, got d=32, delta=2
         self._public_key: _keys.PublicKey | None = None
         self._source = source if source is not None else _rng.OsRandomSource()
         self._use_source_for_encrypt = source is not None
-        self._generator: torch.Generator | None = None
-        if encrypt_seed is not None:
-            self._generator = torch.Generator(device=self._device)
-            self._generator.manual_seed(encrypt_seed)
+        self._enc_key = (
+            _rng.threefry_key(encrypt_seed) if encrypt_seed is not None else None
+        )
 
     # -- accessors (src/context.rs:353-402) ----------------------------------
 
@@ -161,10 +159,11 @@ d/delta >= 21, got d=32, delta=2
             return Ciphered.cipher(
                 data, self._public_key, desc, source=self._source, batch=batch
             )
-        gen = self._generator
-        if gen is None:
-            gen = _rng.os_entropy_generator(self._public_key.device)
-        return Ciphered.cipher(data, self._public_key, desc, generator=gen, batch=batch)
+        if self._enc_key is not None:
+            self._enc_key, sub = _rng.threefry_split(self._enc_key)
+        else:
+            sub = _rng.os_entropy_key()  # fresh OS entropy per stream
+        return Ciphered.cipher(data, self._public_key, desc, key=sub, batch=batch)
 
     def decrypt(self, ciphered: Ciphered) -> Any:
         if self._secret_key is None:

@@ -26,7 +26,7 @@ __all__ = ["SOURCES", "build", "library", "build_logs"]
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("clmul", "encrypt")
+SOURCES = ("clmul", "encrypt", "encrypt_mma", "threefry")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

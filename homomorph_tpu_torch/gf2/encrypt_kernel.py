@@ -1,54 +1,85 @@
-"""Batched encryption from packed selection words, and its CUDA kernel (K2).
+"""Batched encryption from selection bits, and its CUDA kernels (K2, K3, X1).
 
-Counterpart of :mod:`homomorph_tpu.gf2.encrypt_kernel`.  Each plaintext bit
-``x`` of a flat batch is encrypted as ``C = (XOR_{i in U} T_i) + x``
-(src/cipher.rs:92-115), with the subset ``U`` given as packed selection
-words ``selw`` [B, ceil(tau/32)].
+Counterpart of :mod:`homomorph_tpu.gf2.encrypt_kernel` and of the encrypt
+kernel of ``experiments/exp_enc.py``.  Each plaintext bit ``x`` of a flat
+batch is encrypted as ``C = (XOR_{i in U} T_i) + x`` (src/cipher.rs:92-115),
+with the subset ``U`` given as packed selection words ``selw``
+[B, ceil(tau/32)] or, for X1, as a selection already unpacked to int8
+``sel`` [B, tau].  Bit ``j`` of ``C`` is the parity of the count
+``sum_k sel[k] * T_k[j]``.  Three kernels compute it, each behind a wrapper
+that launches it on a CUDA tensor (and counts the launch) or raises, and
+computes a plain torch version on a CPU tensor:
 
-Over GF(2) the subset XOR-sum needs no matmul: bit ``j`` of ``C`` is the
-parity of ``selw[b] & pkcol[j]``, where ``pkcol`` [D, W] packs each bit
-column of the public key along tau (:func:`pk_columns`, cached by
-:class:`~homomorph_tpu_torch.keys.PublicKey`).  :func:`encrypt_bits_fused`
-is the kernel's wrapper: on a CUDA tensor it launches ``csrc/encrypt.cu``
-(see the note in that file) or raises; on a CPU tensor it computes
-:func:`encrypt_plain`, which takes the counts as a float matmul the way the
-JAX package does and so checks the kernel by another route.
+* K2 :func:`encrypt_words_popc` (``csrc/encrypt.cu``) takes the parity with
+  no product at all: ``popc(XOR_w selw & pkcol) & 1`` on the INT32 units,
+  with ``pkcol`` [D, W] the key's bit columns packed along tau
+  (:func:`pk_columns`).
+* K3 :func:`encrypt_words_mma` (``csrc/encrypt_mma.cu``) unpacks the words
+  to 0/1 int8 and takes the counts as an int8 tensor-core product against
+  the key's bit planes ``planes`` [D, 32W] (:func:`pk_planes`).
+* X1 :func:`encrypt_sel_mma` (the same source) takes the same product from
+  a pre-unpacked ``sel``.
+
+The plain versions (:func:`encrypt_plain`, :func:`encrypt_sel_plain`) take
+the counts as a float matmul the way the JAX package does, so they check
+the kernels by another route.  :func:`encrypt_bits_fused` is the encrypt
+path's entry: it runs K2, or K3 when ``HOMOMORPH_TPU_TORCH_ENC_IMPL`` is
+``pallas_v1`` (the counterpart of the JAX package's
+``HOMOMORPH_TPU_ENC_IMPL``, read at each call).
 
 The TPU-only devices of the JAX module (the bf16 pk-row permutation, the
-MXU pack, the segmented ``lax.map`` and the plaintext fold) have no
-counterpart: they were workarounds for the TPU's memory and lane layout.
+MXU and byte-plane packs, the segmented ``lax.map`` and the plaintext
+fold) have no counterpart: they were workarounds for the TPU's memory and
+lane layout.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
 from . import poly as gf2
 
-__all__ = ["pk_columns", "encrypt_bits_fused", "encrypt_plain"]
+__all__ = [
+    "ENC_IMPL_ENV",
+    "pk_columns",
+    "pk_planes",
+    "encrypt_impl",
+    "encrypt_bits_fused",
+    "encrypt_words_popc",
+    "encrypt_words_mma",
+    "encrypt_sel_mma",
+    "encrypt_plain",
+    "encrypt_sel_plain",
+]
 
-# cap on the [rows, 32*W + D] float intermediates of the plain version
+#: environment variable that selects the encrypt kernel, read at each call
+ENC_IMPL_ENV = "HOMOMORPH_TPU_TORCH_ENC_IMPL"
+#: its values: K2 (the default) and K3, named as in the JAX package
+ENC_IMPLS = ("pallas", "pallas_v1")
+
+# cap on the [rows, 32*W + D] float intermediates of the plain versions
 _PLAIN_ELEM_CAP = 1 << 26
 
-_fn = None
+_fns: dict = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(library_name: str, symbol: str):
+    fn = _fns.get(symbol)
+    if fn is None:
         from .cuda_build import library
 
-        fn = library("encrypt").hm_encrypt
+        fn = getattr(library(library_name), symbol)
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[symbol] = fn
+    return fn
 
 
 def pk_columns(pk_limbs: torch.Tensor) -> torch.Tensor:
@@ -60,81 +91,195 @@ def pk_columns(pk_limbs: torch.Tensor) -> torch.Tensor:
     return gf2.pack_bits(bits.T.contiguous())
 
 
-def encrypt_plain(
-    selw: torch.Tensor, pkcol: torch.Tensor, plain: torch.Tensor, L: int
-) -> torch.Tensor:
-    """Plain torch version of the kernel: counts as a float matmul.
+def pk_planes(pkcol: torch.Tensor) -> torch.Tensor:
+    """Public-key bit planes for K3 and X1: [D, W] columns -> [D, 32W] int8
+    0/1, k-contiguous, zero beyond tau (the counterpart of the JAX
+    package's bf16 ``bit_planes``, transposed)."""
+    return gf2.unpack_bits(pkcol, gf2.bit_capacity(pkcol.shape[1]), dtype=torch.int8)
 
-    The counts ``sel @ pk_bits`` are exact in float32 (0/1 inputs, sums
-    below 2^24); their parities are packed into ``L`` limbs and the
-    plaintext bit is XORed into limb 0.  Chunked over rows to bound the
-    intermediates."""
-    B, W = selw.shape
-    D = pkcol.shape[0]
-    pk_bits = gf2.unpack_bits(pkcol, gf2.bit_capacity(W), dtype=torch.float32).T
-    chunk = max(1, _PLAIN_ELEM_CAP // (gf2.bit_capacity(W) + D))
-    parts = []
-    for r in range(0, B, chunk):
-        sel = gf2.unpack_bits(selw[r : r + chunk], gf2.bit_capacity(W), dtype=torch.float32)
-        parts.append(gf2.parity_pack(sel @ pk_bits, L))
-    out = torch.cat(parts) if parts else torch.zeros((0, L), dtype=gf2.LIMB_DTYPE, device=selw.device)
+
+# --------------------------------------------------------------------------
+# Plain versions
+# --------------------------------------------------------------------------
+
+
+def _parity_counts(sel_rows, pk_bits: torch.Tensor, plain: torch.Tensor, L: int) -> torch.Tensor:
+    """Counts ``sel @ pk_bits`` as a float matmul per row chunk, their
+    parities packed into ``L`` limbs, the plaintext bit XORed into limb 0.
+
+    The counts are exact in float32 (0/1 inputs, sums below 2^24)."""
+    B = plain.shape[0]
+    chunk = max(1, _PLAIN_ELEM_CAP // (pk_bits.shape[0] + pk_bits.shape[1]))
+    parts = [gf2.parity_pack(sel_rows(r, r + chunk) @ pk_bits, L) for r in range(0, B, chunk)]
+    out = torch.cat(parts) if parts else torch.zeros((0, L), dtype=gf2.LIMB_DTYPE, device=plain.device)
     return gf2.xor_const_bit(out, plain)
 
 
-def _check(selw, pkcol, plain, L) -> None:
-    for name, t in (("selw", selw), ("pkcol", pkcol), ("plain", plain)):
-        if t.dtype != gf2.LIMB_DTYPE:
-            raise TypeError(f"encrypt takes int32 {name}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"encrypt takes a contiguous {name}")
-        if t.device != selw.device:
-            raise ValueError(f"encrypt operands on {selw.device} and {t.device}")
-    if selw.ndim != 2 or pkcol.ndim != 2 or plain.ndim != 1:
-        raise ValueError(
-            f"encrypt takes selw [B, W], pkcol [D, W], plain [B]; got "
-            f"{tuple(selw.shape)}, {tuple(pkcol.shape)}, {tuple(plain.shape)}"
-        )
-    if pkcol.shape[1] != selw.shape[1] or plain.shape[0] != selw.shape[0]:
-        raise ValueError(
-            f"encrypt shapes disagree: selw {tuple(selw.shape)}, pkcol "
-            f"{tuple(pkcol.shape)}, plain {tuple(plain.shape)}"
-        )
-    if pkcol.shape[0] % gf2.LIMB_BITS or selw.shape[1] == 0 or not 1 <= L <= 65535:
-        raise ValueError(
-            f"encrypt takes D % 32 == 0, W >= 1 and 1 <= L <= 65535; got "
-            f"D={pkcol.shape[0]}, W={selw.shape[1]}, L={L}"
-        )
-
-
-def encrypt_bits_fused(
-    selw: torch.Tensor, pkcol: torch.Tensor, plain: torch.Tensor, L: int
+def encrypt_plain(
+    selw: torch.Tensor, planes: torch.Tensor, plain: torch.Tensor, L: int
 ) -> torch.Tensor:
-    """Encryption of a flat bit batch; the kernel's wrapper.
+    """Plain torch version of K2 and K3: the words unpacked to float 0/1,
+    counts as a float matmul against ``planes``."""
+    K = planes.shape[1]
+    pk_bits = planes.to(torch.float32).T
+    return _parity_counts(
+        lambda r0, r1: gf2.unpack_bits(selw[r0:r1], K, dtype=torch.float32), pk_bits, plain, L
+    )
 
-    ``selw``: [B, W] int32 packed selection words; ``pkcol``: [D, W] from
-    :func:`pk_columns`; ``plain``: [B] int32 0/1.  Returns [B, L] int32.
-    A CPU tensor gets :func:`encrypt_plain`; a CUDA tensor launches the
-    kernel on the current stream (and counts the launch) or raises."""
-    _check(selw, pkcol, plain, L)
-    if selw.device.type == "cpu":
-        return encrypt_plain(selw, pkcol, plain, L)
-    if selw.device.type != "cuda":
-        raise ValueError(f"encrypt runs on cpu or cuda, not {selw.device}")
-    B, W = selw.shape
-    out = torch.empty((B, L), dtype=gf2.LIMB_DTYPE, device=selw.device)
+
+def encrypt_sel_plain(
+    sel: torch.Tensor, planes: torch.Tensor, plain: torch.Tensor, L: int
+) -> torch.Tensor:
+    """Plain torch version of X1: counts of the int8 selection as a float
+    matmul against the first tau columns of ``planes``."""
+    tau = sel.shape[1]
+    pk_bits = planes[:, :tau].to(torch.float32).T
+    return _parity_counts(lambda r0, r1: sel[r0:r1].to(torch.float32), pk_bits, plain, L)
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers
+# --------------------------------------------------------------------------
+
+
+def _check(name, a, a_dtype, pk, pk_dtype, pk_width, plain, L) -> None:
+    """Shared checks: ``a`` [B, K], ``pk`` [D, pk_width], ``plain`` [B]."""
+    for arg, t, dtype in (("selection", a, a_dtype), ("key", pk, pk_dtype),
+                          ("plain", plain, gf2.LIMB_DTYPE)):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} takes {dtype} {arg}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes a contiguous {arg}")
+        if t.device != a.device:
+            raise ValueError(f"{name} operands on {a.device} and {t.device}")
+    if a.ndim != 2 or pk.ndim != 2 or plain.ndim != 1:
+        raise ValueError(
+            f"{name} takes a 2-D selection and key and a 1-D plain; got "
+            f"{tuple(a.shape)}, {tuple(pk.shape)}, {tuple(plain.shape)}"
+        )
+    if pk.shape[1] != pk_width or plain.shape[0] != a.shape[0] or a.shape[1] == 0:
+        raise ValueError(
+            f"{name} shapes disagree: selection {tuple(a.shape)}, key "
+            f"{tuple(pk.shape)} (needs width {pk_width}), plain {tuple(plain.shape)}"
+        )
+    if pk.shape[0] == 0 or pk.shape[0] % gf2.LIMB_BITS or not 1 <= L <= 65535:
+        raise ValueError(
+            f"{name} takes D % 32 == 0, D >= 32 and 1 <= L <= 65535; got "
+            f"D={pk.shape[0]}, L={L}"
+        )
+    if a.device.type == "cuda":
+        for arg, t in (("selection", a), ("key", pk)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} takes a 16-byte aligned {arg} on the card")
+    elif a.device.type != "cpu":
+        raise ValueError(f"{name} runs on cpu or cuda, not {a.device}")
+
+
+def _launch(library_name, symbol, a, pk, plain, L, k_arg) -> torch.Tensor:
+    B = a.shape[0]
+    out = torch.empty((B, L), dtype=gf2.LIMB_DTYPE, device=a.device)
     if B == 0:
         return out
-    with torch.cuda.device(selw.device):
+    with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(
-            selw.data_ptr(), pkcol.data_ptr(), plain.data_ptr(), out.data_ptr(),
-            B, W, pkcol.shape[0], L, stream,
+        err = _kernel(library_name, symbol)(
+            a.data_ptr(), pk.data_ptr(), plain.data_ptr(), out.data_ptr(),
+            B, k_arg, pk.shape[0], L, stream,
         )
     if err:
-        raise RuntimeError(f"encrypt kernel launch failed: cudaError {err}")
-    encrypt_bits_fused.launches += 1
+        raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
     return out
 
 
-#: launches of the CUDA kernel since the last reset (a plain integer)
-encrypt_bits_fused.launches = 0
+def encrypt_words_popc(
+    selw: torch.Tensor, pkcol: torch.Tensor, plain: torch.Tensor, L: int
+) -> torch.Tensor:
+    """K2's wrapper: ``selw`` [B, W] int32 words, ``pkcol`` [D, W] from
+    :func:`pk_columns`, ``plain`` [B] int32 0/1 -> [B, L] int32.
+
+    A CPU tensor gets :func:`encrypt_plain`; a CUDA tensor launches
+    ``csrc/encrypt.cu`` on the current stream (and counts the launch) or
+    raises."""
+    _check("encrypt_words_popc", selw, gf2.LIMB_DTYPE, pkcol, gf2.LIMB_DTYPE,
+           selw.shape[1], plain, L)
+    if selw.device.type == "cpu":
+        return encrypt_plain(selw, pk_planes(pkcol), plain, L)
+    out = _launch("encrypt", "hm_encrypt", selw, pkcol, plain, L, selw.shape[1])
+    encrypt_words_popc.launches += 1
+    return out
+
+
+def encrypt_words_mma(
+    selw: torch.Tensor, planes: torch.Tensor, plain: torch.Tensor, L: int
+) -> torch.Tensor:
+    """K3's wrapper: ``selw`` [B, W] int32 words, ``planes`` [D, 32W] int8
+    from :func:`pk_planes`, ``plain`` [B] int32 0/1 -> [B, L] int32.
+
+    A CPU tensor gets :func:`encrypt_plain`; a CUDA tensor launches
+    ``csrc/encrypt_mma.cu``'s word entry (and counts the launch) or
+    raises."""
+    _check("encrypt_words_mma", selw, gf2.LIMB_DTYPE, planes, torch.int8,
+           gf2.bit_capacity(selw.shape[1]), plain, L)
+    if selw.device.type == "cpu":
+        return encrypt_plain(selw, planes, plain, L)
+    out = _launch("encrypt_mma", "hm_encrypt_mma_words", selw, planes, plain, L, selw.shape[1])
+    encrypt_words_mma.launches += 1
+    return out
+
+
+def encrypt_sel_mma(
+    sel: torch.Tensor, planes: torch.Tensor, plain: torch.Tensor, L: int
+) -> torch.Tensor:
+    """X1's wrapper: ``sel`` [B, tau] int8 0/1, ``planes`` [D, 32*ceil(tau/32)]
+    int8, ``plain`` [B] int32 0/1 -> [B, L] int32.
+
+    A CPU tensor gets :func:`encrypt_sel_plain`; a CUDA tensor launches
+    ``csrc/encrypt_mma.cu``'s selection entry (and counts the launch) or
+    raises."""
+    _check("encrypt_sel_mma", sel, torch.int8, planes, torch.int8,
+           gf2.bit_capacity(-(-sel.shape[1] // gf2.LIMB_BITS)), plain, L)
+    if sel.device.type == "cpu":
+        return encrypt_sel_plain(sel, planes, plain, L)
+    out = _launch("encrypt_mma", "hm_encrypt_mma_sel", sel, planes, plain, L, sel.shape[1])
+    encrypt_sel_mma.launches += 1
+    return out
+
+
+#: launches of each CUDA kernel since the last reset (plain integers)
+encrypt_words_popc.launches = 0
+encrypt_words_mma.launches = 0
+encrypt_sel_mma.launches = 0
+
+
+# --------------------------------------------------------------------------
+# The encrypt path's entry
+# --------------------------------------------------------------------------
+
+
+def encrypt_impl() -> str:
+    """The selected encrypt kernel: ``$HOMOMORPH_TPU_TORCH_ENC_IMPL``,
+    ``pallas`` (K2, the default) or ``pallas_v1`` (K3); any other value
+    raises."""
+    impl = os.environ.get(ENC_IMPL_ENV, "pallas")
+    if impl not in ENC_IMPLS:
+        raise ValueError(f"{ENC_IMPL_ENV}={impl!r}: expected one of {', '.join(ENC_IMPLS)}")
+    return impl
+
+
+def encrypt_bits_fused(
+    selw: torch.Tensor,
+    pkcol: torch.Tensor,
+    plain: torch.Tensor,
+    L: int,
+    planes: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Encryption of a flat bit batch from packed selection words.
+
+    ``selw``: [B, W] int32; ``pkcol``: [D, W] from :func:`pk_columns`;
+    ``plain``: [B] int32 0/1.  Returns [B, L] int32.  Runs K2
+    (:func:`encrypt_words_popc`), or K3 (:func:`encrypt_words_mma`) on
+    ``planes`` (derived from ``pkcol`` when not given) when
+    :func:`encrypt_impl` is ``pallas_v1``."""
+    if encrypt_impl() == "pallas_v1":
+        return encrypt_words_mma(selw, pk_planes(pkcol) if planes is None else planes, plain, L)
+    return encrypt_words_popc(selw, pkcol, plain, L)

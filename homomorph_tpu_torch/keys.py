@@ -7,7 +7,7 @@ src/context.rs:121-298):
   built decrypt masks (computed on the host, cached on the device).
 * :class:`PublicKey` - ``tau`` polynomials ``T_i = S*Q_i + X*R_i`` stored as
   one device tensor ``[tau, L]``, plus lazily built bit columns packed
-  along tau for the encrypt kernel.
+  along tau (K2) and int8 bit planes (K3, X1) for the encrypt kernels.
 
 Both hold a numpy ``uint32`` host copy and an int32 tensor on their device
 (``device=None`` means the CUDA card).  Byte formats are identical to the
@@ -169,6 +169,7 @@ class PublicKey:
             else np.array([_host_degree(row) for row in host], dtype=np.int64)
         )
         self._columns: torch.Tensor | None = None
+        self._planes: torch.Tensor | None = None
 
     # -- constructors -------------------------------------------------------
 
@@ -239,6 +240,16 @@ class PublicKey:
         if self._columns is None:
             self._columns = _enc.pk_columns(self._limbs)
         return self._columns
+
+    def planes(self) -> torch.Tensor:
+        """Bit planes, [32*L, 32*ceil(tau/32)] int8 0/1, k-contiguous and
+        zero beyond tau, for the tensor-core encrypt kernels
+        (:func:`~homomorph_tpu_torch.gf2.encrypt_kernel.pk_planes`); built
+        once per key.  The counterpart of the JAX package's bf16
+        ``bit_planes`` [tau, 32*L], transposed."""
+        if self._planes is None:
+            self._planes = _enc.pk_planes(self.columns())
+        return self._planes
 
     def __eq__(self, other: object) -> bool:
         if not isinstance(other, PublicKey):

@@ -4,7 +4,15 @@ from . import circuits, numbers  # noqa: F401
 from .numbers import (  # noqa: F401
     HomomorphicAddition,
     HomomorphicAndGate,
+    HomomorphicEquality,
+    HomomorphicGreaterThan,
+    HomomorphicLessThan,
+    HomomorphicMaximum,
+    HomomorphicMinimum,
+    HomomorphicMultiplication,
+    HomomorphicNegation,
     HomomorphicNotGate,
     HomomorphicOrGate,
+    HomomorphicSubtraction,
     HomomorphicXorGate,
 )

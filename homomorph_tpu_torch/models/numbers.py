@@ -1,7 +1,7 @@
 """Shipped homomorphic operations over integer types.
 
-Counterpart of the gate markers and :class:`HomomorphicAddition` of
-:mod:`homomorph_tpu.models.numbers` (reference: src/impls/numbers.rs:7-50):
+Counterpart of :mod:`homomorph_tpu.models.numbers` (reference:
+src/impls/numbers.rs:7-50):
 
 =========================  ================  =============================
 Operation                  MIN_D_OVER_DELTA  Circuit
@@ -11,17 +11,28 @@ HomomorphicOrGate          2 (UNSOUND*)      lane-wise OR  (common.rs:13-19)
 HomomorphicXorGate         1                 lane-wise XOR (common.rs:21-27)
 HomomorphicNotGate         1                 lane-wise NOT (common.rs:29-35)
 HomomorphicAddition        21                ripple-carry  (common.rs:37-64)
+HomomorphicMultiplication  64 (conservative) carry-save tree (csaplan.py;
+                                             reference column circuit
+                                             below width 4)
 =========================  ================  =============================
 
 (*) The class constants are kept for reference parity only; the checked
 API always validates the exact seeded bound via ``requirement_for``, which
 returns the same numbers as the JAX package (the noise model is a copy).
-The multiplication, subtraction, comparison and N-ary markers are not
-ported yet.
+
+Extensions beyond the reference, as in the JAX package:
+``HomomorphicSubtraction`` and ``HomomorphicNegation`` (21),
+``HomomorphicLessThan`` / ``HomomorphicGreaterThan`` (21, tree
+comparator; signed descriptors flip the sign bits first),
+``HomomorphicMinimum`` / ``HomomorphicMaximum`` (23) and
+``HomomorphicEquality`` (257, all widths).  Signed multiplication is
+selected by the descriptor (Baugh-Wooley for two's-complement types).
+The N-ary sum and popcount markers are not ported yet.
 """
 
 from __future__ import annotations
 
+from .. import codec as _codec
 from ..cipher import FRESH_NOISE as _FRESH, Ciphered
 from ..operations import HomomorphicOperation1, HomomorphicOperation2
 from . import circuits, noise as _noise
@@ -32,6 +43,14 @@ __all__ = [
     "HomomorphicXorGate",
     "HomomorphicNotGate",
     "HomomorphicAddition",
+    "HomomorphicMultiplication",
+    "HomomorphicSubtraction",
+    "HomomorphicNegation",
+    "HomomorphicEquality",
+    "HomomorphicLessThan",
+    "HomomorphicGreaterThan",
+    "HomomorphicMinimum",
+    "HomomorphicMaximum",
 ]
 
 
@@ -129,3 +148,154 @@ class HomomorphicAddition(HomomorphicOperation2):
     @staticmethod
     def unsafe_apply(a: Ciphered, b: Ciphered) -> Ciphered:
         return circuits.add(a, b)
+
+
+class HomomorphicMultiplication(HomomorphicOperation2):
+    """Wrapping multiplication by the carry-save tree (the reference
+    column circuit below width 4).  The class constant mirrors the
+    reference's "conservative default" 64 (src/impls/numbers.rs:47-50),
+    which is not sound even for the reference's own circuit; the checked
+    API validates the exact width-aware bound of the circuit that runs
+    (u8 65, u16 417, u32 2,385, u64 13,373 at delta=1)."""
+
+    MIN_D_OVER_DELTA = 64
+
+    @classmethod
+    def requirement_for(cls, *operands: Ciphered) -> int:
+        n = max(len(c) for c in operands)
+        na, nb = (_noises(operands) + [_FRESH])[:2]
+        return _noise.required_ratio(_noise.mul_noise_seeded(n, na, nb))
+
+    @staticmethod
+    def unsafe_apply(a: Ciphered, b: Ciphered) -> Ciphered:
+        desc = a.desc
+        signed = isinstance(desc, _codec.IntDescriptor) and desc.signed
+        if signed:
+            return circuits.mul_signed(a, b)
+        return circuits.mul_unsigned(a, b)
+
+
+class HomomorphicSubtraction(HomomorphicOperation2):
+    """Wrapping two's-complement ``a - b`` (not in the reference): the
+    adder with ``~b`` and a carry-in of one, so the addition's bound with
+    the carry seeded at the operands' noise."""
+
+    MIN_D_OVER_DELTA = 21
+
+    @classmethod
+    def requirement_for(cls, *operands: Ciphered) -> int:
+        n = max(len(c) for c in operands)
+        na, nb = (_noises(operands) + [_FRESH])[:2]
+        return _noise.required_ratio(
+            _noise.add_noise_seeded(n, na, nb, c0=max(na, nb))
+        )
+
+    @staticmethod
+    def unsafe_apply(a: Ciphered, b: Ciphered) -> Ciphered:
+        return circuits.sub(a, b)
+
+
+class HomomorphicNegation(HomomorphicOperation1):
+    """Wrapping two's-complement ``-a`` (not in the reference): the
+    constant-operand adder, bounded by the addition's requirement."""
+
+    MIN_D_OVER_DELTA = 21
+
+    @classmethod
+    def requirement_for(cls, *operands: Ciphered) -> int:
+        n = max(len(c) for c in operands)
+        na = operands[0].noise if operands else _FRESH
+        return _noise.required_ratio(
+            _noise.add_noise_seeded(n, na, na, c0=na)
+        )
+
+    @staticmethod
+    def unsafe_apply(a: Ciphered) -> Ciphered:
+        return circuits.neg(a)
+
+
+class HomomorphicLessThan(HomomorphicOperation2):
+    """``a < b`` as ``Ciphered[Bool]`` (not in the reference): the tree
+    comparator, exact noise degree ``(n+1)*(delta+1)`` for power-of-two
+    widths; signed descriptors dispatch to the sign-flipped circuit."""
+
+    MIN_D_OVER_DELTA = 21
+
+    @classmethod
+    def requirement_for(cls, *operands: Ciphered) -> int:
+        n = max(len(c) for c in operands)
+        na, nb = (_noises(operands) + [_FRESH])[:2]
+        return _noise.required_ratio(_noise.compare_noise_seeded(n, na, nb))
+
+    @staticmethod
+    def unsafe_apply(a: Ciphered, b: Ciphered) -> Ciphered:
+        return circuits.lt(a, b)
+
+
+class HomomorphicGreaterThan(HomomorphicOperation2):
+    """``a > b`` as ``Ciphered[Bool]`` (not in the reference);
+    signedness-dispatched like :class:`HomomorphicLessThan`."""
+
+    MIN_D_OVER_DELTA = 21
+
+    @classmethod
+    def requirement_for(cls, *operands: Ciphered) -> int:
+        n = max(len(c) for c in operands)
+        na, nb = (_noises(operands) + [_FRESH])[:2]
+        return _noise.required_ratio(_noise.compare_noise_seeded(n, na, nb))
+
+    @staticmethod
+    def unsafe_apply(a: Ciphered, b: Ciphered) -> Ciphered:
+        return circuits.gt(a, b)
+
+
+class HomomorphicMinimum(HomomorphicOperation2):
+    """``min(a, b)`` (not in the reference): comparison + mux, one AND
+    deeper than the comparison."""
+
+    MIN_D_OVER_DELTA = 23
+
+    @classmethod
+    def requirement_for(cls, *operands: Ciphered) -> int:
+        n = max(len(c) for c in operands)
+        na, nb = (_noises(operands) + [_FRESH])[:2]
+        return _noise.required_ratio(_noise.min_max_noise_seeded(n, na, nb))
+
+    @staticmethod
+    def unsafe_apply(a: Ciphered, b: Ciphered) -> Ciphered:
+        return circuits.min_(a, b)
+
+
+class HomomorphicMaximum(HomomorphicOperation2):
+    """``max(a, b)`` (not in the reference); see :class:`HomomorphicMinimum`."""
+
+    MIN_D_OVER_DELTA = 23
+
+    @classmethod
+    def requirement_for(cls, *operands: Ciphered) -> int:
+        n = max(len(c) for c in operands)
+        na, nb = (_noises(operands) + [_FRESH])[:2]
+        return _noise.required_ratio(_noise.min_max_noise_seeded(n, na, nb))
+
+    @staticmethod
+    def unsafe_apply(a: Ciphered, b: Ciphered) -> Ciphered:
+        return circuits.max_(a, b)
+
+
+class HomomorphicEquality(HomomorphicOperation2):
+    """``a == b`` as ``Ciphered[Bool]`` (not in the reference): XNOR lanes
+    and an AND-reduction tree, correct iff ``n * (delta + 1) < d``; the
+    checked API uses the width-aware bound, the class constant is the
+    all-widths fallback."""
+
+    MIN_D_OVER_DELTA = 2 * 128 + 1  # sound for every shipped width
+
+    @classmethod
+    def requirement_for(cls, *operands: Ciphered) -> int:
+        n = max(len(c) for c in operands)
+        na, nb = (_noises(operands) + [_FRESH])[:2]
+        return _noise.required_ratio(_noise.eq_noise_seeded(n, na, nb))
+
+    @staticmethod
+    def unsafe_apply(a: Ciphered, b: Ciphered) -> Ciphered:
+        return circuits.eq(a, b)

@@ -104,22 +104,55 @@ class OsRandomSource(RandomSource):
         return np.frombuffer(os.urandom(n), dtype=np.uint8)
 
 
-def os_entropy_generator(device) -> "torch.Generator":
-    """A ``torch.Generator`` on ``device`` seeded with 64 bits of OS entropy.
+# --------------------------------------------------------------------------
+# Device-stream keys: the JAX package's ``jax.random`` threefry keys
+# --------------------------------------------------------------------------
+#
+# A key is a pair of uint32 words ``(k0, k1)`` held as Python ints: the key
+# data of a ``jax.random`` threefry key.  :func:`threefry_key` and
+# :func:`threefry_split` reproduce ``jax.random.key`` and
+# ``jax.random.split`` word for word (JAX without x64 and with
+# ``jax_threefry_partitionable``, its default), and
+# :func:`homomorph_tpu_torch.prng.random_bits` reproduces
+# ``jax.random.bits(key, shape, uint32)``, so a seeded context draws the
+# same selection words as the JAX package.
 
-    The counterpart of the JAX package's full-entropy device key: 64 bits
-    from ``os.urandom`` (the reference's production entropy source,
-    src/cipher.rs:95) fill the whole seed of the device generator instead
-    of a smaller Python-seed space.  Used by
-    :class:`~homomorph_tpu_torch.context.Context` to seed each device-side
+_MASK32 = 0xFFFFFFFF
+
+
+def threefry2x32(key: "tuple[int, int]", c0: int, c1: int) -> "tuple[int, int]":
+    """Threefry-2x32 with 20 rounds (Random123): the block cipher of
+    ``key`` applied to the counter ``(c0, c1)``, as Python ints."""
+    x0, x1 = _threefry2x32(
+        np.uint32(key[0]), np.uint32(key[1]),
+        np.array([c0], dtype=np.uint32), np.array([c1], dtype=np.uint32),
+    )
+    return int(x0[0]), int(x1[0])
+
+
+def threefry_key(seed: int) -> "tuple[int, int]":
+    """``jax.random.key(seed)``'s key data: ``(0, seed mod 2^32)``."""
+    return (0, int(seed) & _MASK32)
+
+
+def threefry_split(key: "tuple[int, int]") -> "tuple[tuple[int, int], tuple[int, int]]":
+    """``jax.random.split(key)``: the cipher at counters ``(0, 0)`` and
+    ``(0, 1)``; the first half is the next key of a chain."""
+    return threefry2x32(key, 0, 0), threefry2x32(key, 0, 1)
+
+
+def os_entropy_key() -> "tuple[int, int]":
+    """A threefry key filled with 64 bits of ``os.urandom``.
+
+    The counterpart of the JAX package's full-entropy device key
+    (``homomorph_tpu/rng.py::os_entropy_key``): the OS CSPRNG, the
+    reference's production entropy source (src/cipher.rs:95), fills the
+    whole key instead of a smaller Python-seed space.  Used by
+    :class:`~homomorph_tpu_torch.context.Context` to key each device-side
     encryption stream.
     """
-    import torch
-
-    seed = int.from_bytes(os.urandom(8), "little")
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    return gen
+    words = np.frombuffer(os.urandom(8), dtype=np.uint32)
+    return int(words[0]), int(words[1])
 
 
 class RecordedSource(RandomSource):

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain torch versions, on the card.
+"""The port's CUDA kernels (K1, K2, K3, X1, T1) against their plain torch
+versions, on the card.
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 False.  The file imports neither jax nor the JAX package and uses no
@@ -10,15 +11,22 @@ card and no jax it runs as
 Parity is bit-exact (integer GF(2) values, tolerance 0).
 """
 
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from homomorph_tpu_torch import prng
+from homomorph_tpu_torch import rng as hrng
 from homomorph_tpu_torch.gf2 import encrypt_kernel as enc
 from homomorph_tpu_torch.gf2 import kernels as k
 from homomorph_tpu_torch.gf2 import poly as gf2
 
 pytestmark = pytest.mark.cuda
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def on_card(shape, seed):
@@ -51,11 +59,65 @@ def test_encrypt_kernel_matches_plain(tau, Lpk, L):
     pkcol = enc.pk_columns(on_card((tau, Lpk), 5))
     selw = on_card((B, -(-tau // 32)), 6)
     plain = on_card((B,), 7) & 1
-    before = enc.encrypt_bits_fused.launches
-    got = enc.encrypt_bits_fused(selw, pkcol, plain, L)
+    before = enc.encrypt_words_popc.launches
+    got = enc.encrypt_words_popc(selw, pkcol, plain, L)
     torch.cuda.synchronize()
-    assert enc.encrypt_bits_fused.launches == before + 1
-    assert torch.equal(got, enc.encrypt_plain(selw, pkcol, plain, L))
+    assert enc.encrypt_words_popc.launches == before + 1
+    assert torch.equal(got, enc.encrypt_plain(selw, enc.pk_planes(pkcol), plain, L))
+
+
+@pytest.mark.parametrize(
+    "tau,Lpk,L",
+    [(1, 2, 2), (33, 9, 9), (128, 9, 9), (256, 65, 65), (128, 9, 12), (300, 3, 3), (512, 2, 2)],
+)
+def test_encrypt_mma_kernels_match_plain(tau, Lpk, L):
+    B = 4099  # not a multiple of the 64-row tile
+    planes = enc.pk_planes(enc.pk_columns(on_card((tau, Lpk), 9)))
+    selw = on_card((B, -(-tau // 32)), 10)
+    plain = on_card((B,), 11) & 1
+    sel = gf2.unpack_bits(selw, tau, dtype=torch.int8)
+    want = enc.encrypt_plain(selw, planes, plain, L)
+    before = (enc.encrypt_words_mma.launches, enc.encrypt_sel_mma.launches)
+    k3 = enc.encrypt_words_mma(selw, planes, plain, L)
+    x1 = enc.encrypt_sel_mma(sel, planes, plain, L)
+    torch.cuda.synchronize()
+    assert (enc.encrypt_words_mma.launches, enc.encrypt_sel_mma.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(k3, want)
+    assert torch.equal(x1, enc.encrypt_sel_plain(sel, planes, plain, L))
+    assert torch.equal(x1, want)
+
+
+def test_selector_launches_k3_on_the_card(monkeypatch):
+    pkcol = enc.pk_columns(on_card((128, 9), 12))
+    selw, plain = on_card((256, 4), 13), on_card((256,), 14) & 1
+    monkeypatch.setenv(enc.ENC_IMPL_ENV, "pallas_v1")
+    before = (enc.encrypt_words_popc.launches, enc.encrypt_words_mma.launches)
+    got = enc.encrypt_bits_fused(selw, pkcol, plain, 9)
+    assert (enc.encrypt_words_popc.launches, enc.encrypt_words_mma.launches) == (
+        before[0], before[1] + 1)
+    assert torch.equal(got, enc.encrypt_words_popc(selw, pkcol, plain, 9))
+
+
+@pytest.mark.parametrize("shape", [(5,), (7, 8), ((1 << 20) + 3, 4)])
+def test_threefry_kernel_matches_plain(shape):
+    on_card((1,), 0)  # skips without a card
+    before = prng.random_bits.launches
+    got = prng.random_bits((0x12345678, 0x9ABCDEF0), shape, "cuda")
+    torch.cuda.synchronize()
+    assert prng.random_bits.launches == before + 1
+    assert torch.equal(got, prng.random_bits_plain((0x12345678, 0x9ABCDEF0), shape, "cuda"))
+
+
+def test_threefry_kernel_gives_the_jax_words():
+    on_card((1,), 0)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for seed, words in smoke.JAX_BITS.items():
+        got = prng.random_bits(hrng.threefry_key(seed), (8,), "cuda")
+        assert [w & 0xFFFFFFFF for w in got.tolist()] == words
 
 
 def test_wrappers_raise_on_unsupported_input():
@@ -65,4 +127,12 @@ def test_wrappers_raise_on_unsupported_input():
     with pytest.raises(ValueError):
         k.clmul_flat(a, a.cpu())
     with pytest.raises(TypeError):
-        enc.encrypt_bits_fused(a, a.to(torch.int64), a[:, 0].contiguous(), 9)
+        enc.encrypt_words_popc(a, a.to(torch.int64), a[:, 0].contiguous(), 9)
+    planes = enc.pk_planes(enc.pk_columns(on_card((33, 2), 15)))
+    skew = torch.zeros(planes.numel() + 1, dtype=torch.int8, device="cuda")[1:]
+    skew = skew.view(planes.shape)  # contiguous but not 16-byte aligned
+    selw, plain = on_card((8, 2), 16), on_card((8,), 17) & 1
+    with pytest.raises(ValueError, match="aligned"):
+        enc.encrypt_words_mma(selw, skew, plain, 2)
+    with pytest.raises(ValueError):
+        enc.encrypt_sel_mma(gf2.unpack_bits(selw, 33, dtype=torch.int8), planes.cpu(), plain, 2)

@@ -65,11 +65,12 @@ class TestRandomSources:
             )
 
     def test_os_entropy_generator_is_seeded_torch_generator(self):
-        import torch
-
-        g = trng.os_entropy_generator("cpu")
-        assert isinstance(g, torch.Generator)
-        assert g.device.type == "cpu"
+        # the device stream is keyed by a threefry key of OS entropy, the
+        # counterpart of homomorph_tpu.rng.os_entropy_key
+        a, b = trng.os_entropy_key(), trng.os_entropy_key()
+        assert len(a) == 2 and all(isinstance(w, int) and 0 <= w < 2**32 for w in a)
+        assert a != b
+        assert jrng.os_entropy_key().shape == ()  # a typed jax key, two words
 
 
 class TestCodec:

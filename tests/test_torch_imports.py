@@ -40,6 +40,8 @@ def imported_roots(path):
 def test_port_files_exist():
     assert os.path.exists(os.path.join(ROOT, "chip_smoke.py"))
     assert len(port_files()) > 15
+    for rel in ("prng.py", "experiments/exp_enc.py", "csrc/encrypt_mma.cu", "csrc/threefry.cu"):
+        assert os.path.exists(os.path.join(PKG, rel)), rel
 
 
 @pytest.mark.parametrize("path", port_files(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -51,7 +53,8 @@ def test_no_jax_imports(path):
 def test_import_does_not_load_jax():
     code = (
         "import sys, homomorph_tpu_torch, homomorph_tpu_torch.models, "
-        "homomorph_tpu_torch.gf2.kernels, homomorph_tpu_torch.gf2.encrypt_kernel; "
+        "homomorph_tpu_torch.gf2.kernels, homomorph_tpu_torch.gf2.encrypt_kernel, "
+        "homomorph_tpu_torch.prng, homomorph_tpu_torch.experiments.exp_enc; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'homomorph_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

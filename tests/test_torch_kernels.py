@@ -133,7 +133,7 @@ class TestEncrypt:
         assert not host[:, 2:].any()
         assert np.array_equal(
             host[:, :2], tpoly.to_numpy(tenc.encrypt_plain(
-                T(selw), tenc.pk_columns(T(pk)), T(plain), 2))
+                T(selw), tenc.pk_planes(tenc.pk_columns(T(pk))), T(plain), 2))
         )
 
     def test_wrapper_rejects_what_the_kernel_does_not_take(self, rng):

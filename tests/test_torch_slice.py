@@ -260,7 +260,7 @@ class TestEntryPoints:
         _, tctx = small_pair
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ht.Ciphered.cipher([1], tctx.get_public_key(), ht.U8, batch=True,
-                               generator=torch.Generator(), sharding=object())
+                               key=(0, 1), sharding=object())
 
     def test_zeroize(self, small_pair):
         _, tctx = small_pair
