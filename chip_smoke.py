@@ -13,6 +13,8 @@ Phases, in order; any failure exits non-zero before the result line:
    from ``torch.profiler`` (see :func:`device_records`): K1 clmul, the
    encrypt kernels K2, K3 and X1 at tau 128, 256 and 33, and T1 threefry,
    whose first words must also equal ``jax.random.bits``' (:data:`JAX_BITS`);
+   K2 also at tau 1 and 300, at L above the key's limbs and at keys whose
+   tables the launcher tiles (checked only);
 4. replay of the interop fixtures (``tests/fixtures/interop_v1.json``):
    keygen and recorded-stream encryption on the card must give the
    fixture's bytes;
@@ -29,12 +31,15 @@ Phases, in order; any failure exits non-zero before the result line:
    ``lt`` against the CPU's plain path (limbs, bound, noise);
 6b. the encrypt experiment's entry (``homomorph_tpu_torch.experiments.
    exp_enc``): K2, K3 and X1 on 2^21 bits, K3 and X1 held to K2;
-3b. K1 at the busiest shapes phase 5b launched it with;
+3b. K1 at the busiest shapes phase 5b's multiplication and ``lt`` launched
+   it with, and every distinct ``lt`` launch shape timed;
 7. ``torch.profiler`` traces of the checked add, the first bulk round trip,
    the u8 multiplication and the u32 ``lt``: warm wall time, device time by
    kernel, busy share;
 8. one JSON line of kernels (launches counted over the paths: phases 5-6,
-   5b and 6b, each counted from 0);
+   5b and 6b, each counted from 0; each bound the larger of the bytes and
+   the necessary work of the best design in the repo, see
+   :func:`set_bounds`, with the older operation count's bound beside it);
 9. last line ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits 2 and prints no result.
@@ -54,10 +59,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 1234  # keys, plaintexts and selection words all derive from it
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate and dense int8
-# tensor-core rate.  The INT32 rate is derived on the card (see int32_rate).
+# tensor-core rate.  The per-SM rates below are scaled by the card's SM count
+# and maximum SM clock (see int32_rate).
 HBM_BYTES_PER_S = 3.35e12
 INT8_TC_OPS_PER_S = 1979e12
 INT32_OPS_PER_SM_PER_CLOCK = 64  # CUDA C guide, arithmetic throughput, cc 9.0
+SMEM_BYTES_PER_SM_PER_CLOCK = 128  # 32 banks of 4 bytes
+# K2's table chunk for the bound: the redesign's 8 selection bits per lookup
+ENC_CHUNK_BITS = 8
+# K1's comb: shared-memory loads per (limb of the smaller operand, limb of
+# the multiples), 1 for nibble 0 and 2 for each of the other 7; and a funnel
+# shift and an XOR per nibble
+COMB_LOADS_PER_PAIR = 15
+COMB_OPS_PER_PAIR = 8 * 2
 # 32-bit operations of one threefry-2x32-20 word (csrc/threefry.cu) that only
 # the INT32 pipe executes: 20 rotates (funnel shifts) and 21 XORs.  Its 32
 # adds may also issue as IMAD on the FMA pipe, so they set no lower bound of
@@ -103,6 +117,12 @@ def int32_rate(torch):
     mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return sms * INT32_OPS_PER_SM_PER_CLOCK * mhz * 1e6, sms, mhz
+
+
+def smem_rate(ctx):
+    """Shared-memory bytes per second over the card: SMs x 128 per clock x
+    max SM clock."""
+    return ctx["sms"] * SMEM_BYTES_PER_SM_PER_CLOCK * ctx["mhz"] * 1e6
 
 
 def device_records(torch, fn, iters=1, attempts=3):
@@ -161,12 +181,30 @@ def compare(torch, got, want):
 
 
 def clmul_ops(B, La, Lb):
-    """K1's work on [B, La] x [B, Lb]: per row, Ls*(Lg+1) pairs of a limb of
-    the smaller operand and an output limb (``csrc/clmul.cu``'s loops), each
-    32 mask-and-XOR steps, counted at 2 ops a step as
-    ``homomorph_tpu/utils/profiling.py::clmul_sol`` counts them."""
+    """The bit-serial count of K1's work on [B, La] x [B, Lb] (the first
+    design's bound, kept beside the comb's): per row, Ls*(Lg+1) pairs of a
+    limb of the smaller operand and an output limb, each 32 mask-and-XOR steps,
+    counted at 2 ops a step as ``homomorph_tpu/utils/profiling.py::
+    clmul_sol`` counts them."""
     Ls, Lg = min(La, Lb), max(La, Lb)
     return B * 32 * Ls * (Lg + 1) * 2
+
+
+def clmul_comb_work(B, La, Lb):
+    """The comb's necessary work on [B, La] x [B, Lb]: per row, Ls*(Lg+1)
+    pairs of a limb of the smaller operand and a limb of the 16 multiples
+    (Lg+1 limbs each), each read 15 times from shared memory (4 bytes a
+    read) and combined by 8 funnel shifts and 8 XORs.  Returns (shared
+    memory bytes, INT32 operations)."""
+    Ls, Lg = min(La, Lb), max(La, Lb)
+    pairs = B * Ls * (Lg + 1)
+    return pairs * COMB_LOADS_PER_PAIR * 4, pairs * COMB_OPS_PER_PAIR
+
+
+def encrypt_lookup_bytes(B, tau, limbs):
+    """The table encrypt's shared-memory reads: one 4-byte entry per chunk
+    of 8 selection bits for every output limb the key reaches."""
+    return B * -(-tau // ENC_CHUNK_BITS) * limbs * 4
 
 
 def random_words(ctx, shape):
@@ -181,11 +219,18 @@ def timed(torch, kernel_fn, plain_fn):
 
 
 def set_bounds(rows):
+    """``bound_ms``: the larger of the row's HBM bytes at 3.35 TB/s and each
+    of its ``work`` terms (amount, rate per second), the necessary work of
+    the best design in the repo for the function.  ``old_bound_ms``: the
+    bytes against the row's ``old_ops`` at ``old_rate`` (the operation
+    count the bounds took before the table and comb designs), kept beside it."""
     for r in rows:
-        t_ops = r["ops"] / r["ops_rate"] * 1e3
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        r["bound_ms"] = max(t_ops, t_bytes)
-        r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        t_work = max(amount / rate * 1e3 for amount, rate in r["work"])
+        r["bound_ms"] = max(t_work, t_bytes)
+        r["bound_by"] = "operations" if t_work >= t_bytes else "bytes"
+        r["old_bound_ms"] = max(r["old_ops"] / r["old_rate"] * 1e3, t_bytes)
+        r["work"] = [list(w) for w in r["work"]]
     return rows
 
 
@@ -202,11 +247,14 @@ def clmul_rows(ctx, shapes):
         want = k.clmul_plain(a, b)
         bad, err = compare(torch, got, want)
         check(bad == 0, f"clmul {label} ({B}, {La}x{Lb}): {bad} mismatches")
+        smem_bytes, ops = clmul_comb_work(B, La, Lb)
         rows.append(dict(
             kernel="clmul", label=label, shape=f"B={B} La={La} Lb={Lb}",
             mismatches=bad, max_abs_err=err,
             **timed(torch, lambda: k.clmul_flat(a, b), lambda: k.clmul_plain(a, b)),
-            ops=clmul_ops(B, La, Lb), ops_rate=ctx["int32_rate"], bytes=B * (La + Lb) * 4 * 2,
+            work=[(smem_bytes, smem_rate(ctx)), (ops, ctx["int32_rate"])],
+            old_ops=clmul_ops(B, La, Lb), old_rate=ctx["int32_rate"],
+            bytes=B * (La + Lb) * 4 * 2,
         ))
         log(f"[kernels] clmul {label:9s} B={B} {La}x{Lb}: mismatches {bad}, "
             f"kernel {rows[-1]['ms']} ms (call {rows[-1]['call_ms']} ms), "
@@ -234,8 +282,8 @@ def phase_kernels(ctx):
     for tau, Lpk in ((128, 9), (256, 65), (33, 9)):
         for B in (65536, 1 << 21):
             W, D, L = -(-tau // 32), 32 * Lpk, Lpk
-            pkcol = enc.pk_columns(random_words(ctx, (tau, Lpk)))
-            planes = enc.pk_planes(pkcol)
+            pk = random_words(ctx, (tau, Lpk))
+            planes = enc.pk_planes(enc.pk_columns(pk))
             selw = random_words(ctx, (B, W))
             sel = gf2.unpack_bits(selw, tau, dtype=torch.int8)
             plain = (random_words(ctx, (B,)) & 1).contiguous()
@@ -243,10 +291,12 @@ def phase_kernels(ctx):
             want_sel = enc.encrypt_sel_plain(sel, planes, plain, L)
             check(torch.equal(want, want_sel), f"plain versions disagree at tau={tau} B={B}")
             out_bytes = (B + B * L) * 4  # plain in, limbs out
+            # the function's necessary work: the table design's lookups
+            lookups = [(encrypt_lookup_bytes(B, tau, L), smem_rate(ctx))]
             variants = (
-                ("encrypt", lambda: enc.encrypt_words_popc(selw, pkcol, plain, L),
-                 lambda: enc.encrypt_plain(selw, enc.pk_planes(pkcol), plain, L),
-                 want, B * W * 4 + D * W * 4),
+                ("encrypt", lambda: enc.encrypt_words_table(selw, pk, plain, L),
+                 lambda: enc.encrypt_plain(selw, enc.pk_planes(enc.pk_columns(pk)), plain, L),
+                 want, B * W * 4 + tau * Lpk * 4),
                 ("encrypt_v1", lambda: enc.encrypt_words_mma(selw, planes, plain, L),
                  lambda: enc.encrypt_plain(selw, planes, plain, L),
                  want, B * W * 4 + D * 32 * W),
@@ -262,7 +312,7 @@ def phase_kernels(ctx):
                 enc_rows.append(dict(
                     kernel=name, label=f"tau{tau}", shape=f"B={B} tau={tau} D={D} L={L}",
                     mismatches=bad, max_abs_err=err, **timed(torch, fn, plain_fn),
-                    ops=2 * B * tau * D, ops_rate=INT8_TC_OPS_PER_S,
+                    work=lookups, old_ops=2 * B * tau * D, old_rate=INT8_TC_OPS_PER_S,
                     bytes=in_bytes + out_bytes,
                 ))
                 log(f"[kernels] {name} tau={tau} B={B}: mismatches {bad}, "
@@ -271,6 +321,7 @@ def phase_kernels(ctx):
                 del got
             del want, want_sel, selw, sel, plain
     rows += set_bounds(enc_rows)
+    k2_edges(ctx)
 
     # T1: the encrypt path's words for 2^21 bits at tau = 128, and JAX's words
     key = hrng.threefry_key(ctx["seed"])
@@ -289,12 +340,36 @@ def phase_kernels(ctx):
         mismatches=bad, max_abs_err=err,
         **timed(torch, lambda: prng.random_bits(key, shape, dev),
                 lambda: prng.random_bits_plain(key, shape, dev)),
-        ops=n * THREEFRY_ALU_OPS_PER_WORD, ops_rate=ctx["int32_rate"], bytes=n * 4,
+        work=[(n * THREEFRY_ALU_OPS_PER_WORD, ctx["int32_rate"])],
+        old_ops=n * THREEFRY_ALU_OPS_PER_WORD, old_rate=ctx["int32_rate"], bytes=n * 4,
     )])
     log(f"[kernels] threefry {shape}: mismatches {bad}, seeds {sorted(JAX_BITS)} equal "
         f"jax.random.bits; kernel {rows[-1]['ms']} ms (call {rows[-1]['call_ms']} ms), "
         f"plain {rows[-1]['plain_ms']} ms")
     return rows
+
+
+def k2_edges(ctx):
+    """K2 against its plain version where the table layout has edges: tau
+    not a multiple of the chunk, more than 8 selection words (two passes),
+    L above and below the key's limbs, keys the launcher cuts into tiles of
+    28 and 167 limbs, a row count that is no multiple of a block's rows."""
+    torch = ctx["torch"]
+    from homomorph_tpu_torch.gf2 import encrypt_kernel as enc
+
+    cases = ((1, 2, 2), (1, 2, 5), (33, 9, 12), (128, 9, 12), (256, 65, 70), (300, 3, 3),
+             (300, 10, 12), (128, 9, 7), (64, 300, 300), (1, 500, 500))
+    for tau, Lpk, L in cases:
+        B = 65537
+        pk = random_words(ctx, (tau, Lpk))
+        selw = random_words(ctx, (B, -(-tau // 32)))
+        plain = (random_words(ctx, (B,)) & 1).contiguous()
+        got = enc.encrypt_words_table(selw, pk, plain, L)
+        torch.cuda.synchronize()
+        bad, _ = compare(torch, got, enc.encrypt_plain(
+            selw, enc.pk_planes(enc.pk_columns(pk)), plain, L))
+        check(bad == 0, f"encrypt tau={tau} Lpk={Lpk} L={L}: {bad} mismatches")
+    log(f"[kernels] encrypt at (tau, Lpk, L) {list(cases)}, B=65537: 0 mismatches")
 
 
 def phase_fixtures(ctx):
@@ -479,20 +554,26 @@ def phase_mulcmp(ctx):
         c.encrypt(a8.tolist(), ht.U8, batch=True), c.encrypt(b8.tolist(), ht.U8, batch=True),
         c.encrypt(x32.tolist(), ht.U32, batch=True), c.encrypt(y32.tolist(), ht.U32, batch=True)))
 
-    # the multiplication's K1 launches as [B, La] x [B, Lb], for phase 3b
-    shapes = []
+    # the multiplication's and lt's K1 launches as [B, La] x [B, Lb], for phase 3b
     clmul = k.clmul
 
-    def recording(a, b):
-        rows = math.prod(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]))
-        shapes.append((rows, a.shape[-1], b.shape[-1]))
-        return clmul(a, b)
+    def recorded(fn):
+        shapes = []
 
-    k.clmul = recording
-    prod, mul_ms = stage(lambda: c.apply2(HomomorphicMultiplication, e8a, e8b))
-    k.clmul = clmul
+        def recording(a, b):
+            rows = math.prod(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]))
+            shapes.append((rows, a.shape[-1], b.shape[-1]))
+            return clmul(a, b)
+
+        k.clmul = recording
+        try:
+            return stage(fn), shapes
+        finally:
+            k.clmul = clmul
+
+    (prod, mul_ms), shapes = recorded(lambda: c.apply2(HomomorphicMultiplication, e8a, e8b))
     ctx["mul_shapes"] = shapes
-    lt, lt_ms = stage(lambda: c.apply2(HomomorphicLessThan, e32a, e32b))
+    (lt, lt_ms), ctx["lt_shapes"] = recorded(lambda: c.apply2(HomomorphicLessThan, e32a, e32b))
     mx, max_ms = stage(lambda: c.apply2(HomomorphicMaximum, e8a, e8b))
     eq, eq_ms = stage(lambda: c.apply2(HomomorphicEquality, e8a, e8b))
     sb, sub_ms = stage(lambda: c.apply2(HomomorphicSubtraction, e8a, e8b))
@@ -530,7 +611,8 @@ def phase_mulcmp(ctx):
     ctx["mulcmp_inputs"] = (c, e8a, e8b, e32a, e32b)
     return dict(keygen_ms=keygen_ms, encrypt_ms=enc_ms, mul_ms=mul_ms, lt_ms=lt_ms,
                 max_ms=max_ms, eq_ms=eq_ms, sub_ms=sub_ms, decrypt_mul_ms=dec_ms,
-                mul_clmul_launches=len(shapes), u8_pairs=n8, u32_pairs=n32)
+                mul_clmul_launches=len(shapes), lt_clmul_launches=len(ctx["lt_shapes"]),
+                u8_pairs=n8, u32_pairs=n32)
 
 
 def phase_exp_enc(ctx):
@@ -549,15 +631,34 @@ def mul_shape_rows(ctx):
     """Phase 3b: K1 at the busiest shapes of the u8 multiplication: its
     first launch (the broadcast partial products), and the launch with the
     most work among stacked groups (more rows than the batch: CSA levels,
-    the ripple's g products) and among single products (the ripple chain)."""
+    the ripple's g products) and among single products (the ripple chain);
+    and at the busiest launch of the u32 ``lt``, after timing each distinct
+    ``lt`` launch shape alone (which of them make ``lt`` device-bound)."""
+    torch = ctx["torch"]
+    from homomorph_tpu_torch.gf2 import kernels as k
+
     shapes = ctx["mul_shapes"]
     n = ctx["mulcmp_inputs"][1].limbs.shape[0]
     groups = [s for s in shapes[1:] if s[0] > n]
     singles = [s for s in shapes[1:] if s[0] == n]
     check(groups and singles, f"unexpected multiplication launches {shapes}")
+    lt_shapes = ctx["lt_shapes"]
+    check(lt_shapes, "lt launched no clmul")
+    lt_times = []
+    for shape in sorted(set(lt_shapes), key=lambda s: -clmul_ops(*s)):
+        B, La, Lb = shape
+        a, b = random_words(ctx, (B, La)), random_words(ctx, (B, Lb))
+        ms = device_ms(torch, lambda: k.clmul_flat(a, b), 5)
+        lt_times.append(dict(shape=list(shape), launches=lt_shapes.count(shape), ms=ms))
+        del a, b
+    ctx["lt_launch_times"] = lt_times
+    log(f"[kernels] lt's {len(lt_shapes)} clmul launches by shape (B, La, Lb), count, kernel "
+        "ms: " + "; ".join(f"{tuple(t['shape'])} x{t['launches']} {t['ms']:.5f}"
+                           for t in lt_times))
     return clmul_rows(ctx, (("mul-pp", *shapes[0]),
                             ("mul-group", *max(groups, key=lambda s: clmul_ops(*s))),
-                            ("mul-chain", *max(singles, key=lambda s: clmul_ops(*s)))))
+                            ("mul-chain", *max(singles, key=lambda s: clmul_ops(*s))),
+                            ("lt-busiest", *max(lt_shapes, key=lambda s: clmul_ops(*s)))))
 
 
 def phase_profile(ctx, main_stats, bulk_stats, mul_stats):
@@ -628,6 +729,7 @@ def main(argv=None):
     card = nvidia_smi("name,power.limit")
     log(card)
     ctx["int32_rate"], sms, mhz = int32_rate(torch)
+    ctx["sms"], ctx["mhz"] = sms, mhz
     log(f"[device] {torch.cuda.get_device_name(0)}: {sms} SMs, max SM clock {mhz:.0f} MHz "
         f"-> INT32 {ctx['int32_rate'] / 1e12:.2f} Tops/s; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
@@ -640,14 +742,18 @@ def main(argv=None):
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    # 3-4. kernels against plain versions, fixture replay
+    # 3-4. kernels against plain versions, fixture replay; the SM clock and
+    # power beside the kernel times (a card below its clock runs them slower)
+    clock_query = "clocks.sm,power.draw,temperature.gpu"
+    clocks = {"before phase 3": nvidia_smi(clock_query)}
     t0 = time.perf_counter()
     rows = phase_kernels(ctx)
+    clocks["after phase 3"] = nvidia_smi(clock_query)
     log(f"[kernels] phase done in {time.perf_counter() - t0:.3f} s")
     phase_fixtures(ctx)
 
     # 5-6, 5b, 6b. the paths, each with its launch counts from 0
-    wrappers = {"clmul": k.clmul_flat, "encrypt": enc.encrypt_words_popc,
+    wrappers = {"clmul": k.clmul_flat, "encrypt": enc.encrypt_words_table,
                 "encrypt_v1": enc.encrypt_words_mma, "encrypt_v3": enc.encrypt_sel_mma,
                 "threefry": prng.random_bits}
 
@@ -683,8 +789,14 @@ def main(argv=None):
             check(paths[path][name] > 0, f"{name} was not launched on the {path} path")
     check(paths["mul_cmp"]["encrypt"] == 0, "K2 ran while pallas_v1 selected K3")
 
-    # 3b. K1 at the multiplication's busiest shapes
+    # 3b. K1 at the multiplication's and lt's busiest shapes
     rows += mul_shape_rows(ctx)
+    clocks["after phase 3b"] = nvidia_smi(clock_query)
+    log(f"[device] {clock_query}: " + "; ".join(f"{k} {v}" for k, v in clocks.items()))
+    for r in rows:
+        log(f"[bounds] {r['kernel']} {r['label']} {r['shape']}: kernel {r['ms']:.5f} ms, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of it), "
+            f"old count's bound {r['old_bound_ms']:.5f} ms")
     # 7. where the time of each path goes
     t0 = time.perf_counter()
     profile_stats = phase_profile(ctx, main_stats, bulk_stats, mul_stats)
@@ -716,12 +828,15 @@ def main(argv=None):
             mismatches=sum(r["mismatches"] for r in mine),
             shape=rep["shape"], ms=rep["ms"], plain_ms=rep["plain_ms"],
             bound_ms=rep["bound_ms"], bound_by=rep["bound_by"], library_ms=None,
+            old_bound_ms=rep["old_bound_ms"],
         ))
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(dict(card=card, rows=rows, main=main_stats, bulk=bulk_stats,
                            mulcmp=mul_stats, exp_enc=exp_stats, launches=paths,
+                           lt_launch_times=ctx["lt_launch_times"],
+                           clocks=clocks,
                            peak_gb=peak, kernels=kernels, profile=profile_stats,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     for kern in kernels:

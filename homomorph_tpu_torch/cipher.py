@@ -296,7 +296,7 @@ class Ciphered:
             selw = gf2.from_numpy(_pack_selection(sel_host, W), dev)
         plain = torch.from_numpy(all_bits.reshape(total).astype(np.int32)).to(dev)
         limbs = encrypt_bits_fused(
-            selw, pk.columns(), plain, L, planes=pk.planes()
+            selw, pk.limbs, plain, L, planes=pk.planes
         ).reshape(shape + (L,))
 
         if not batch:

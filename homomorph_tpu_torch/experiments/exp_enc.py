@@ -5,7 +5,8 @@ Counterpart of ``experiments/exp_enc.py``.  At ``Parameters(128, 128, 64,
 (:func:`homomorph_tpu_torch.prng.random_bits`), encrypts them with
 
 * ``pallas_v2``: K2, :func:`~homomorph_tpu_torch.gf2.encrypt_kernel.
-  encrypt_words_popc` (the JAX experiment's in-kernel-unpack baseline);
+  encrypt_words_table` (the JAX experiment's in-kernel-unpack baseline;
+  here table lookups in shared memory);
 * ``pallas_v1``: K3, :func:`~homomorph_tpu_torch.gf2.encrypt_kernel.
   encrypt_words_mma` (words unpacked in the kernel, as the JAX
   experiment's ``pallas_v3w``);
@@ -64,7 +65,7 @@ def run(bits: int = 1 << 21, device=None, params=PARAMS, seed: int = 0) -> dict:
     ctx.generate_secret_key()
     ctx.generate_public_key()
     pk = ctx.get_public_key()
-    pkcol, planes = pk.columns(), pk.planes()
+    planes = pk.planes()
     L = gf2.limbs_for(p.pk_degree)
     tau, W = p.tau, -(-p.tau // 32)
     plain = torch.zeros(bits, dtype=gf2.LIMB_DTYPE, device=dev)
@@ -74,7 +75,7 @@ def run(bits: int = 1 << 21, device=None, params=PARAMS, seed: int = 0) -> dict:
         return prng.random_bits(key, (bits, W), dev)
 
     steps = {
-        "pallas_v2": lambda: enc.encrypt_words_popc(words(), pkcol, plain, L),
+        "pallas_v2": lambda: enc.encrypt_words_table(words(), pk.limbs, plain, L),
         "pallas_v1": lambda: enc.encrypt_words_mma(words(), planes, plain, L),
         "pallas_v3": lambda: enc.encrypt_sel_mma(
             gf2.unpack_bits(words(), tau, dtype=torch.int8), planes, plain, L
@@ -88,7 +89,7 @@ def run(bits: int = 1 << 21, device=None, params=PARAMS, seed: int = 0) -> dict:
         ms = _step_ms(fn, dev) if bad == 0 else None
         rows[name] = dict(mismatches=bad, ms=ms,
                           bits_per_s=bits / (ms / 1e3) if ms else None)
-    return dict(bits=bits, tau=tau, D=pkcol.shape[0], L=L, device=str(dev), rows=rows)
+    return dict(bits=bits, tau=tau, D=planes.shape[0], L=L, device=str(dev), rows=rows)
 
 
 def main(argv=None) -> int:

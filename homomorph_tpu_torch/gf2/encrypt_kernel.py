@@ -5,18 +5,23 @@ kernel of ``experiments/exp_enc.py``.  Each plaintext bit ``x`` of a flat
 batch is encrypted as ``C = (XOR_{i in U} T_i) + x`` (src/cipher.rs:92-115),
 with the subset ``U`` given as packed selection words ``selw``
 [B, ceil(tau/32)] or, for X1, as a selection already unpacked to int8
-``sel`` [B, tau].  Bit ``j`` of ``C`` is the parity of the count
-``sum_k sel[k] * T_k[j]``.  Three kernels compute it, each behind a wrapper
-that launches it on a CUDA tensor (and counts the launch) or raises, and
+``sel`` [B, tau].  Three kernels compute it, each behind a wrapper that
+launches it on a CUDA tensor (and counts the launch) or raises, and
 computes a plain torch version on a CPU tensor:
 
-* K2 :func:`encrypt_words_popc` (``csrc/encrypt.cu``) takes the parity with
-  no product at all: ``popc(XOR_w selw & pkcol) & 1`` on the INT32 units,
-  with ``pkcol`` [D, W] the key's bit columns packed along tau
-  (:func:`pk_columns`).
+* K2 :func:`encrypt_words_table` (``csrc/encrypt.cu``) does no product at
+  all: it XORs key rows by table lookup ("Four Russians").  For each byte
+  of the selection words a block holds in shared memory the table of all
+  256 XOR combinations of the byte's key rows, built from the key's limbs
+  ``pk`` [tau, Lpk], and a ciphertext limb is one lookup per byte.  The
+  kernel's launcher picks the key limbs per block and the selection words
+  per pass from (tau, limbs) and the card's shared memory;
+  :func:`encrypt_tables_plain` follows the same decomposition in torch, for
+  the tests.
 * K3 :func:`encrypt_words_mma` (``csrc/encrypt_mma.cu``) unpacks the words
-  to 0/1 int8 and takes the counts as an int8 tensor-core product against
-  the key's bit planes ``planes`` [D, 32W] (:func:`pk_planes`).
+  to 0/1 int8 and takes the counts ``sum_k sel[k] * T_k[j]`` as an int8
+  tensor-core product against the key's bit planes ``planes`` [D, 32W]
+  (:func:`pk_planes`); bit ``j`` of ``C`` is each count's parity.
 * X1 :func:`encrypt_sel_mma` (the same source) takes the same product from
   a pre-unpacked ``sel``.
 
@@ -37,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+from typing import Callable
 
 import torch
 
@@ -48,11 +54,12 @@ __all__ = [
     "pk_planes",
     "encrypt_impl",
     "encrypt_bits_fused",
-    "encrypt_words_popc",
+    "encrypt_words_table",
     "encrypt_words_mma",
     "encrypt_sel_mma",
     "encrypt_plain",
     "encrypt_sel_plain",
+    "encrypt_tables_plain",
 ]
 
 #: environment variable that selects the encrypt kernel, read at each call
@@ -62,21 +69,24 @@ ENC_IMPLS = ("pallas", "pallas_v1")
 
 # cap on the [rows, 32*W + D] float intermediates of the plain versions
 _PLAIN_ELEM_CAP = 1 << 26
+# K2's selection bits per chunk: one byte
+_CHUNK_BITS = 8
 
 _fns: dict = {}
 
 
-def _kernel(library_name: str, symbol: str):
+_PTRS = [ctypes.c_void_p] * 4
+_MMA_ARGS = _PTRS + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_TABLE_ARGS = _PTRS + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def _kernel(library_name: str, symbol: str, argtypes=_MMA_ARGS):
     fn = _fns.get(symbol)
     if fn is None:
         from .cuda_build import library
 
         fn = getattr(library(library_name), symbol)
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _fns[symbol] = fn
     return fn
@@ -137,13 +147,51 @@ def encrypt_sel_plain(
     return _parity_counts(lambda r0, r1: sel[r0:r1].to(torch.float32), pk_bits, plain, L)
 
 
+def encrypt_tables_plain(
+    selw: torch.Tensor, pk: torch.Tensor, plain: torch.Tensor, L: int, plan=None
+) -> torch.Tensor:
+    """K2's decomposition in torch: ``selw`` [B, W], key limbs ``pk``
+    [tau, Lpk], ``plain`` [B] -> [B, L].
+
+    For each tile of ``tw`` key limbs and each pass of ``nw`` selection
+    words (``plan`` = (tw, nw), by default one tile and one pass), builds
+    the byte tables the way the kernel does, entry ``v`` from ``v`` without
+    its top bit ``b`` XOR key row ``8*j + b``, and XORs one entry per byte
+    into each row's limbs.  Every plan gives the same bits."""
+    tau, Lpk = pk.shape
+    B, W = selw.shape
+    Lt = min(Lpk, L)
+    tw, nw = plan or (Lt, W)
+    k = _CHUNK_BITS
+    cpw, n_chunks = gf2.LIMB_BITS // k, -(-tau // k)
+    rows = torch.zeros((n_chunks * k, Lpk), dtype=gf2.LIMB_DTYPE, device=pk.device)
+    rows[:tau] = pk  # key rows beyond tau are zero
+    out = torch.zeros((B, L), dtype=gf2.LIMB_DTYPE, device=selw.device)
+    for m0 in range(0, Lt, tw):
+        t = min(tw, Lt - m0)
+        for w0 in range(0, W, nw):
+            c0 = w0 * cpw
+            nch = min(nw * cpw, n_chunks - c0)
+            keys = rows[c0 * k : (c0 + nch) * k, m0 : m0 + t].reshape(nch, k, t)
+            table = torch.zeros((nch, 1, t), dtype=gf2.LIMB_DTYPE, device=pk.device)
+            for b in range(k):  # entries [2^b, 2^(b+1)) from entries [0, 2^b)
+                table = torch.cat([table, table ^ keys[:, b : b + 1]], dim=1)
+            acc = out[:, m0 : m0 + t]
+            for j in range(c0, c0 + nch):
+                idx = gf2.srl(selw[:, j // cpw], (j % cpw) * k) & ((1 << k) - 1)
+                acc ^= table[j - c0][idx.long()]
+    out[:, 0] ^= plain & 1
+    return out
+
+
 # --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
 
 
-def _check(name, a, a_dtype, pk, pk_dtype, pk_width, plain, L) -> None:
-    """Shared checks: ``a`` [B, K], ``pk`` [D, pk_width], ``plain`` [B]."""
+def _check_operands(name, a, a_dtype, pk, pk_dtype, plain, L) -> None:
+    """Checks every kernel shares: ``a`` [B, K], a 2-D ``pk``, ``plain``
+    [B], their types, contiguity and device, and ``L``."""
     for arg, t, dtype in (("selection", a, a_dtype), ("key", pk, pk_dtype),
                           ("plain", plain, gf2.LIMB_DTYPE)):
         if t.dtype != dtype:
@@ -157,22 +205,30 @@ def _check(name, a, a_dtype, pk, pk_dtype, pk_width, plain, L) -> None:
             f"{name} takes a 2-D selection and key and a 1-D plain; got "
             f"{tuple(a.shape)}, {tuple(pk.shape)}, {tuple(plain.shape)}"
         )
-    if pk.shape[1] != pk_width or plain.shape[0] != a.shape[0] or a.shape[1] == 0:
+    if plain.shape[0] != a.shape[0] or a.shape[1] == 0 or not 1 <= L <= 65535:
+        raise ValueError(
+            f"{name} takes a non-empty selection, a plain bit per row and "
+            f"1 <= L <= 65535; got selection {tuple(a.shape)}, plain "
+            f"{tuple(plain.shape)}, L={L}"
+        )
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {a.device}")
+
+
+def _check(name, a, a_dtype, pk, pk_dtype, pk_width, plain, L) -> None:
+    """K3's and X1's checks: ``a`` [B, K], ``pk`` [D, pk_width], ``plain`` [B]."""
+    _check_operands(name, a, a_dtype, pk, pk_dtype, plain, L)
+    if pk.shape[1] != pk_width:
         raise ValueError(
             f"{name} shapes disagree: selection {tuple(a.shape)}, key "
-            f"{tuple(pk.shape)} (needs width {pk_width}), plain {tuple(plain.shape)}"
+            f"{tuple(pk.shape)} (needs width {pk_width})"
         )
-    if pk.shape[0] == 0 or pk.shape[0] % gf2.LIMB_BITS or not 1 <= L <= 65535:
-        raise ValueError(
-            f"{name} takes D % 32 == 0, D >= 32 and 1 <= L <= 65535; got "
-            f"D={pk.shape[0]}, L={L}"
-        )
+    if pk.shape[0] == 0 or pk.shape[0] % gf2.LIMB_BITS:
+        raise ValueError(f"{name} takes D % 32 == 0 and D >= 32; got D={pk.shape[0]}")
     if a.device.type == "cuda":
         for arg, t in (("selection", a), ("key", pk)):
             if t.data_ptr() % 16:
                 raise ValueError(f"{name} takes a 16-byte aligned {arg} on the card")
-    elif a.device.type != "cpu":
-        raise ValueError(f"{name} runs on cpu or cuda, not {a.device}")
 
 
 def _launch(library_name, symbol, a, pk, plain, L, k_arg) -> torch.Tensor:
@@ -191,21 +247,40 @@ def _launch(library_name, symbol, a, pk, plain, L, k_arg) -> torch.Tensor:
     return out
 
 
-def encrypt_words_popc(
-    selw: torch.Tensor, pkcol: torch.Tensor, plain: torch.Tensor, L: int
+def encrypt_words_table(
+    selw: torch.Tensor, pk: torch.Tensor, plain: torch.Tensor, L: int
 ) -> torch.Tensor:
-    """K2's wrapper: ``selw`` [B, W] int32 words, ``pkcol`` [D, W] from
-    :func:`pk_columns`, ``plain`` [B] int32 0/1 -> [B, L] int32.
+    """K2's wrapper: ``selw`` [B, ceil(tau/32)] int32 words, ``pk`` [tau,
+    Lpk] int32 key limbs (``PublicKey.limbs``), ``plain`` [B] int32 0/1 ->
+    [B, L] int32.
 
     A CPU tensor gets :func:`encrypt_plain`; a CUDA tensor launches
     ``csrc/encrypt.cu`` on the current stream (and counts the launch) or
-    raises."""
-    _check("encrypt_words_popc", selw, gf2.LIMB_DTYPE, pkcol, gf2.LIMB_DTYPE,
-           selw.shape[1], plain, L)
+    raises.  Limbs beyond the key's are zero."""
+    _check_operands("encrypt_words_table", selw, gf2.LIMB_DTYPE, pk, gf2.LIMB_DTYPE, plain, L)
+    tau = pk.shape[0]
+    if tau == 0 or pk.shape[1] == 0 or selw.shape[1] != -(-tau // gf2.LIMB_BITS):
+        raise ValueError(
+            f"encrypt_words_table takes a [tau, Lpk] key and ceil(tau/32) selection "
+            f"words per row; got key {tuple(pk.shape)}, selection {tuple(selw.shape)}"
+        )
     if selw.device.type == "cpu":
-        return encrypt_plain(selw, pk_planes(pkcol), plain, L)
-    out = _launch("encrypt", "hm_encrypt", selw, pkcol, plain, L, selw.shape[1])
-    encrypt_words_popc.launches += 1
+        return encrypt_plain(selw, pk_planes(pk_columns(pk)), plain, L)
+    B, W = selw.shape
+    Lpk = pk.shape[1]
+    Lt = min(Lpk, L)
+    out = (torch.empty if Lt == L else torch.zeros)((B, L), dtype=gf2.LIMB_DTYPE, device=selw.device)
+    if B == 0:
+        return out
+    with torch.cuda.device(selw.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel("encrypt", "hm_encrypt_table", _TABLE_ARGS)(
+            selw.data_ptr(), pk.data_ptr(), plain.data_ptr(), out.data_ptr(),
+            B, W, tau, Lpk, L, Lt, stream,
+        )
+    if err:
+        raise RuntimeError(f"hm_encrypt_table launch failed: cudaError {err}")
+    encrypt_words_table.launches += 1
     return out
 
 
@@ -246,7 +321,7 @@ def encrypt_sel_mma(
 
 
 #: launches of each CUDA kernel since the last reset (plain integers)
-encrypt_words_popc.launches = 0
+encrypt_words_table.launches = 0
 encrypt_words_mma.launches = 0
 encrypt_sel_mma.launches = 0
 
@@ -268,18 +343,20 @@ def encrypt_impl() -> str:
 
 def encrypt_bits_fused(
     selw: torch.Tensor,
-    pkcol: torch.Tensor,
+    pk: torch.Tensor,
     plain: torch.Tensor,
     L: int,
-    planes: torch.Tensor | None = None,
+    planes: Callable[[], torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """Encryption of a flat bit batch from packed selection words.
 
-    ``selw``: [B, W] int32; ``pkcol``: [D, W] from :func:`pk_columns`;
-    ``plain``: [B] int32 0/1.  Returns [B, L] int32.  Runs K2
-    (:func:`encrypt_words_popc`), or K3 (:func:`encrypt_words_mma`) on
-    ``planes`` (derived from ``pkcol`` when not given) when
-    :func:`encrypt_impl` is ``pallas_v1``."""
+    ``selw``: [B, W] int32; ``pk``: [tau, Lpk] int32 key limbs; ``plain``:
+    [B] int32 0/1.  Returns [B, L] int32.  Runs K2
+    (:func:`encrypt_words_table`), or K3 (:func:`encrypt_words_mma`) when
+    :func:`encrypt_impl` is ``pallas_v1``, on the bit planes that
+    ``planes()`` gives (a key's cached ``PublicKey.planes``; derived from
+    ``pk`` when not given).  K2 never builds the planes."""
     if encrypt_impl() == "pallas_v1":
-        return encrypt_words_mma(selw, pk_planes(pkcol) if planes is None else planes, plain, L)
-    return encrypt_words_popc(selw, pkcol, plain, L)
+        pk_bits = planes() if planes is not None else pk_planes(pk_columns(pk))
+        return encrypt_words_mma(selw, pk_bits, plain, L)
+    return encrypt_words_table(selw, pk, plain, L)

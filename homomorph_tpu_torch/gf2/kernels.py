@@ -5,10 +5,17 @@ the leading dimensions as the JAX dispatcher does (``kernels.py:179-185``),
 flattens both operands to [B, L] rows and hands them to
 :func:`clmul_flat`, the kernel's wrapper:
 
-* on a CUDA tensor it launches ``csrc/clmul.cu`` (one thread per output
-  limb, see the note in that file) or raises;
+* on a CUDA tensor it launches ``csrc/clmul.cu`` or raises: a 4-bit
+  windowed comb (Lopez-Dahab) that stages the 16 multiples ``u*g`` of the
+  wider operand in shared memory and adds one funnel-shifted multiple per
+  nibble of the smaller one, one thread per output limb (see the note in
+  that file); its bound is the comb's shared-memory loads;
 * on a CPU tensor it computes :func:`clmul_plain`, the 32-plane sweep of
   :func:`homomorph_tpu_torch.gf2.poly.clmul`, chunked over the batch.
+
+:func:`clmul_comb_plain` follows the kernel's decomposition step by step in
+torch (the multiples, then the nibble walk with funnel shifts), so the CPU
+tests check its indexing against the JAX package; no path calls it.
 
 The kernel takes any operand widths.  The JAX package's strip, Karatsuba
 and blocked-scan routes (``kernels.py:107-147, 194-387``) exist because of
@@ -23,10 +30,11 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import poly as gf2
 
-__all__ = ["clmul", "clmul_flat", "clmul_plain"]
+__all__ = ["clmul", "clmul_flat", "clmul_plain", "clmul_comb_plain"]
 
 # cap on the [batch, La, Lb] planes the plain sweep materializes at once
 _PLAIN_ELEM_CAP = 1 << 22
@@ -73,6 +81,41 @@ def clmul_plain(af: torch.Tensor, bf: torch.Tensor) -> torch.Tensor:
     return torch.cat(
         [gf2.clmul(af[r : r + chunk], bf[r : r + chunk]) for r in range(0, B, chunk)]
     )
+
+
+def _funnel_l(lo: torch.Tensor, hi: torch.Tensor, n: int) -> torch.Tensor:
+    """CUDA's ``__funnelshift_l(lo, hi, n)`` for a static 0 <= n < 32: the
+    high word of ``(hi:lo) << n``."""
+    return hi if n == 0 else (hi << n) | gf2.srl(lo, gf2.LIMB_BITS - n)
+
+
+def clmul_comb_plain(af: torch.Tensor, bf: torch.Tensor) -> torch.Tensor:
+    """The kernel's comb in torch: flat [B, La] x [B, Lb] -> [B, La+Lb].
+
+    Builds the 16 multiples ``T[u] = u*g`` ([B, 16, Lg+1]) of the wider
+    operand ``g`` from ``g, 2g, 4g, 8g``, then for each limb ``i`` and
+    nibble ``w`` of the smaller operand XORs ``funnel_l(T[nib][j-1],
+    T[nib][j], 4w)`` into output limb ``i + j``, as ``csrc/clmul.cu`` does
+    for each of its threads."""
+    small, big = (af, bf) if af.shape[1] <= bf.shape[1] else (bf, af)
+    B, Ls = small.shape
+    Lg = big.shape[1]
+    gp = F.pad(big, (1, 1))  # gp[:, j + 1] = g[j] for j = -1 .. Lg
+    t1 = gp[:, 1:]
+    t2, t4, t8 = (_funnel_l(gp[:, :-1], gp[:, 1:], n) for n in (1, 2, 3))
+    T = torch.zeros((B, 16, Lg + 1), dtype=gf2.LIMB_DTYPE, device=af.device)
+    for u in range(1, 16):
+        for bit, t in ((1, t1), (2, t2), (4, t4), (8, t8)):
+            if u & bit:
+                T[:, u] ^= t
+    Tp = F.pad(T, (1, 1))  # Tp[:, u, j + 1] = T[u][j] for j = -1 .. Lg + 1
+    rows = torch.arange(B, device=af.device)
+    out = torch.zeros((B, Ls + Lg + 1), dtype=gf2.LIMB_DTYPE, device=af.device)
+    for i in range(Ls):
+        for w in range(8):
+            Tn = Tp[rows, (gf2.srl(small[:, i], 4 * w) & 15).long()]  # [B, Lg + 3]
+            out[:, i : i + Lg + 2] ^= _funnel_l(Tn[:, :-1], Tn[:, 1:], 4 * w)
+    return out[:, : Ls + Lg].contiguous()  # limb Ls+Lg only ever gets zeros
 
 
 def _check(af: torch.Tensor, bf: torch.Tensor) -> None:

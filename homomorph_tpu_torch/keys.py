@@ -6,8 +6,9 @@ src/context.rs:121-298):
 * :class:`SecretKey` - one polynomial of exact degree ``d``, plus lazily
   built decrypt masks (computed on the host, cached on the device).
 * :class:`PublicKey` - ``tau`` polynomials ``T_i = S*Q_i + X*R_i`` stored as
-  one device tensor ``[tau, L]``, plus lazily built bit columns packed
-  along tau (K2) and int8 bit planes (K3, X1) for the encrypt kernels.
+  one device tensor ``[tau, L]`` (which the encrypt kernel K2 reads),
+  plus lazily built bit columns packed along tau and the int8 bit planes
+  unpacked from them for the tensor-core kernels (K3, X1).
 
 Both hold a numpy ``uint32`` host copy and an int32 tensor on their device
 (``device=None`` means the CUDA card).  Byte formats are identical to the
@@ -209,6 +210,8 @@ class PublicKey:
 
     @property
     def limbs(self) -> torch.Tensor:
+        """[tau, L] int32 on the key's device, contiguous: what the table
+        encrypt kernel (K2) reads."""
         return self._limbs
 
     @property
@@ -233,10 +236,9 @@ class PublicKey:
         ]
 
     def columns(self) -> torch.Tensor:
-        """Bit columns packed along tau, [32*L, ceil(tau/32)] int32, for the
-        encrypt kernel (:func:`~homomorph_tpu_torch.gf2.encrypt_kernel.
-        pk_columns`); built once per key.  Replaces the JAX package's bf16
-        ``bit_planes`` matrix."""
+        """Bit columns packed along tau, [32*L, ceil(tau/32)] int32, from
+        which :meth:`planes` unpacks (:func:`~homomorph_tpu_torch.gf2.
+        encrypt_kernel.pk_columns`); built once per key."""
         if self._columns is None:
             self._columns = _enc.pk_columns(self._limbs)
         return self._columns

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1, K2, K3, X1, T1) against their plain torch
-versions, on the card.
+versions (and K1 and K2 against the torch mirrors of their designs), on the
+card.
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 False.  The file imports neither jax nor the JAX package and uses no
@@ -48,6 +49,21 @@ def test_clmul_kernel_matches_plain(B, La, Lb):
     assert torch.equal(got, k.clmul_plain(a, b))
 
 
+@pytest.mark.parametrize(
+    "B,La,Lb",
+    [(3, 1, 1), (5, 1, 9), (128, 5, 5), (65, 9, 9), (33, 9, 256), (9, 64, 64), (5, 96, 192),
+     (2, 3, 600), (2, 130, 500)],
+)
+def test_clmul_kernel_matches_the_comb_mirror(B, La, Lb):
+    """The redesign's shapes (and more than one output tile or window of
+    the smaller operand) against the comb's torch mirror and the sweep."""
+    a, b = on_card((B, La), 21), on_card((B, Lb), 22)
+    got = k.clmul_flat(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k.clmul_comb_plain(a, b))
+    assert torch.equal(got, k.clmul_plain(a, b))
+
+
 def test_clmul_broadcast_on_card():
     q, s = on_card((128, 5), 3), on_card((5,), 4)
     assert torch.equal(k.clmul(q, s), k.clmul_plain(q, s.expand(128, 5).contiguous()))
@@ -56,14 +72,44 @@ def test_clmul_broadcast_on_card():
 @pytest.mark.parametrize("tau,Lpk,L", [(1, 2, 2), (33, 9, 9), (128, 9, 9), (256, 65, 65), (128, 9, 12)])
 def test_encrypt_kernel_matches_plain(tau, Lpk, L):
     B = 4096
-    pkcol = enc.pk_columns(on_card((tau, Lpk), 5))
+    pk = on_card((tau, Lpk), 5)
     selw = on_card((B, -(-tau // 32)), 6)
     plain = on_card((B,), 7) & 1
-    before = enc.encrypt_words_popc.launches
-    got = enc.encrypt_words_popc(selw, pkcol, plain, L)
+    before = enc.encrypt_words_table.launches
+    got = enc.encrypt_words_table(selw, pk, plain, L)
     torch.cuda.synchronize()
-    assert enc.encrypt_words_popc.launches == before + 1
-    assert torch.equal(got, enc.encrypt_plain(selw, enc.pk_planes(pkcol), plain, L))
+    assert enc.encrypt_words_table.launches == before + 1
+    assert torch.equal(got, enc.encrypt_plain(selw, enc.pk_planes(enc.pk_columns(pk)), plain, L))
+
+
+@pytest.mark.parametrize(
+    "tau,Lpk,L", [(1, 2, 3), (8, 3, 3), (9, 3, 5), (33, 9, 9), (128, 9, 9), (256, 65, 65),
+                  (300, 3, 5), (128, 9, 7)],
+)
+def test_encrypt_table_kernel_matches_the_mirror(tau, Lpk, L):
+    """The redesign's tau (not multiples of the chunk; more than 8 words,
+    so more than one pass), L above and below the key's limbs, a row count
+    that is not a multiple of a block's rows, every plan the rule gives."""
+    B = 4099
+    pk = on_card((tau, Lpk), 23)
+    selw = on_card((B, -(-tau // 32)), 24)  # bit 31 set in about half the words
+    plain = on_card((B,), 25) & 1
+    got = enc.encrypt_words_table(selw, pk, plain, L)
+    torch.cuda.synchronize()
+    assert torch.equal(got, enc.encrypt_tables_plain(selw, pk, plain, L))
+    assert torch.equal(got, enc.encrypt_plain(selw, enc.pk_planes(enc.pk_columns(pk)), plain, L))
+
+
+@pytest.mark.parametrize("tau,Lpk", [(256, 65), (64, 300), (300, 40), (1, 500)])
+def test_encrypt_table_kernel_plans_give_the_same_bits(tau, Lpk):
+    """Keys whose tables the launcher tiles (10 tiles of 7 limbs, 11 of 28,
+    6 of 7 in two passes, 3 of 167 on the H100), against the mirror's
+    single tile and pass."""
+    pk = on_card((tau, Lpk), 26)
+    selw, plain = on_card((3000, -(-tau // 32)), 27), on_card((3000,), 28) & 1
+    got = enc.encrypt_words_table(selw, pk, plain, Lpk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, enc.encrypt_tables_plain(selw, pk, plain, Lpk))
 
 
 @pytest.mark.parametrize(
@@ -89,14 +135,14 @@ def test_encrypt_mma_kernels_match_plain(tau, Lpk, L):
 
 
 def test_selector_launches_k3_on_the_card(monkeypatch):
-    pkcol = enc.pk_columns(on_card((128, 9), 12))
+    pk = on_card((128, 9), 12)
     selw, plain = on_card((256, 4), 13), on_card((256,), 14) & 1
     monkeypatch.setenv(enc.ENC_IMPL_ENV, "pallas_v1")
-    before = (enc.encrypt_words_popc.launches, enc.encrypt_words_mma.launches)
-    got = enc.encrypt_bits_fused(selw, pkcol, plain, 9)
-    assert (enc.encrypt_words_popc.launches, enc.encrypt_words_mma.launches) == (
+    before = (enc.encrypt_words_table.launches, enc.encrypt_words_mma.launches)
+    got = enc.encrypt_bits_fused(selw, pk, plain, 9)
+    assert (enc.encrypt_words_table.launches, enc.encrypt_words_mma.launches) == (
         before[0], before[1] + 1)
-    assert torch.equal(got, enc.encrypt_words_popc(selw, pkcol, plain, 9))
+    assert torch.equal(got, enc.encrypt_words_table(selw, pk, plain, 9))
 
 
 @pytest.mark.parametrize("shape", [(5,), (7, 8), ((1 << 20) + 3, 4)])
@@ -127,7 +173,7 @@ def test_wrappers_raise_on_unsupported_input():
     with pytest.raises(ValueError):
         k.clmul_flat(a, a.cpu())
     with pytest.raises(TypeError):
-        enc.encrypt_words_popc(a, a.to(torch.int64), a[:, 0].contiguous(), 9)
+        enc.encrypt_words_table(a, a.to(torch.int64), a[:, 0].contiguous(), 9)
     planes = enc.pk_planes(enc.pk_columns(on_card((33, 2), 15)))
     skew = torch.zeros(planes.numel() + 1, dtype=torch.int8, device="cuda")[1:]
     skew = skew.view(planes.shape)  # contiguous but not 16-byte aligned

@@ -87,17 +87,17 @@ class TestSelector:
             tenc.encrypt_impl()
         pk, selw, plain = inputs(rng, 33, 8, 2)
         with pytest.raises(ValueError, match=tenc.ENC_IMPL_ENV):
-            tenc.encrypt_bits_fused(T(selw), tenc.pk_columns(T(pk)), T(plain), 2)
+            tenc.encrypt_bits_fused(T(selw), T(pk), T(plain), 2)
 
     def test_both_kernels_give_the_same_bits(self, monkeypatch, rng):
         pk, selw, plain = inputs(rng, 100, 96, 4)
-        pkcol = tenc.pk_columns(T(pk))
+        key = T(pk)
         outs = []
         for impl in tenc.ENC_IMPLS:
             monkeypatch.setenv(tenc.ENC_IMPL_ENV, impl)
-            outs.append(tenc.encrypt_bits_fused(T(selw), pkcol, T(plain), 4))
+            outs.append(tenc.encrypt_bits_fused(T(selw), key, T(plain), 4))
             outs.append(tenc.encrypt_bits_fused(
-                T(selw), pkcol, T(plain), 4, planes=tenc.pk_planes(pkcol)))
+                T(selw), key, T(plain), 4, planes=lambda: tenc.pk_planes(tenc.pk_columns(key))))
         assert all(torch.equal(o, outs[0]) for o in outs)
 
 
@@ -128,12 +128,12 @@ class TestWrappers:
         pk, selw, plain = inputs(rng, 33, 8, 2)
         planes = tenc.pk_planes(tenc.pk_columns(T(pk)))
         before = (tenc.encrypt_words_mma.launches, tenc.encrypt_sel_mma.launches,
-                  tenc.encrypt_words_popc.launches)
+                  tenc.encrypt_words_table.launches)
         tenc.encrypt_words_mma(T(selw), planes, T(plain), 2)
         tenc.encrypt_sel_mma(tpoly.unpack_bits(T(selw), 33, dtype=torch.int8), planes, T(plain), 2)
-        tenc.encrypt_words_popc(T(selw), tenc.pk_columns(T(pk)), T(plain), 2)
+        tenc.encrypt_words_table(T(selw), T(pk), T(plain), 2)
         assert before == (tenc.encrypt_words_mma.launches, tenc.encrypt_sel_mma.launches,
-                          tenc.encrypt_words_popc.launches)
+                          tenc.encrypt_words_table.launches)
 
     def test_empty_batch(self, rng):
         pk, _, _ = inputs(rng, 33, 1, 2)

@@ -2,9 +2,10 @@
 
 * ``homomorph_tpu_torch.gf2.kernels.clmul`` (K1's dispatcher and wrapper)
   against ``homomorph_tpu.gf2.kernels.clmul``;
-* ``homomorph_tpu_torch.gf2.encrypt_kernel.encrypt_bits_fused`` (K2's
-  wrapper) against ``homomorph_tpu.gf2.encrypt_kernel.encrypt_bits_fused``
-  on the same selection words, public key and plaintext bits.
+* ``homomorph_tpu_torch.gf2.encrypt_kernel.encrypt_bits_fused`` (the
+  entry to K2's wrapper) against
+  ``homomorph_tpu.gf2.encrypt_kernel.encrypt_bits_fused`` on the same
+  selection words, public key and plaintext bits.
 
 On the CPU the wrappers compute their plain versions and the JAX
 dispatchers fall to their XLA paths, so these are parity tests of the
@@ -75,8 +76,9 @@ class TestClmul:
 
     @pytest.mark.parametrize("La,Lb", [(5, 5), (9, 9), (9, 256), (256, 9), (9, 48)])
     def test_smoke_bound_counts_the_kernels_work(self, La, Lb):
-        """chip_smoke.py's bound counts the (limb, output limb) pairs that
-        csrc/clmul.cu's loops visit, 32 steps of 2 ops each."""
+        """chip_smoke.py's bit-serial count (kept beside the comb's bound)
+        counts the (limb, output limb) pairs that a bit-serial loop visits,
+        32 steps of 2 ops each."""
         path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "chip_smoke.py")
         spec = importlib.util.spec_from_file_location("chip_smoke", path)
         smoke = importlib.util.module_from_spec(spec)
@@ -112,8 +114,7 @@ class TestEncrypt:
         want = np.asarray(
             jenc.encrypt_bits_fused(jnp.asarray(selw), pk_bits, jnp.asarray(plain), L)
         )
-        pkcol = tenc.pk_columns(T(pk))
-        got = tenc.encrypt_bits_fused(T(selw), pkcol, T(plain), L)
+        got = tenc.encrypt_bits_fused(T(selw), T(pk), T(plain), L)
         assert np.array_equal(tpoly.to_numpy(got), want)
 
     def test_pk_columns_layout(self, rng):
@@ -128,7 +129,7 @@ class TestEncrypt:
 
     def test_output_limbs_beyond_the_key_are_zero(self, rng):
         pk, selw, plain = make_encrypt_inputs(rng, 33, 64, Lpk=2)
-        out = tenc.encrypt_bits_fused(T(selw), tenc.pk_columns(T(pk)), T(plain), 4)
+        out = tenc.encrypt_bits_fused(T(selw), T(pk), T(plain), 4)
         host = tpoly.to_numpy(out)
         assert not host[:, 2:].any()
         assert np.array_equal(
@@ -138,14 +139,14 @@ class TestEncrypt:
 
     def test_wrapper_rejects_what_the_kernel_does_not_take(self, rng):
         pk, selw, plain = make_encrypt_inputs(rng, 33, 8)
-        pkcol, s, p = tenc.pk_columns(T(pk)), T(selw), T(plain)
+        key, s, p = T(pk), T(selw), T(plain)
         with pytest.raises(TypeError):
-            tenc.encrypt_bits_fused(s.to(torch.int64), pkcol, p, 9)
+            tenc.encrypt_bits_fused(s.to(torch.int64), key, p, 9)
         with pytest.raises(ValueError):
-            tenc.encrypt_bits_fused(s, pkcol[:, :1].contiguous(), p, 9)
+            tenc.encrypt_bits_fused(s, key[:, :0].contiguous(), p, 9)  # no limbs
         with pytest.raises(ValueError):
-            tenc.encrypt_bits_fused(s, pkcol[:40].contiguous(), p, 9)  # D % 32
+            tenc.encrypt_bits_fused(s, key[:1].contiguous(), p, 9)  # W != ceil(tau/32)
         with pytest.raises(ValueError):
-            tenc.encrypt_bits_fused(s, pkcol, p[:4], 9)
+            tenc.encrypt_bits_fused(s, key, p[:4], 9)
         with pytest.raises(ValueError):
-            tenc.encrypt_bits_fused(s, pkcol, p, 0)
+            tenc.encrypt_bits_fused(s, key, p, 0)
