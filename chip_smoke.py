@@ -31,14 +31,30 @@ Phases, in order; any failure exits non-zero before the result line:
    ``lt`` against the CPU's plain path (limbs, bound, noise);
 6b. the encrypt experiment's entry (``homomorph_tpu_torch.experiments.
    exp_enc``): K2, K3 and X1 on 2^21 bits, K3 and X1 held to K2;
+3c. the clmul route sweep (:func:`phase_route_sweep`): one Karatsuba level
+   (split, the leaf launch, unwind) against one direct K1 launch on
+   balanced operands of 32-4,096 limbs, and the chunk route at ``Lg = 4 Ls``,
+   by device time; every routed product equal to the direct one, limb for
+   limb; the crossover it measures printed beside the threshold in the code;
+5c. the wide path (:func:`phase_wide`): checked u16 multiplication of 512
+   pairs at ``Parameters(1024, 128, 1, 128)`` and u32 of 8 pairs at
+   ``(2432, 128, 1, 128)``, decrypted and asserted, 2 and 1 of their rows
+   again with the route off (direct K1) and equal limb for limb; the u32
+   product once more with ``HOMOMORPH_TPU_TORCH_EAGER_SYNC=1``; the sum of
+   8 u8 operands, the u32 popcount, the u8 clamp, the i8 shifts, rotates
+   and ``abs_``, and the u32 add through the carry scan, each decrypted and
+   asserted;
 3b. K1 at the busiest shapes phase 5b's multiplication and ``lt`` launched
-   it with, and every distinct ``lt`` launch shape timed;
+   it with, every distinct ``lt`` launch shape timed, and at the busiest
+   launch of the u16 product and the widest of the u32 product (phase 5c),
+   with the u32 product's widest operands timed direct and routed, and the
+   u16 product end to end at thresholds from 48 limbs to the route off;
 7. ``torch.profiler`` traces of the checked add, the first bulk round trip,
-   the u8 multiplication and the u32 ``lt``: warm wall time, device time by
-   kernel, busy share;
+   the u8 multiplication, the u32 ``lt`` and the u16 and u32
+   multiplications: warm wall time, device time by kernel, busy share;
 8. one JSON line of kernels (launches counted over the paths: phases 5-6,
-   5b and 6b, each counted from 0; each bound the larger of the bytes and
-   the necessary work of the best design in the repo, see
+   5b, 6b and 5c, each counted from 0; each bound the larger of the bytes
+   and the necessary work of the best design in the repo, see
    :func:`set_bounds`, with the older operation count's bound beside it);
 9. last line ``{"ok": true, "device": {...}}``.
 
@@ -49,7 +65,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import subprocess
 import sys
@@ -213,9 +228,69 @@ def random_words(ctx, shape):
                          generator=ctx["gen"])
 
 
-def timed(torch, kernel_fn, plain_fn):
+def timed(torch, kernel_fn, plain_fn, plain_events=False):
+    """Device times of the kernel and its plain version.  With
+    ``plain_events`` the plain version is timed by CUDA events over one
+    call instead: at the wide path's row counts it runs ~10^5 small torch
+    kernels a call, more than a profiler trace should hold."""
+    plain_ms = call_ms(torch, plain_fn, 1) if plain_events else device_ms(torch, plain_fn, 3)
     return dict(ms=device_ms(torch, kernel_fn, 20), call_ms=call_ms(torch, kernel_fn),
-                plain_ms=device_ms(torch, plain_fn, 3))
+                plain_ms=plain_ms, plain_by="events" if plain_events else "profiler")
+
+
+def stage(torch, fn):
+    """(result, wall ms) of ``fn`` between two synchronizations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def with_env(name, value, fn):
+    """``fn()`` with the environment variable ``name`` set to ``value``
+    (deleted for None), restored after."""
+    saved = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = str(value)
+    try:
+        return fn()
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
+
+
+def recorded_rows(fn):
+    """``fn()`` and the [B, La, Lb] shapes of every product the clmul
+    dispatcher took (each is one K1 launch, routed or not)."""
+    from homomorph_tpu_torch.gf2 import kernels as k
+
+    shapes = []
+    rows = k.clmul_rows
+
+    def recording(af, bf):
+        shapes.append((af.shape[0], af.shape[1], bf.shape[1]))
+        return rows(af, bf)
+
+    k.clmul_rows = recording
+    try:
+        return fn(), shapes
+    finally:
+        k.clmul_rows = rows
+
+
+def leaf_shape(B, La, Lb, kmin):
+    """The K1 launch the route makes for a [B, La] x [B, Lb] product."""
+    from homomorph_tpu_torch.gf2 import kernels as k
+
+    Ls, Lg = min(La, Lb), max(La, Lb)
+    for kind, _, _, n in k.route_plan(Ls, Lg, kmin):
+        B, Ls, Lg = (B * n, Ls, Ls) if kind == "chunk" else (B * 3, n, n)
+    return B, Ls, Lg
 
 
 def set_bounds(rows):
@@ -234,7 +309,7 @@ def set_bounds(rows):
     return rows
 
 
-def clmul_rows(ctx, shapes):
+def clmul_rows(ctx, shapes, plain_events=False):
     """K1 against its plain version at (label, B, La, Lb) shapes."""
     torch = ctx["torch"]
     from homomorph_tpu_torch.gf2 import kernels as k
@@ -251,7 +326,8 @@ def clmul_rows(ctx, shapes):
         rows.append(dict(
             kernel="clmul", label=label, shape=f"B={B} La={La} Lb={Lb}",
             mismatches=bad, max_abs_err=err,
-            **timed(torch, lambda: k.clmul_flat(a, b), lambda: k.clmul_plain(a, b)),
+            **timed(torch, lambda: k.clmul_flat(a, b), lambda: k.clmul_plain(a, b),
+                    plain_events),
             work=[(smem_bytes, smem_rate(ctx)), (ops, ctx["int32_rate"])],
             old_ops=clmul_ops(B, La, Lb), old_rate=ctx["int32_rate"],
             bytes=B * (La + Lb) * 4 * 2,
@@ -526,7 +602,6 @@ def phase_mulcmp(ctx):
     import numpy as np
 
     import homomorph_tpu_torch as ht
-    from homomorph_tpu_torch.gf2 import kernels as k
     from homomorph_tpu_torch.models import (
         HomomorphicEquality, HomomorphicLessThan, HomomorphicMaximum,
         HomomorphicMultiplication, HomomorphicSubtraction,
@@ -541,42 +616,22 @@ def phase_mulcmp(ctx):
     y32 = rng.integers(0, 2**32, size=n32, dtype=np.uint64)
     y32[::16] = x32[::16]
 
-    def stage(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
     params = ht.Parameters(128, 128, 1, 128)
-    c, keygen_ms = stage(lambda: seeded_context(ht, params, seed, dev))
-    (e8a, e8b, e32a, e32b), enc_ms = stage(lambda: (
+    c, keygen_ms = stage(torch, lambda: seeded_context(ht, params, seed, dev))
+    (e8a, e8b, e32a, e32b), enc_ms = stage(torch, lambda: (
         c.encrypt(a8.tolist(), ht.U8, batch=True), c.encrypt(b8.tolist(), ht.U8, batch=True),
         c.encrypt(x32.tolist(), ht.U32, batch=True), c.encrypt(y32.tolist(), ht.U32, batch=True)))
 
     # the multiplication's and lt's K1 launches as [B, La] x [B, Lb], for phase 3b
-    clmul = k.clmul
-
     def recorded(fn):
-        shapes = []
-
-        def recording(a, b):
-            rows = math.prod(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]))
-            shapes.append((rows, a.shape[-1], b.shape[-1]))
-            return clmul(a, b)
-
-        k.clmul = recording
-        try:
-            return stage(fn), shapes
-        finally:
-            k.clmul = clmul
+        return recorded_rows(lambda: stage(torch, fn))
 
     (prod, mul_ms), shapes = recorded(lambda: c.apply2(HomomorphicMultiplication, e8a, e8b))
     ctx["mul_shapes"] = shapes
     (lt, lt_ms), ctx["lt_shapes"] = recorded(lambda: c.apply2(HomomorphicLessThan, e32a, e32b))
-    mx, max_ms = stage(lambda: c.apply2(HomomorphicMaximum, e8a, e8b))
-    eq, eq_ms = stage(lambda: c.apply2(HomomorphicEquality, e8a, e8b))
-    sb, sub_ms = stage(lambda: c.apply2(HomomorphicSubtraction, e8a, e8b))
+    mx, max_ms = stage(torch, lambda: c.apply2(HomomorphicMaximum, e8a, e8b))
+    eq, eq_ms = stage(torch, lambda: c.apply2(HomomorphicEquality, e8a, e8b))
+    sb, sub_ms = stage(torch, lambda: c.apply2(HomomorphicSubtraction, e8a, e8b))
 
     t0 = time.perf_counter()
     got = np.array(c.decrypt(prod).tolist())
@@ -613,6 +668,277 @@ def phase_mulcmp(ctx):
                 max_ms=max_ms, eq_ms=eq_ms, sub_ms=sub_ms, decrypt_mul_ms=dec_ms,
                 mul_clmul_launches=len(shapes), lt_clmul_launches=len(ctx["lt_shapes"]),
                 u8_pairs=n8, u32_pairs=n32)
+
+
+# Phase 3c: balanced widths of the sweep, and the smaller widths of the chunk
+# route's Ls x 4Ls products; rows chosen so that every shape has about
+# ROUTE_PAIRS (limb, limb) pairs
+ROUTE_SWEEP_LS = (32, 48, 64, 96, 128, 192, 256, 384, 512, 1024, 2048, 4096)
+ROUTE_CHUNK_LS = (64, 128, 256, 512, 1024)
+ROUTE_PAIRS = 1 << 27
+
+
+def route_case(ctx, Ls, Lg):
+    """One Karatsuba level (or the chunk route and one level under it) of
+    [B, Ls] x [B, Lg] against one direct K1 launch: device time of all
+    records (K1 and the torch glue), K1's share, and the time per call."""
+    torch = ctx["torch"]
+    from homomorph_tpu_torch.gf2 import kernels as k
+
+    B = -(-ROUTE_PAIRS // (Ls * (Lg + 1)))
+    a, b = random_words(ctx, (B, Ls)), random_words(ctx, (B, Lg))
+
+    def direct():
+        return k.clmul_flat(a, b)
+
+    def routed():  # the threshold at Ls: exactly one split below the chunks
+        return with_env(k.KARATSUBA_MIN_ENV, Ls, lambda: k.clmul_rows(a, b))
+
+    got, want = routed(), direct()
+    torch.cuda.synchronize()
+    bad, _ = compare(torch, got, want)
+    check(bad == 0, f"route {Ls}x{Lg} at B={B}: {bad} limbs differ from the direct launch")
+    del got, want
+    iters = 5
+    rec_d, rec_r = device_records(torch, direct, iters), device_records(torch, routed, iters)
+    k1 = sum(v for name, v in rec_r.items() if "clmul" in name) / iters
+    row = dict(Ls=Ls, Lg=Lg, B=B, pairs=B * Ls * (Lg + 1),
+               steps=[s[0] for s in k.route_plan(Ls, Lg, Ls)],
+               direct_ms=sum(rec_d.values()) / iters, routed_ms=sum(rec_r.values()) / iters,
+               routed_k1_ms=k1, direct_call_ms=call_ms(torch, direct, 10),
+               routed_call_ms=call_ms(torch, routed, 10))
+    row["routed_glue_ms"] = row["routed_ms"] - k1
+    log(f"[route] {Ls}x{Lg} B={B} {'+'.join(row['steps'])}: direct {row['direct_ms']:.5f} ms, "
+        f"routed {row['routed_ms']:.5f} ms (K1 {k1:.5f} + glue {row['routed_glue_ms']:.5f}); "
+        f"per call {row['direct_call_ms']:.5f} / {row['routed_call_ms']:.5f} ms; equal")
+    return row
+
+
+def crossover(rows):
+    """The smallest Ls from which the routed product wins at every larger
+    width of the sweep (None if it never does)."""
+    best = None
+    for r in sorted(rows, key=lambda r: -r["Ls"]):
+        if r["routed_ms"] >= r["direct_ms"]:
+            break
+        best = r["Ls"]
+    return best
+
+
+def phase_route_sweep(ctx):
+    """Phase 3c: where one Karatsuba level starts to beat a direct launch."""
+    from homomorph_tpu_torch.gf2 import kernels as k
+
+    balanced = [route_case(ctx, Ls, Ls) for Ls in ROUTE_SWEEP_LS]
+    chunked = [route_case(ctx, Ls, 4 * Ls) for Ls in ROUTE_CHUNK_LS]
+    out = dict(balanced=balanced, chunked=chunked, crossover=crossover(balanced),
+               chunk_crossover=crossover(chunked), threshold=k._KARATSUBA_MIN)
+    log(f"[route] measured crossover {out['crossover']} limbs (chunk route "
+        f"{out['chunk_crossover']}); _KARATSUBA_MIN in the code {k._KARATSUBA_MIN}")
+    return out
+
+
+def wide_mul(ctx, ht, name, params, n, desc, bits, direct_rows, seed):
+    """Checked multiplication of ``n`` random pairs at ``params``, decrypted
+    and asserted; ``direct_rows`` rows again with the route off (every
+    product one direct K1 launch), equal limb for limb."""
+    import numpy as np
+
+    torch, dev = ctx["torch"], ctx["dev"]
+    from homomorph_tpu_torch.gf2 import kernels as k
+    from homomorph_tpu_torch.models import HomomorphicMultiplication as Mul
+
+    rng = np.random.default_rng(seed)
+    c, keygen_ms = stage(torch, lambda: seeded_context(ht, params, seed, dev))
+    xs = rng.integers(0, 2**bits, size=n, dtype=np.uint64)
+    ys = rng.integers(0, 2**bits, size=n, dtype=np.uint64)
+    (ea, eb), enc_ms = stage(torch, lambda: (c.encrypt(xs.tolist(), desc, batch=True),
+                                             c.encrypt(ys.tolist(), desc, batch=True)))
+    req = Mul.requirement_for(ea, eb)
+    check(req * params.delta <= params.d, f"{name}: requirement {req} above d/delta")
+    torch.cuda.reset_peak_memory_stats()
+    before = k.clmul_flat.launches
+    (prod, mul_ms), shapes = recorded_rows(lambda: stage(torch, lambda: c.apply2(Mul, ea, eb)))
+    launches = k.clmul_flat.launches - before
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    sk = c.get_secret_key()
+    _, mask_ms = stage(torch, lambda: sk.decrypt_mask(prod.num_limbs))
+    got, dec_ms = stage(torch, lambda: np.array(c.decrypt(prod).tolist(), dtype=np.uint64))
+    want = (xs * ys) % (1 << bits)
+    check(np.array_equal(got, want), f"{name}: {int((got != want).sum())} of {n} products wrong")
+
+    r = direct_rows
+    da = ht.Ciphered(ea.limbs[:r], ea.bound, desc, noise=ea.noise)
+    db = ht.Ciphered(eb.limbs[:r], eb.bound, desc, noise=eb.noise)
+    before = k.clmul_flat.launches
+    direct, direct_ms = with_env(k.KARATSUBA_MIN_ENV, 1 << 30,
+                                 lambda: stage(torch, lambda: c.apply2(Mul, da, db)))
+    direct_launches = k.clmul_flat.launches - before
+    check(direct.limbs.shape == prod.limbs[:r].shape
+          and bool((direct.limbs == prod.limbs[:r]).all())
+          and (direct.bound, direct.noise) == (prod.bound, prod.noise),
+          f"{name}: direct K1 product differs from the routed one on {r} rows")
+    kmin = k.karatsuba_min()
+    leaves = [leaf_shape(*s, kmin) for s in shapes]
+    stats = dict(params=[params.d, params.dp, params.delta, params.tau], pairs=n,
+                 requirement=req, keygen_ms=keygen_ms, encrypt_ms=enc_ms, mul_ms=mul_ms,
+                 mask_ms=mask_ms, decrypt_ms=dec_ms, product_limbs=list(prod.limbs.shape),
+                 bound=prod.bound, noise=prod.noise, peak_gb=peak, k1_launches=launches,
+                 products=len(shapes),
+                 route_levels=sum(len(k.route_plan(min(s[1:]), max(s[1:]), kmin)) for s in shapes),
+                 direct_rows=r, direct_ms=direct_ms, direct_k1_launches=direct_launches,
+                 widest_product=list(max(shapes, key=lambda s: s[1] + s[2])),
+                 busiest_product=list(max(shapes, key=lambda s: clmul_ops(*s))),
+                 widest_leaf=list(max(leaves, key=lambda s: (s[1] + s[2], s[0]))),
+                 busiest_leaf=list(max(leaves, key=lambda s: clmul_ops(*s))))
+    log(f"[wide] {name} at {params}, {n} pairs (requirement {req}): keygen {keygen_ms:.3f} ms, "
+        f"encrypt {enc_ms:.3f} ms, checked mul {mul_ms:.3f} ms ({len(shapes)} products, "
+        f"{launches} K1 launches, {stats['route_levels']} route levels; product "
+        f"{list(prod.limbs.shape)}, bound {prod.bound}, noise {prod.noise}; peak {peak:.3f} GB), "
+        f"decrypt mask {mask_ms:.3f} ms host, decrypt {dec_ms:.3f} ms; all right; {r} rows with "
+        f"the route off {direct_ms:.3f} ms ({direct_launches} K1 launches), equal limb for limb")
+    log(f"[wide] {name}: widest product {stats['widest_product']}, busiest "
+        f"{stats['busiest_product']}; K1 launches: widest {stats['widest_leaf']}, busiest "
+        f"{stats['busiest_leaf']}")
+    return stats, (c, ea, eb, prod), shapes
+
+
+# Phase 5c: thresholds at which the u16 product is timed end to end (the last
+# one turns the route off)
+U16_THRESHOLDS = (48, 64, 96, 128, 256, 1 << 30)
+
+
+def threshold_scan(ctx, c, ea, eb, prod):
+    """The u16 product end to end at each of :data:`U16_THRESHOLDS`: wall
+    time, device time (all records) and K1's share; the same limbs each
+    time.  A measurement, not a gate on the timing."""
+    torch = ctx["torch"]
+    from homomorph_tpu_torch.gf2 import kernels as k
+    from homomorph_tpu_torch.models import HomomorphicMultiplication as Mul
+
+    out = []
+    for kmin in U16_THRESHOLDS:
+        def run():
+            return with_env(k.KARATSUBA_MIN_ENV, kmin, lambda: c.apply2(Mul, ea, eb))
+
+        got, _ = stage(torch, run)
+        check(torch.equal(got.limbs, prod.limbs), f"u16 at threshold {kmin}: limbs differ")
+        del got
+        _, wall = stage(torch, run)
+        rec = device_records(torch, run)
+        k1 = sum(v for name, v in rec.items() if "clmul" in name)
+        out.append(dict(kmin=kmin, wall_ms=wall, device_ms=sum(rec.values()), k1_ms=k1))
+        log(f"[wide] u16 at threshold {kmin}: wall {wall:.3f} ms, device "
+            f"{out[-1]['device_ms']:.3f} ms (K1 {k1:.3f} ms); same limbs")
+    return out
+
+
+def phase_wide(ctx):
+    """Phase 5c: u16 and u32 multiplication, sum, popcount, clamp, shifts,
+    rotates, ``abs_`` and the scanned add."""
+    import numpy as np
+
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch.gf2 import kernels as k
+    from homomorph_tpu_torch.models import (
+        HomomorphicAddition, HomomorphicMultiplication, HomomorphicPopCount, HomomorphicSum,
+        circuits,
+    )
+
+    torch, dev, seed = ctx["torch"], ctx["dev"], ctx["seed"] + 40
+    out = {}
+    out["u16"], ctx["u16_inputs"], ctx["u16_shapes"] = wide_mul(
+        ctx, ht, "u16", ht.Parameters(1024, 128, 1, 128), 512, ht.U16, 16, 2, seed)
+    out["u32"], (c32, a32, b32, p32), ctx["u32_shapes"] = wide_mul(
+        ctx, ht, "u32", ht.Parameters(2432, 128, 1, 128), 8, ht.U32, 32, 1, seed + 1)
+    torch.cuda.reset_peak_memory_stats()
+    synced, sync_ms = with_env(circuits.EAGER_SYNC_ENV, "1", lambda: stage(
+        torch, lambda: c32.apply2(HomomorphicMultiplication, a32, b32)))
+    sync_peak = torch.cuda.max_memory_allocated() / 1e9
+    check(torch.equal(synced.limbs, p32.limbs), "u32 with EAGER_SYNC differs")
+    out["u32_eager_sync"] = dict(mul_ms=sync_ms, peak_gb=sync_peak)
+    log(f"[wide] u32 with HOMOMORPH_TPU_TORCH_EAGER_SYNC=1: {sync_ms:.3f} ms, peak "
+        f"{sync_peak:.3f} GB (without: {out['u32']['mul_ms']:.3f} ms, "
+        f"{out['u32']['peak_gb']:.3f} GB); same limbs")
+    ctx["u32_inputs"] = (c32, a32, b32)
+    del synced, p32
+
+    # the N-ary sum and the popcount, checked, at the u16 product's parameters
+    rng = np.random.default_rng(seed + 2)
+    n = 1024
+    c = ctx["u16_inputs"][0]
+    rows8 = rng.integers(0, 256, size=(8, n))
+    v32 = rng.integers(0, 2**32, size=n, dtype=np.uint64)
+    ops8 = [c.encrypt(r.tolist(), ht.U8, batch=True) for r in rows8]
+    e32 = c.encrypt(v32.tolist(), ht.U32, batch=True)
+    (sm, sum_ms), (pc, pop_ms) = (stage(torch, lambda: c.apply_n(HomomorphicSum, ops8)),
+                                  stage(torch, lambda: c.apply1(HomomorphicPopCount, e32)))
+    lo, hi = (c.encrypt([v] * n, ht.U8, batch=True) for v in (40, 200))
+    cl, clamp_ms = stage(torch, lambda: circuits.clamp(ops8[0], lo, hi))
+    checks = (("sum of 8 u8", sm, rows8.sum(axis=0) % 256),
+              ("u32 popcount", pc, np.array([bin(int(v)).count("1") for v in v32])),
+              ("u8 clamp", cl, np.clip(rows8[0], 40, 200)))
+    for label, cph, want in checks:
+        got = np.array(c.decrypt(cph).tolist(), dtype=np.int64)
+        check(np.array_equal(got, want), f"{label}: {int((got != want).sum())} of {n} wrong")
+    out["sum_popcount_clamp"] = dict(
+        params=[1024, 128, 1, 128], batch=n, sum_ms=sum_ms, popcount_ms=pop_ms,
+        clamp_ms=clamp_ms, sum_requirement=HomomorphicSum.requirement_for(*ops8),
+        popcount_requirement=HomomorphicPopCount.requirement_for(e32))
+    log(f"[wide] Parameters(1024, 128, 1, 128), {n} rows: checked sum of 8 u8 {sum_ms:.3f} ms "
+        f"(requirement {out['sum_popcount_clamp']['sum_requirement']}), checked u32 popcount "
+        f"{pop_ms:.3f} ms (requirement {out['sum_popcount_clamp']['popcount_requirement']}), "
+        f"u8 clamp {clamp_ms:.3f} ms; all right")
+    del ops8, e32, sm, pc, cl, lo, hi
+
+    # the plaintext-amount remaps and abs_ on i8, at the add path's parameters
+    c, ca, cb = ctx["add_inputs"]
+    i8 = rng.integers(-128, 128, size=n)
+    i8[:2] = (-128, 127)
+    e8 = c.encrypt(i8.tolist(), ht.I8, batch=True)
+    u8 = (i8 % 256).astype(np.int64)
+
+    def wrap(v):
+        return ((v + 128) % 256) - 128
+
+    remaps = {
+        "shl": (lambda: circuits.shl(e8, 3), wrap((u8 << 3) % 256)),
+        "shr": (lambda: circuits.shr(e8, 3), i8 >> 3),  # arithmetic for i8
+        "rotl": (lambda: circuits.rotl(e8, 3), wrap(((u8 << 3) | (u8 >> 5)) % 256)),
+        "rotr": (lambda: circuits.rotr(e8, 3), wrap(((u8 >> 3) | (u8 << 5)) % 256)),
+        "abs_": (lambda: circuits.abs_(e8), wrap(np.abs(i8))),
+    }
+    remap_ms = {}
+    for label, (fn, want) in remaps.items():
+        cph, remap_ms[label] = stage(torch, fn)
+        got = np.array(c.decrypt(cph).tolist(), dtype=np.int64)
+        check(np.array_equal(got, want), f"i8 {label}: {int((got != want).sum())} of {n} wrong")
+    out["remaps"] = dict(params=[128, 128, 1, 128], batch=n, ms=remap_ms)
+    log(f"[wide] Parameters(128, 128, 1, 128), {n} i8: " + ", ".join(
+        f"{name} {ms:.3f} ms" for name, ms in remap_ms.items()) + "; all right")
+
+    # the u32 add through the carry scan, against the ripple's polynomials
+    xs = np.array(c.decrypt(ca).tolist(), dtype=np.uint64)
+    ys = np.array(c.decrypt(cb).tolist(), dtype=np.uint64)
+    before = k.clmul_flat.launches
+    scan, scan_ms = with_env(circuits.CARRY_SCAN_ENV, "1", lambda: stage(
+        torch, lambda: c.apply2(HomomorphicAddition, ca, cb)))
+    scan_launches = k.clmul_flat.launches - before
+    ripple, ripple_ms = stage(torch, lambda: c.apply2(HomomorphicAddition, ca, cb))
+    got = np.array(c.decrypt(scan).tolist(), dtype=np.uint64)
+    check(np.array_equal(got, (xs + ys) % (1 << 32)), "scanned u32 add wrong")
+    from homomorph_tpu_torch.gf2 import poly as gf2
+
+    L = max(scan.num_limbs, ripple.num_limbs)
+    check(torch.equal(gf2.pad_limbs(scan.limbs[:4], L), gf2.pad_limbs(ripple.limbs[:4], L)),
+          "scanned add: polynomials differ from the ripple's on 4 rows")
+    out["scan_add"] = dict(pairs=len(xs), scan_ms=scan_ms, ripple_ms=ripple_ms,
+                           scan_k1_launches=scan_launches, scan_limbs=scan.num_limbs,
+                           ripple_limbs=ripple.num_limbs)
+    log(f"[wide] u32 add through the carry scan, {len(xs)} pairs: {scan_ms:.3f} ms "
+        f"({scan_launches} K1 launches, L={scan.num_limbs}) against the ripple's "
+        f"{ripple_ms:.3f} ms (L={ripple.num_limbs}); right, same polynomials on 4 rows")
+    return out
 
 
 def phase_exp_enc(ctx):
@@ -655,17 +981,47 @@ def mul_shape_rows(ctx):
     log(f"[kernels] lt's {len(lt_shapes)} clmul launches by shape (B, La, Lb), count, kernel "
         "ms: " + "; ".join(f"{tuple(t['shape'])} x{t['launches']} {t['ms']:.5f}"
                            for t in lt_times))
-    return clmul_rows(ctx, (("mul-pp", *shapes[0]),
+    rows = clmul_rows(ctx, (("mul-pp", *shapes[0]),
                             ("mul-group", *max(groups, key=lambda s: clmul_ops(*s))),
                             ("mul-chain", *max(singles, key=lambda s: clmul_ops(*s))),
                             ("lt-busiest", *max(lt_shapes, key=lambda s: clmul_ops(*s)))))
+    kmin = k.karatsuba_min()
+    u16 = [leaf_shape(*s, kmin) for s in ctx["u16_shapes"]]
+    u32 = [leaf_shape(*s, kmin) for s in ctx["u32_shapes"]]
+    picks = (("u16-busiest", u16, max(u16, key=lambda s: clmul_ops(*s))),
+             ("u32-widest", u32, max(u32, key=lambda s: (s[1] + s[2], s[0]))))
+    new = clmul_rows(ctx, [(label, *shape) for label, _, shape in picks], plain_events=True)
+    for row, (_, leaves, shape) in zip(new, picks):
+        row["launches_per_product"] = leaves.count(shape)  # of one checked multiplication
+    return rows + new
 
 
-def phase_profile(ctx, main_stats, bulk_stats, mul_stats):
+def widest_product(ctx):
+    """The u32 product's widest operands at their real row count: one
+    direct K1 launch against the route, device time of each, equal."""
+    torch = ctx["torch"]
+    from homomorph_tpu_torch.gf2 import kernels as k
+
+    B, La, Lb = max(ctx["u32_shapes"], key=lambda s: (s[1] + s[2], s[0]))
+    a, b = random_words(ctx, (B, La)), random_words(ctx, (B, Lb))
+    got, want = k.clmul_rows(a, b), k.clmul_flat(a, b)
+    torch.cuda.synchronize()
+    bad, _ = compare(torch, got, want)
+    check(bad == 0, f"u32 widest product {B}x{La}x{Lb}: {bad} limbs differ, route against K1")
+    out = dict(shape=[B, La, Lb], direct_ms=device_ms(torch, lambda: k.clmul_flat(a, b), 2),
+               routed_ms=device_ms(torch, lambda: k.clmul_rows(a, b), 2),
+               leaf=list(leaf_shape(B, La, Lb, k.karatsuba_min())))
+    log(f"[kernels] u32 widest product B={B} {La}x{Lb}: one direct K1 launch "
+        f"{out['direct_ms']:.5f} ms, routed (launch {out['leaf']}) {out['routed_ms']:.5f} ms; equal")
+    return out
+
+
+def phase_profile(ctx, main_stats, bulk_stats, mul_stats, wide_stats):
     """Warm wall time, device time by kernel and the device's busy share of
-    the checked add, the first bulk round trip, the u8 multiplication and
-    the u32 comparison.  Each stage runs once more unprofiled for its warm
-    wall time (phases 5-6 and 5b ran it cold), then under
+    the checked add, the first bulk round trip, the u8 multiplication, the
+    u32 comparison and the u16 and u32 multiplications.  Each stage runs once more
+    unprofiled for its warm wall time (phases 5-6, 5b and 5c ran it cold),
+    then under
     ``torch.profiler`` (:func:`device_records`); the busy share is the
     profiled device time over the warm wall time."""
     import homomorph_tpu_torch as ht
@@ -677,7 +1033,13 @@ def phase_profile(ctx, main_stats, bulk_stats, mul_stats):
     c, ca, cb = ctx["add_inputs"]
     bc, vals, bct = ctx["bulk_inputs"]
     mc, e8a, e8b, e32a, e32b = ctx["mulcmp_inputs"]
+    wc, w16a, w16b, _ = ctx["u16_inputs"]
+    xc, w32a, w32b = ctx["u32_inputs"]
     stages = {
+        "mul_u16": (lambda: wc.apply2(HomomorphicMultiplication, w16a, w16b),
+                    wide_stats["u16"]["mul_ms"]),
+        "mul_u32": (lambda: xc.apply2(HomomorphicMultiplication, w32a, w32b),
+                    wide_stats["u32"]["mul_ms"]),
         "mul_u8": (lambda: mc.apply2(HomomorphicMultiplication, e8a, e8b), mul_stats["mul_ms"]),
         "lt_u32": (lambda: mc.apply2(HomomorphicLessThan, e32a, e32b), mul_stats["lt_ms"]),
         "add": (lambda: c.apply2(HomomorphicAddition, ca, cb), main_stats["add_ms"]),
@@ -750,6 +1112,9 @@ def main(argv=None):
     rows = phase_kernels(ctx)
     clocks["after phase 3"] = nvidia_smi(clock_query)
     log(f"[kernels] phase done in {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    sweep = phase_route_sweep(ctx)
+    log(f"[route] phase done in {time.perf_counter() - t0:.3f} s")
     phase_fixtures(ctx)
 
     # 5-6, 5b, 6b. the paths, each with its launch counts from 0
@@ -777,20 +1142,26 @@ def main(argv=None):
         os.environ[enc.ENC_IMPL_ENV] = saved_impl
     exp_stats, paths["exp_enc"] = run_path(lambda: phase_exp_enc(ctx))
     peak = torch.cuda.max_memory_allocated() / 1e9
+    wide_stats, paths["wide"] = run_path(lambda: phase_wide(ctx))
     for path, counts in paths.items():
         log(f"[paths] launches in {path}: {counts}")
-    log(f"[paths] peak device memory over the paths {peak:.3f} GB")
+    log(f"[paths] peak device memory over the first three paths {peak:.3f} GB")
     # which kernels each path must have run, and K2 must not run under pallas_v1
     needs = {"add": ("clmul", "encrypt", "threefry"),
              "mul_cmp": ("clmul", "encrypt_v1", "threefry"),
-             "exp_enc": ("encrypt", "encrypt_v1", "encrypt_v3", "threefry")}
+             "exp_enc": ("encrypt", "encrypt_v1", "encrypt_v3", "threefry"),
+             "wide": ("clmul", "encrypt", "threefry")}
     for path, names in needs.items():
         for name in names:
             check(paths[path][name] > 0, f"{name} was not launched on the {path} path")
     check(paths["mul_cmp"]["encrypt"] == 0, "K2 ran while pallas_v1 selected K3")
 
-    # 3b. K1 at the multiplication's and lt's busiest shapes
+    # 3b. K1 at the multiplications' and lt's busiest shapes
+    t0 = time.perf_counter()
     rows += mul_shape_rows(ctx)
+    widest = widest_product(ctx)
+    wide_stats["u16_thresholds"] = threshold_scan(ctx, *ctx["u16_inputs"])
+    log(f"[kernels] phase 3b done in {time.perf_counter() - t0:.3f} s")
     clocks["after phase 3b"] = nvidia_smi(clock_query)
     log(f"[device] {clock_query}: " + "; ".join(f"{k} {v}" for k, v in clocks.items()))
     for r in rows:
@@ -799,7 +1170,7 @@ def main(argv=None):
             f"old count's bound {r['old_bound_ms']:.5f} ms")
     # 7. where the time of each path goes
     t0 = time.perf_counter()
-    profile_stats = phase_profile(ctx, main_stats, bulk_stats, mul_stats)
+    profile_stats = phase_profile(ctx, main_stats, bulk_stats, mul_stats, wide_stats)
     log(f"[profile] phase done in {time.perf_counter() - t0:.3f} s")
 
     # 8. kernels line: each kernel at its busiest path shape
@@ -835,6 +1206,7 @@ def main(argv=None):
         with open(args.json, "w") as f:
             json.dump(dict(card=card, rows=rows, main=main_stats, bulk=bulk_stats,
                            mulcmp=mul_stats, exp_enc=exp_stats, launches=paths,
+                           route_sweep=sweep, wide=wide_stats, u32_widest=widest,
                            lt_launch_times=ctx["lt_launch_times"],
                            clocks=clocks,
                            peak_gb=peak, kernels=kernels, profile=profile_stats,

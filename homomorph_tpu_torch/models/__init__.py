@@ -13,6 +13,8 @@ from .numbers import (  # noqa: F401
     HomomorphicNegation,
     HomomorphicNotGate,
     HomomorphicOrGate,
+    HomomorphicPopCount,
     HomomorphicSubtraction,
+    HomomorphicSum,
     HomomorphicXorGate,
 )

@@ -18,18 +18,26 @@ tracked noise carry over unchanged:
   the Dadda carry-save tree of :mod:`.csaplan` (each level's products
   grouped by operand widths, one clmul launch per group) and a two-row
   ripple; the reference's column accumulation (common.rs:66-163) is kept
-  as the ``_ref`` oracle and as the circuit below width 4.
+  as the ``_ref`` oracle and as the circuit below width 4.  ``sum_many``
+  and ``popcount`` run the same tree on their own plans.
+* Degree-free lane remaps: ``shl``, ``shr``, ``rotl``, ``rotr`` by a
+  plaintext amount; ``abs_`` and ``clamp`` are muxes over the comparator.
 
 Degree classes: a fresh ciphered bit has bound ``B0 = d + dp``; AND adds
 bounds; the carry bound grows by ``B0`` per position, so lane ``i`` of a sum
 has bound ``<= (i+1)*B0``.
 
-Not ported yet: the opt-in carry scan (``circuits.py:245-375``),
-``abs_``, ``clamp``, the shifts and rotates, ``sum_many`` and ``popcount``.
+Knobs, read at each call (the JAX package snapshots its carry-scan knob at
+import; the results are the same either way):
+``HOMOMORPH_TPU_TORCH_CARRY_SCAN=1`` evaluates the adder's carries by the
+blocked prefix scan (:func:`_affine_carry_scan`), and
+``HOMOMORPH_TPU_TORCH_EAGER_SYNC=1`` synchronizes the card after any
+carry-save level whose outputs exceed 8,192 limbs (:func:`_csa_accumulate`).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import torch
@@ -57,13 +65,24 @@ __all__ = [
     "select",
     "min_",
     "max_",
+    "abs_",
+    "clamp",
+    "shl",
+    "shr",
+    "rotl",
+    "rotr",
     "mul_unsigned",
     "mul_unsigned_lanes",
     "mul_unsigned_ref",
     "mul_signed",
     "mul_signed_lanes",
     "mul_signed_ref",
+    "sum_many",
+    "popcount",
 ]
+
+CARRY_SCAN_ENV = "HOMOMORPH_TPU_TORCH_CARRY_SCAN"
+EAGER_SYNC_ENV = "HOMOMORPH_TPU_TORCH_EAGER_SYNC"
 
 
 # --------------------------------------------------------------------------
@@ -151,7 +170,8 @@ def add(a: Ciphered, b: Ciphered, carry_in: CipheredBit | None = None) -> Cipher
     Chain shape: step ``i`` multiplies the small fixed-degree ``x_i`` (kept
     at its exact width) by the growing carry (kept degree-class bucketed),
     so a u32 add runs 30 sequential carry-less multiplies after one
-    whole-tensor AND.
+    whole-tensor AND.  With ``HOMOMORPH_TPU_TORCH_CARRY_SCAN=1`` and 16 or
+    more lanes, the carries come from :func:`_affine_carry_scan` instead.
     """
     a, b = a.densify(), b.densify()
     x_all = gate_xor(a, b)
@@ -162,6 +182,20 @@ def add(a: Ciphered, b: Ciphered, carry_in: CipheredBit | None = None) -> Cipher
 
     n = len(a)
     carry: CipheredBit | None = carry_in
+    if _use_carry_scan() and n >= 16:
+        carries = _affine_carry_scan(
+            g_all.limbs[..., : n - 1, :],
+            g_all.bound,
+            x_limbs[..., : n - 1, :],
+            x_bound,
+            carry if carry is not None
+            else CipheredBit.zero(a.batch_shape, device=a.limbs.device),
+            g_noise=g_all.noise,
+            m_noise=x_noise,
+        )
+        out = [x_all[i].xor(c) for i, c in enumerate(carries)]
+        return Ciphered.new_from_raw(out, a.desc)
+
     xs = [x_all[i] for i in range(n)]
     gs = [g_all[i] for i in range(n)]
     out: list[CipheredBit] = []
@@ -181,6 +215,123 @@ def add(a: Ciphered, b: Ciphered, carry_in: CipheredBit | None = None) -> Cipher
             gf2.xor(gf2.fit_limbs(prod, Lc), gs[i].limbs), nb, noise=nn
         )
     return Ciphered.new_from_raw(out, a.desc)
+
+
+_SCAN_BLOCK = 8  # carry-scan block size (sequential stages ~ 2*log2(K) + n/K)
+
+
+def _use_carry_scan() -> bool:
+    """The opt-in knob for the prefix-scan carries (see :func:`add`):
+    ``HOMOMORPH_TPU_TORCH_CARRY_SCAN=1``, read at each call."""
+    return os.environ.get(CARRY_SCAN_ENV, "0") == "1"
+
+
+def _affine_carry_scan(
+    g: torch.Tensor,
+    g_bound: int,
+    m: torch.Tensor,
+    m_bound: int,
+    carry0: CipheredBit,
+    g_noise: int = 4,
+    m_noise: int = 6,
+) -> list[CipheredBit]:
+    """All carries of ``c_{p+1} = g_p ^ m_p * c_p`` by a blocked prefix scan.
+
+    ``g``/``m``: [..., P, L] lane tensors for positions 0..P-1; returns the
+    P+1 carries ``c_0..c_P``.  Three phases on the position axis, so each
+    clmul takes B*P rows where the ripple takes B:
+
+    1. a segmented Hillis-Steele scan inside each block of
+       :data:`_SCAN_BLOCK` positions (log2(K) rounds of 2 batched clmuls):
+       position p ends up holding the composition of the affine maps from
+       its block's start through p;
+    2. ceil(P/K) sequential steps over the block summaries give the carry
+       entering each block;
+    3. one batched clmul fills every interior carry as
+       ``Gpref ^ Mpref * C_block``.
+
+    Composing (G2, M2) after (G1, M1) gives ``(G2 ^ M2*G1, M2*M1)``, and
+    GF(2)[X] is commutative and associative, so the scan is
+    polynomial-identical to the ripple of the same recurrence: with
+    ``m = x = a ^ b`` (what :func:`add` passes), the x-form ripple
+    ``c' = g ^ x*c``.  The reference's recurrence (common.rs:43-53)
+    expands to ``c' = g ^ x*(g^1)*c``; the two differ by ``x*g*c``, which
+    decrypts to 0, so the scan is only boolean-equal to it.  The clmuls go
+    through the dispatcher, so wide ones take the Karatsuba route.
+    """
+    P = g.shape[-2]
+    K = _SCAN_BLOCK
+    dev = g.device
+    Gp, gb, gn = g, g_bound, g_noise
+    Mp, mb, mn = m, m_bound, m_noise
+
+    # -- phase 1: segmented Hillis-Steele scan over each K-block -----------
+    r = 1
+    while r < min(K, P):
+        ps = [p for p in range(P) if (p % K) >= r]
+        if not ps:
+            break
+        idx = torch.tensor(ps, device=dev)
+        prev = idx - r
+        G_at, M_at = Gp.index_select(-2, idx), Mp.index_select(-2, idx)
+        G_pv, M_pv = Gp.index_select(-2, prev), Mp.index_select(-2, prev)
+        new_gb, new_mb = gb + mb, 2 * mb
+        new_gn, new_mn = gn + mn, 2 * mn
+        Gn = gf2.xor(G_at, gf2k.clmul(M_at, G_pv))
+        Mn = gf2k.clmul(M_at, M_pv)
+        Lg = gf2.bucket(gf2.limbs_for(new_gb))
+        Lm = gf2.bucket(gf2.limbs_for(new_mb))
+        # scatter back at the static positions; the others keep their values
+        Gp = gf2.pad_limbs(Gp, Lg).clone()
+        Gp[..., idx, :] = gf2.fit_limbs(Gn, Lg)
+        Mp = gf2.pad_limbs(Mp, Lm).clone()
+        Mp[..., idx, :] = gf2.fit_limbs(Mn, Lm)
+        gb, mb = new_gb, new_mb
+        gn, mn = new_gn, new_mn
+        r *= 2
+
+    # -- phase 2: sequential chain over block summaries ---------------------
+    n_blocks = -(-P // K)
+    # when K divides P, carry c_P is itself a block-entry carry (t == 0
+    # below) and needs one more chain step
+    n_chain = n_blocks - 1 + (1 if P % K == 0 else 0)
+    Cs: list[CipheredBit] = [carry0]  # carry entering each block
+    for blk in range(n_chain):
+        e = (blk + 1) * K - 1  # last position of block blk
+        Gb = CipheredBit(Gp[..., e, :], gb, noise=gn)
+        Mb = CipheredBit(Mp[..., e, :], mb, noise=mn)
+        Cs.append(Gb.xor(Mb.and_(Cs[-1])))
+
+    # -- phase 3: batched fill of interior carries --------------------------
+    # c_{bK+t} for t in 1..K-1 (and the last partial block): the prefix maps
+    # at positions bK..bK+K-2 times the block-entry carry, batched over
+    # (blocks, offsets)
+    entry = Cs[:n_blocks]
+    Lc = max(c.num_limbs for c in entry)
+    C_stack = torch.stack([c.pad_to(Lc).limbs for c in entry], dim=-2)  # [..., nb, Lc]
+    cb = max(c.bound for c in entry)
+    cn = max(c.noise for c in entry)
+
+    pos = [min(blk * K + t, P - 1) for blk in range(n_blocks) for t in range(K - 1)]
+    pos = torch.tensor(pos, device=dev)  # the clamped tail's duplicates are unused
+    Gsel, Msel = Gp.index_select(-2, pos), Mp.index_select(-2, pos)
+    lead = Gsel.shape[:-2]
+    Gsel = Gsel.reshape(lead + (n_blocks, K - 1, Gsel.shape[-1]))
+    Msel = Msel.reshape(lead + (n_blocks, K - 1, Msel.shape[-1]))
+    prod = gf2k.clmul(Msel, C_stack[..., :, None, :])  # [..., nb, K-1, *]
+    fill = gf2.xor(Gsel, prod)
+    fill_bound = max(gb, mb + cb)
+    fill_noise = max(gn, mn + cn)
+    fill = gf2.fit_limbs(fill, gf2.bucket(gf2.limbs_for(fill_bound)))
+
+    out: list[CipheredBit] = []
+    for p in range(P + 1):
+        blk, t = divmod(p, K)
+        if t == 0:
+            out.append(Cs[blk])
+        else:
+            out.append(CipheredBit(fill[..., blk, t - 1, :], fill_bound, noise=fill_noise))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -338,6 +489,80 @@ def max_(a: Ciphered, b: Ciphered) -> Ciphered:
     return select(lt(a, b)[0], b, a)
 
 
+def abs_(a: Ciphered) -> Ciphered:
+    """Absolute value of a signed integer: ``sign ? -a : a``, the sign lane
+    muxing the negation.  Wraps at the type minimum (``abs(i8 -128) =
+    -128``), as Rust's ``wrapping_abs``."""
+    a = a.densify()
+    return select(a[len(a) - 1], neg(a), a)
+
+
+def clamp(a: Ciphered, lo: Ciphered, hi: Ciphered) -> Ciphered:
+    """``min(max(a, lo), hi)``; signedness follows the descriptors through
+    the tree comparator."""
+    return min_(max_(a, lo), hi)
+
+
+def _zero_lanes_like(a: Ciphered, k: int) -> torch.Tensor:
+    return a.limbs.new_zeros(a.limbs.shape[:-2] + (k, a.limbs.shape[-1]))
+
+
+def shl(a: Ciphered, k: int) -> Ciphered:
+    """Shift left by a plaintext ``k``: lane ``i`` of the result is lane
+    ``i - k``, the bottom ``k`` lanes are trivial zeros and the top ``k``
+    drop (wrapping ``<<``).  No gate runs, so the degree does not grow."""
+    a = a.densify()
+    n = len(a)
+    if not 0 <= k:
+        raise ValueError("shift amount must be non-negative")
+    if k == 0:
+        return a
+    if k >= n:
+        return Ciphered(_zero_lanes_like(a, n), 0, a.desc, noise=0)
+    out = torch.cat([_zero_lanes_like(a, k), a.limbs[..., : n - k, :]], dim=-2)
+    return Ciphered(out, a.bound, a.desc, noise=a.noise)
+
+
+def shr(a: Ciphered, k: int, *, arithmetic: bool | None = None) -> Ciphered:
+    """Shift right by a plaintext ``k``: logical for unsigned descriptors,
+    arithmetic (the sign lane replicated) for signed ones, as Rust's
+    ``>>``, unless ``arithmetic=`` says otherwise.  Degree-free."""
+    a = a.densify()
+    n = len(a)
+    if not 0 <= k:
+        raise ValueError("shift amount must be non-negative")
+    if arithmetic is None:
+        arithmetic = _is_signed(a)
+    if k == 0:
+        return a
+    kk = min(k, n)
+    if arithmetic:
+        sign = a.limbs[..., n - 1 : n, :]
+        fill = sign.expand(sign.shape[:-2] + (kk,) + sign.shape[-1:])
+        bound = a.bound
+    else:
+        fill = _zero_lanes_like(a, kk)
+        bound = a.bound if kk < n else 0
+    out = torch.cat([a.limbs[..., kk:, :], fill], dim=-2)
+    return Ciphered(out, bound, a.desc, noise=a.noise if bound or arithmetic else 0)
+
+
+def rotl(a: Ciphered, k: int) -> Ciphered:
+    """Rotate left by a plaintext ``k``; degree-free."""
+    a = a.densify()
+    n = len(a)
+    k %= n
+    if k == 0:
+        return a
+    out = torch.cat([a.limbs[..., n - k :, :], a.limbs[..., : n - k, :]], dim=-2)
+    return Ciphered(out, a.bound, a.desc, noise=a.noise)
+
+
+def rotr(a: Ciphered, k: int) -> Ciphered:
+    """Rotate right by a plaintext ``k``; degree-free."""
+    return rotl(a, -k)
+
+
 def neg(a: Ciphered) -> Ciphered:
     """Wrapping two's-complement ``-a = ~a + 1``: the adder specialised to
     the constant operand, ``out_i = x_i ^ c_i`` and ``c_{i+1} = x_i * c_i``
@@ -438,7 +663,9 @@ def _csa_accumulate(
     products.  Finishes with the two-row ripple add.  Bits that no later
     level and not the final ripple read are dropped level by level (a
     liveness set derived from the plan), so the caching allocator can
-    reuse their memory instead of holding every level alive.
+    reuse their memory instead of holding every level alive.  With
+    ``HOMOMORPH_TPU_TORCH_EAGER_SYNC=1`` the card is synchronized after any
+    level whose outputs exceed 8,192 limbs.
     """
     final_ids = {c[i] for c in plan.final_cols for i in range(min(2, len(c)))}
     live_after: list[set] = [set(final_ids)]
@@ -450,6 +677,7 @@ def _csa_accumulate(
             if op.z is not None:
                 needed.add(op.z)
         live_after.insert(0, needed)
+    sync = os.environ.get(EAGER_SYNC_ENV, "0") == "1"
 
     for li, level in enumerate(plan.levels):
         pairs: list[tuple[CipheredBit, CipheredBit, object]] = []
@@ -482,6 +710,9 @@ def _csa_accumulate(
         keep = live_after[li + 1]
         for bid in [k for k in bits if k not in keep]:
             del bits[bid]
+        outs = [bits[op.sum] for op in level if op.sum in bits]
+        if sync and any(b.num_limbs > 8192 for b in outs) and outs[0].limbs.is_cuda:
+            torch.cuda.synchronize(outs[0].limbs.device)
     A = [bits[c[0]] if len(c) > 0 else None for c in plan.final_cols]
     B = [bits[c[1]] if len(c) > 1 else None for c in plan.final_cols]
     return _ripple_add_rows(A, B, batch)
@@ -693,3 +924,44 @@ def mul_signed_ref(a: Ciphered, b: Ciphered) -> Ciphered:
     return Ciphered.new_from_raw(
         _mul_accumulate(pp, n, a.batch_shape), a.desc
     )
+
+
+# --------------------------------------------------------------------------
+# N-ary sum and popcount (extensions; the carry-save tree reused)
+# --------------------------------------------------------------------------
+
+
+def sum_many(operands: "Sequence[Ciphered]") -> Ciphered:
+    """Wrapping sum of ``k`` same-width operands: one carry-save tree over
+    the k-row bit matrix (:func:`.csaplan.sum_plan`) and one ripple add, so
+    ``O(log k)`` compressor levels and near-linear noise growth in ``k``
+    (``models/noise.py::sum_noise_seeded``).  Two operands take the
+    adder."""
+    ops = [o.densify() for o in operands]
+    if not ops:
+        raise ValueError("sum_many needs at least one operand")
+    n = len(ops[0])
+    if any(len(o) != n for o in ops):
+        raise ValueError("sum_many operands must share one bit width")
+    if len(ops) == 1:
+        return ops[0]
+    if len(ops) == 2:  # the uniform-width two-operand adder is tighter
+        return add(ops[0], ops[1])
+    k = len(ops)
+    bits = {o * n + j: ops[o][j] for o in range(k) for j in range(n)}
+    lanes = _csa_accumulate(bits, _csaplan.sum_plan(n, k), ops[0].batch_shape)
+    return Ciphered.new_from_raw(lanes, ops[0].desc)
+
+
+def popcount(a: Ciphered) -> Ciphered:
+    """Population count as the operand's own width: every lane starts in
+    column 0 (:func:`.csaplan.popcount_plan`), the tree compresses them
+    into the ``log2(n)+1`` result columns and the ripple settles the
+    carries.  The upper lanes are ciphertext zeros made by the tree."""
+    a = a.densify()
+    n = len(a)
+    if n == 1:
+        return a
+    bits = {j: a[j] for j in range(n)}
+    lanes = _csa_accumulate(bits, _csaplan.popcount_plan(n), a.batch_shape)
+    return Ciphered.new_from_raw(lanes, a.desc)

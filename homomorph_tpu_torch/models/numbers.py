@@ -25,16 +25,18 @@ Extensions beyond the reference, as in the JAX package:
 ``HomomorphicLessThan`` / ``HomomorphicGreaterThan`` (21, tree
 comparator; signed descriptors flip the sign bits first),
 ``HomomorphicMinimum`` / ``HomomorphicMaximum`` (23) and
-``HomomorphicEquality`` (257, all widths).  Signed multiplication is
-selected by the descriptor (Baugh-Wooley for two's-complement types).
-The N-ary sum and popcount markers are not ported yet.
+``HomomorphicEquality`` (257, all widths), the N-ary
+``HomomorphicSum`` (21; width- and count-aware through
+``requirement_for``) and ``HomomorphicPopCount`` (733, all widths; u8 17,
+u32 65).  Signed multiplication is selected by the descriptor
+(Baugh-Wooley for two's-complement types).
 """
 
 from __future__ import annotations
 
 from .. import codec as _codec
 from ..cipher import FRESH_NOISE as _FRESH, Ciphered
-from ..operations import HomomorphicOperation1, HomomorphicOperation2
+from ..operations import HomomorphicOperation1, HomomorphicOperation2, HomomorphicOperationN
 from . import circuits, noise as _noise
 
 __all__ = [
@@ -47,6 +49,8 @@ __all__ = [
     "HomomorphicSubtraction",
     "HomomorphicNegation",
     "HomomorphicEquality",
+    "HomomorphicSum",
+    "HomomorphicPopCount",
     "HomomorphicLessThan",
     "HomomorphicGreaterThan",
     "HomomorphicMinimum",
@@ -299,3 +303,42 @@ class HomomorphicEquality(HomomorphicOperation2):
     @staticmethod
     def unsafe_apply(a: Ciphered, b: Ciphered) -> Ciphered:
         return circuits.eq(a, b)
+
+
+class HomomorphicSum(HomomorphicOperationN):
+    """N-ary wrapping sum (not in the reference, which defines the N-ary
+    trait at src/operations.rs:143-213 but ships no N-ary operation): the
+    carry-save tree of :func:`circuits.sum_many`.  The class constant is
+    the adder's published 21; the checked API validates the exact (width,
+    count)-aware bound."""
+
+    MIN_D_OVER_DELTA = 21
+
+    @classmethod
+    def requirement_for(cls, *operands: Ciphered) -> int:
+        n = max(len(c) for c in operands)
+        return _noise.required_ratio(_noise.sum_noise_seeded(n, _noises(operands)))
+
+    @staticmethod
+    def unsafe_apply(args) -> Ciphered:
+        return circuits.sum_many(args)
+
+
+class HomomorphicPopCount(HomomorphicOperation1):
+    """Population count as the operand's own width (not in the reference):
+    :func:`circuits.popcount`.  Width-aware bound through
+    :meth:`requirement_for` (u8 17, u32 65 from fresh operands); the class
+    constant is sound
+    for every shipped width (u128 733)."""
+
+    MIN_D_OVER_DELTA = 733
+
+    @classmethod
+    def requirement_for(cls, *operands: Ciphered) -> int:
+        n = max(len(c) for c in operands)
+        na = operands[0].noise if operands else _FRESH
+        return _noise.required_ratio(_noise.popcount_noise_seeded(n, na))
+
+    @staticmethod
+    def unsafe_apply(a: Ciphered) -> Ciphered:
+        return circuits.popcount(a)

@@ -64,6 +64,46 @@ def test_clmul_kernel_matches_the_comb_mirror(B, La, Lb):
     assert torch.equal(got, k.clmul_plain(a, b))
 
 
+@pytest.mark.parametrize(
+    "B,La,Lb,kmin",
+    [(64, 64, 64, 64), (9, 130, 129, 33), (2, 257, 256, 2), (4, 1000, 1000, 100),
+     (5, 100, 400, 50), (3, 48, 1000, 16), (7, 400, 100, 64)],
+)
+def test_route_matches_the_direct_launch(monkeypatch, B, La, Lb, kmin):
+    """Split levels (odd widths, a threshold of 2) and chunked operands
+    (tails narrower than a piece, either operand the wider one): one K1
+    launch per product, the same limbs as one direct launch."""
+    a, b = on_card((B, La), 31), on_card((B, Lb), 32)
+    monkeypatch.setenv(k.KARATSUBA_MIN_ENV, str(kmin))
+    before = k.clmul_flat.launches
+    got = k.clmul(a, b)
+    torch.cuda.synchronize()
+    assert k.clmul_flat.launches == before + 1
+    assert k.route_plan(min(La, Lb), max(La, Lb), kmin)
+    assert torch.equal(got, k.clmul_flat(a, b))
+    assert torch.equal(got, k.clmul_plain(a, b))
+
+
+def test_u16_product_row_routed_on_the_card(monkeypatch):
+    """One u16 product row on the card with the route taking levels, equal
+    to the CPU's plain path on the same ciphertexts, and decrypted."""
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch.models import circuits
+
+    on_card((1,), 0)
+    params = ht.Parameters(420, 16, 1, 16)  # d/delta 420 >= 417, the u16 bound
+    ctx = ht.Context(params, source=ht.ThreefrySource(33), device="cuda")
+    ctx.generate_secret_key()
+    ctx.generate_public_key()
+    a, b = ctx.encrypt([54321], ht.U16, batch=True), ctx.encrypt([4321], ht.U16, batch=True)
+    monkeypatch.setenv(k.KARATSUBA_MIN_ENV, "16")
+    card = circuits.mul_unsigned(a, b)
+    cpu = circuits.mul_unsigned(*(ht.Ciphered(c.limbs.cpu(), c.bound, ht.U16) for c in (a, b)))
+    assert torch.equal(card.limbs.cpu(), cpu.limbs)
+    assert (card.bound, card.noise) == (cpu.bound, cpu.noise)
+    assert [int(v) for v in ctx.decrypt(card)] == [(54321 * 4321) % 65536]
+
+
 def test_clmul_broadcast_on_card():
     q, s = on_card((128, 5), 3), on_card((5,), 4)
     assert torch.equal(k.clmul(q, s), k.clmul_plain(q, s.expand(128, 5).contiguous()))
