@@ -12,7 +12,9 @@ Phases, in order; any failure exits non-zero before the result line:
    the paths give it (0 mismatches required), timed by its device time
    from ``torch.profiler`` (see :func:`device_records`): K1 clmul, the
    encrypt kernels K2, K3 and X1 at tau 128, 256 and 33, and T1 threefry,
-   whose first words must also equal ``jax.random.bits``' (:data:`JAX_BITS`);
+   whose first words must also equal ``jax.random.bits``' (:data:`JAX_BITS`),
+   and T1's device-key entry, for three keys eager and in a captured CUDA
+   graph replayed after each rewrite of its key buffer;
    K2 also at tau 1 and 300, at L above the key's limbs and at keys whose
    tables the launcher tiles (checked only);
 4. replay of the interop fixtures (``tests/fixtures/interop_v1.json``):
@@ -52,11 +54,22 @@ Phases, in order; any failure exits non-zero before the result line:
 7. ``torch.profiler`` traces of the checked add, the first bulk round trip,
    the u8 multiplication, the u32 ``lt`` and the u16 and u32
    multiplications: warm wall time, device time by kernel, busy share;
+9. the verify gate (``run_verification()`` in full, scaled round trip
+   included), a path of its own;
+10. the native decrypt masks at the 9-, 65-, 8,192- and 98,304-limb classes
+   against the Python-int recurrence, word for word, both timed (host);
+11. the compiled pipelines as CUDA graphs (:func:`phase_compiled`): the u32
+   add (2,048 pairs) and the u32 product (8 pairs) against eager limb for
+   limb and decrypted, and the u32 add's encrypt -> add -> decrypt round
+   trip under a new key each call: first call, replays, eager and one
+   replay's device time; their launches are those counted at warm-up and
+   capture (a replay must count none);
 8. one JSON line of kernels (launches counted over the paths: phases 5-6,
-   5b, 6b and 5c, each counted from 0; each bound the larger of the bytes
-   and the necessary work of the best design in the repo, see
-   :func:`set_bounds`, with the older operation count's bound beside it);
-9. last line ``{"ok": true, "device": {...}}``.
+   5b, 6b, 5c, 9 and 11, each counted from 0; each bound the larger of the
+   bytes and the necessary work of the best design in the repo, see
+   :func:`set_bounds` and ``homomorph_tpu_torch/utils/profiling.py``, with
+   the older operation count's bound beside it);
+12. last line ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits 2 and prints no result.
 """
@@ -73,25 +86,19 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 1234  # keys, plaintexts and selection words all derive from it
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate and dense int8
-# tensor-core rate.  The per-SM rates below are scaled by the card's SM count
-# and maximum SM clock (see int32_rate).
-HBM_BYTES_PER_S = 3.35e12
-INT8_TC_OPS_PER_S = 1979e12
-INT32_OPS_PER_SM_PER_CLOCK = 64  # CUDA C guide, arithmetic throughput, cc 9.0
-SMEM_BYTES_PER_SM_PER_CLOCK = 128  # 32 banks of 4 bytes
-# K2's table chunk for the bound: the redesign's 8 selection bits per lookup
-ENC_CHUNK_BITS = 8
-# K1's comb: shared-memory loads per (limb of the smaller operand, limb of
-# the multiples), 1 for nibble 0 and 2 for each of the other 7; and a funnel
-# shift and an XOR per nibble
-COMB_LOADS_PER_PAIR = 15
-COMB_OPS_PER_PAIR = 8 * 2
-# 32-bit operations of one threefry-2x32-20 word (csrc/threefry.cu) that only
-# the INT32 pipe executes: 20 rotates (funnel shifts) and 21 XORs.  Its 32
-# adds may also issue as IMAD on the FMA pipe, so they set no lower bound of
-# their own (all 73 operations at twice the INT32 rate take less time).
-THREEFRY_ALU_OPS_PER_WORD = 20 + 21
+# the peaks and the bounds' work counts live in the port (fails outside a checkout)
+sys.path.insert(0, ROOT)
+from homomorph_tpu_torch.utils.profiling import (  # noqa: E402
+    THREEFRY_ALU_OPS_PER_WORD,
+    bound,
+    chip_peaks,
+    clmul_bytes,
+    clmul_comb_work,
+    clmul_ops,
+    device_ms,
+    device_records,
+    encrypt_lookup_bytes,
+)
 
 #: jax.random.bits(jax.random.key(seed), (8,), uint32), computed by the JAX
 #: package on the CPU (JAX 0.9.0; tests/test_torch_threefry.py holds the
@@ -127,52 +134,6 @@ def nvidia_smi(query):
     return out.strip().splitlines()[0].strip()
 
 
-def int32_rate(torch):
-    """INT32 operations per second: SMs x 64 per SM per clock x max SM clock."""
-    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * INT32_OPS_PER_SM_PER_CLOCK * mhz * 1e6, sms, mhz
-
-
-def smem_rate(ctx):
-    """Shared-memory bytes per second over the card: SMs x 128 per clock x
-    max SM clock."""
-    return ctx["sms"] * SMEM_BYTES_PER_SM_PER_CLOCK * ctx["mhz"] * 1e6
-
-
-def device_records(torch, fn, iters=1, attempts=3):
-    """Device time in ms by record name (kernels and copies) over ``iters``
-    calls of ``fn``, from ``torch.profiler`` tracing the card only, after
-    one warm-up call.
-
-    This is the card's own time: it leaves out the host's time to issue a
-    call (checks, allocation, the ctypes launch), which for a short kernel
-    is longer than the kernel itself.  A trace that comes back without
-    device records is taken again, up to ``attempts`` times."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        per_name = {}
-        for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA:
-                per_name[ev.name] = per_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
-        if per_name:
-            return per_name
-    raise SmokeFailure(f"torch.profiler recorded no device time in {attempts} traces")
-
-
-def device_ms(torch, fn, iters):
-    """Device time of one call of ``fn``, averaged over ``iters`` calls."""
-    return sum(device_records(torch, fn, iters).values()) / iters
-
-
 def call_ms(torch, fn, iters=50):
     """CUDA-event time per call over back-to-back calls: for a short kernel
     this is the host's issue rate of the wrapper, not the kernel."""
@@ -195,33 +156,6 @@ def compare(torch, got, want):
     return int((diff != 0).sum()), int(diff.max()) if diff.numel() else 0
 
 
-def clmul_ops(B, La, Lb):
-    """The bit-serial count of K1's work on [B, La] x [B, Lb] (the first
-    design's bound, kept beside the comb's): per row, Ls*(Lg+1) pairs of a
-    limb of the smaller operand and an output limb, each 32 mask-and-XOR steps,
-    counted at 2 ops a step as ``homomorph_tpu/utils/profiling.py::
-    clmul_sol`` counts them."""
-    Ls, Lg = min(La, Lb), max(La, Lb)
-    return B * 32 * Ls * (Lg + 1) * 2
-
-
-def clmul_comb_work(B, La, Lb):
-    """The comb's necessary work on [B, La] x [B, Lb]: per row, Ls*(Lg+1)
-    pairs of a limb of the smaller operand and a limb of the 16 multiples
-    (Lg+1 limbs each), each read 15 times from shared memory (4 bytes a
-    read) and combined by 8 funnel shifts and 8 XORs.  Returns (shared
-    memory bytes, INT32 operations)."""
-    Ls, Lg = min(La, Lb), max(La, Lb)
-    pairs = B * Ls * (Lg + 1)
-    return pairs * COMB_LOADS_PER_PAIR * 4, pairs * COMB_OPS_PER_PAIR
-
-
-def encrypt_lookup_bytes(B, tau, limbs):
-    """The table encrypt's shared-memory reads: one 4-byte entry per chunk
-    of 8 selection bits for every output limb the key reaches."""
-    return B * -(-tau // ENC_CHUNK_BITS) * limbs * 4
-
-
 def random_words(ctx, shape):
     torch = ctx["torch"]
     return torch.randint(-(2**31), 2**31, shape, dtype=torch.int32, device=ctx["dev"],
@@ -233,8 +167,8 @@ def timed(torch, kernel_fn, plain_fn, plain_events=False):
     ``plain_events`` the plain version is timed by CUDA events over one
     call instead: at the wide path's row counts it runs ~10^5 small torch
     kernels a call, more than a profiler trace should hold."""
-    plain_ms = call_ms(torch, plain_fn, 1) if plain_events else device_ms(torch, plain_fn, 3)
-    return dict(ms=device_ms(torch, kernel_fn, 20), call_ms=call_ms(torch, kernel_fn),
+    plain_ms = call_ms(torch, plain_fn, 1) if plain_events else device_ms(plain_fn, 3)
+    return dict(ms=device_ms(kernel_fn, 20), call_ms=call_ms(torch, kernel_fn),
                 plain_ms=plain_ms, plain_by="events" if plain_events else "profiler")
 
 
@@ -293,18 +227,17 @@ def leaf_shape(B, La, Lb, kmin):
     return B, Ls, Lg
 
 
-def set_bounds(rows):
+def set_bounds(ctx, rows):
     """``bound_ms``: the larger of the row's HBM bytes at 3.35 TB/s and each
-    of its ``work`` terms (amount, rate per second), the necessary work of
-    the best design in the repo for the function.  ``old_bound_ms``: the
+    of its ``work`` terms (amount, rate of ``chip_peaks``), the necessary
+    work of the best design in the repo for the function
+    (``homomorph_tpu_torch.utils.profiling.bound``).  ``old_bound_ms``: the
     bytes against the row's ``old_ops`` at ``old_rate`` (the operation
     count the bounds took before the table and comb designs), kept beside it."""
     for r in rows:
-        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_work = max(amount / rate * 1e3 for amount, rate in r["work"])
-        r["bound_ms"] = max(t_work, t_bytes)
-        r["bound_by"] = "operations" if t_work >= t_bytes else "bytes"
-        r["old_bound_ms"] = max(r["old_ops"] / r["old_rate"] * 1e3, t_bytes)
+        secs, r["bound_by"] = bound(r["bytes"], r["work"], ctx["peaks"])
+        r["bound_ms"] = secs * 1e3
+        r["old_bound_ms"] = bound(r["bytes"], [(r["old_ops"], r["old_rate"])], ctx["peaks"])[0] * 1e3
         r["work"] = [list(w) for w in r["work"]]
     return rows
 
@@ -328,14 +261,14 @@ def clmul_rows(ctx, shapes, plain_events=False):
             mismatches=bad, max_abs_err=err,
             **timed(torch, lambda: k.clmul_flat(a, b), lambda: k.clmul_plain(a, b),
                     plain_events),
-            work=[(smem_bytes, smem_rate(ctx)), (ops, ctx["int32_rate"])],
-            old_ops=clmul_ops(B, La, Lb), old_rate=ctx["int32_rate"],
-            bytes=B * (La + Lb) * 4 * 2,
+            work=[(smem_bytes, "smem_bw"), (ops, "int32_ops")],
+            old_ops=clmul_ops(B, La, Lb), old_rate="int32_ops",
+            bytes=clmul_bytes(B, La, Lb),
         ))
         log(f"[kernels] clmul {label:9s} B={B} {La}x{Lb}: mismatches {bad}, "
             f"kernel {rows[-1]['ms']} ms (call {rows[-1]['call_ms']} ms), "
             f"plain {rows[-1]['plain_ms']} ms")
-    return set_bounds(rows)
+    return set_bounds(ctx, rows)
 
 
 def phase_kernels(ctx):
@@ -368,7 +301,7 @@ def phase_kernels(ctx):
             check(torch.equal(want, want_sel), f"plain versions disagree at tau={tau} B={B}")
             out_bytes = (B + B * L) * 4  # plain in, limbs out
             # the function's necessary work: the table design's lookups
-            lookups = [(encrypt_lookup_bytes(B, tau, L), smem_rate(ctx))]
+            lookups = [(encrypt_lookup_bytes(B, tau, L), "smem_bw")]
             variants = (
                 ("encrypt", lambda: enc.encrypt_words_table(selw, pk, plain, L),
                  lambda: enc.encrypt_plain(selw, enc.pk_planes(enc.pk_columns(pk)), plain, L),
@@ -388,7 +321,7 @@ def phase_kernels(ctx):
                 enc_rows.append(dict(
                     kernel=name, label=f"tau{tau}", shape=f"B={B} tau={tau} D={D} L={L}",
                     mismatches=bad, max_abs_err=err, **timed(torch, fn, plain_fn),
-                    work=lookups, old_ops=2 * B * tau * D, old_rate=INT8_TC_OPS_PER_S,
+                    work=lookups, old_ops=2 * B * tau * D, old_rate="int8_tc_ops",
                     bytes=in_bytes + out_bytes,
                 ))
                 log(f"[kernels] {name} tau={tau} B={B}: mismatches {bad}, "
@@ -396,7 +329,7 @@ def phase_kernels(ctx):
                     f"plain {enc_rows[-1]['plain_ms']} ms")
                 del got
             del want, want_sel, selw, sel, plain
-    rows += set_bounds(enc_rows)
+    rows += set_bounds(ctx, enc_rows)
     k2_edges(ctx)
 
     # T1: the encrypt path's words for 2^21 bits at tau = 128, and JAX's words
@@ -411,18 +344,63 @@ def phase_kernels(ctx):
         have = [w & 0xFFFFFFFF for w in first.tolist()]
         check(have == want_words, f"threefry seed {seed}: {have} != jax.random.bits {want_words}")
     n = shape[0] * shape[1]
-    rows += set_bounds([dict(
+    t1_work = [(n * THREEFRY_ALU_OPS_PER_WORD, "int32_ops")]
+    rows += set_bounds(ctx, [dict(
         kernel="threefry", label="words", shape=f"{shape[0]}x{shape[1]} words",
         mismatches=bad, max_abs_err=err,
         **timed(torch, lambda: prng.random_bits(key, shape, dev),
                 lambda: prng.random_bits_plain(key, shape, dev)),
-        work=[(n * THREEFRY_ALU_OPS_PER_WORD, ctx["int32_rate"])],
-        old_ops=n * THREEFRY_ALU_OPS_PER_WORD, old_rate=ctx["int32_rate"], bytes=n * 4,
+        work=t1_work, old_ops=n * THREEFRY_ALU_OPS_PER_WORD, old_rate="int32_ops", bytes=n * 4,
     )])
     log(f"[kernels] threefry {shape}: mismatches {bad}, seeds {sorted(JAX_BITS)} equal "
         f"jax.random.bits; kernel {rows[-1]['ms']} ms (call {rows[-1]['call_ms']} ms), "
         f"plain {rows[-1]['plain_ms']} ms")
+    rows += set_bounds(ctx, [threefry_device_key(ctx, shape, t1_work)])
     return rows
+
+
+def threefry_device_key(ctx, shape, work):
+    """T1's device-key entry against ``random_bits_plain`` for three keys,
+    eager and inside a captured CUDA graph replayed after each rewrite of
+    its key buffer; timed eager at ``shape``."""
+    torch, dev = ctx["torch"], ctx["dev"]
+    from homomorph_tpu_torch import prng
+
+    keys = ((0, ctx["seed"]), (0xDEADBEEF, 0x12345678), (0xFFFFFFFF, 0x80000000))
+    buf = prng.key_words(keys[0]).to(dev)
+    bad = 0
+    for key in keys:
+        buf.copy_(prng.key_words(key))
+        got = prng.random_bits_device_key(buf, shape)
+        torch.cuda.synchronize()
+        bad += compare(torch, got, prng.random_bits_plain(key, shape, dev))[0]
+    check(bad == 0, f"threefry device key: {bad} mismatches eager")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        prng.random_bits_device_key(buf, shape)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = prng.random_bits_device_key(buf, shape)
+    for key in keys:
+        buf.copy_(prng.key_words(key))
+        graph.replay()
+        torch.cuda.synchronize()
+        bad += compare(torch, captured, prng.random_bits_plain(key, shape, dev))[0]
+    check(bad == 0, f"threefry device key: {bad} mismatches in graph replays")
+    del graph, captured, got
+    key = keys[1]
+    buf.copy_(prng.key_words(key))
+    row = dict(kernel="threefry_dkey", label="words", shape=f"{shape[0]}x{shape[1]} words",
+               mismatches=bad, max_abs_err=0,
+               **timed(torch, lambda: prng.random_bits_device_key(buf, shape),
+                       lambda: prng.random_bits_plain(key, shape, dev)),
+               work=work, old_ops=work[0][0], old_rate="int32_ops", bytes=shape[0] * shape[1] * 4)
+    log(f"[kernels] threefry device key {shape}: 3 keys equal random_bits_plain eager and in "
+        f"graph replays after each key rewrite; kernel {row['ms']} ms (call {row['call_ms']} ms), "
+        f"plain {row['plain_ms']} ms")
+    return row
 
 
 def k2_edges(ctx):
@@ -561,6 +539,7 @@ def phase_main(ctx):
     check(np.array_equal(out, 255 - a8), "U8 NOT wrong")
     log(f"[main] U8 AND/OR/XOR/NOT on {n} pairs right")
     ctx["add_inputs"] = (c, ca, cb)
+    ctx["add_values"] = (xs, ys)
     return dict(keygen_ms=t_keygen * 1e3, encrypt_ms=t_enc * 1e3, add_ms=t_add * 1e3,
                 decrypt_ms=t_dec * 1e3, pairs=n)
 
@@ -700,7 +679,7 @@ def route_case(ctx, Ls, Lg):
     check(bad == 0, f"route {Ls}x{Lg} at B={B}: {bad} limbs differ from the direct launch")
     del got, want
     iters = 5
-    rec_d, rec_r = device_records(torch, direct, iters), device_records(torch, routed, iters)
+    rec_d, rec_r = device_records(direct, iters), device_records(routed, iters)
     k1 = sum(v for name, v in rec_r.items() if "clmul" in name) / iters
     row = dict(Ls=Ls, Lg=Lg, B=B, pairs=B * Ls * (Lg + 1),
                steps=[s[0] for s in k.route_plan(Ls, Lg, Ls)],
@@ -825,7 +804,7 @@ def threshold_scan(ctx, c, ea, eb, prod):
         check(torch.equal(got.limbs, prod.limbs), f"u16 at threshold {kmin}: limbs differ")
         del got
         _, wall = stage(torch, run)
-        rec = device_records(torch, run)
+        rec = device_records(run)
         k1 = sum(v for name, v in rec.items() if "clmul" in name)
         out.append(dict(kmin=kmin, wall_ms=wall, device_ms=sum(rec.values()), k1_ms=k1))
         log(f"[wide] u16 at threshold {kmin}: wall {wall:.3f} ms, device "
@@ -974,7 +953,7 @@ def mul_shape_rows(ctx):
     for shape in sorted(set(lt_shapes), key=lambda s: -clmul_ops(*s)):
         B, La, Lb = shape
         a, b = random_words(ctx, (B, La)), random_words(ctx, (B, Lb))
-        ms = device_ms(torch, lambda: k.clmul_flat(a, b), 5)
+        ms = device_ms(lambda: k.clmul_flat(a, b), 5)
         lt_times.append(dict(shape=list(shape), launches=lt_shapes.count(shape), ms=ms))
         del a, b
     ctx["lt_launch_times"] = lt_times
@@ -1008,8 +987,8 @@ def widest_product(ctx):
     torch.cuda.synchronize()
     bad, _ = compare(torch, got, want)
     check(bad == 0, f"u32 widest product {B}x{La}x{Lb}: {bad} limbs differ, route against K1")
-    out = dict(shape=[B, La, Lb], direct_ms=device_ms(torch, lambda: k.clmul_flat(a, b), 2),
-               routed_ms=device_ms(torch, lambda: k.clmul_rows(a, b), 2),
+    out = dict(shape=[B, La, Lb], direct_ms=device_ms(lambda: k.clmul_flat(a, b), 2),
+               routed_ms=device_ms(lambda: k.clmul_rows(a, b), 2),
                leaf=list(leaf_shape(B, La, Lb, k.karatsuba_min())))
     log(f"[kernels] u32 widest product B={B} {La}x{Lb}: one direct K1 launch "
         f"{out['direct_ms']:.5f} ms, routed (launch {out['leaf']}) {out['routed_ms']:.5f} ms; equal")
@@ -1054,7 +1033,7 @@ def phase_profile(ctx, main_stats, bulk_stats, mul_stats, wide_stats):
         fn()
         torch.cuda.synchronize()
         warm_ms = (time.perf_counter() - t0) * 1e3
-        per_kernel = device_records(torch, fn)
+        per_kernel = device_records(fn)
         dev_ms = sum(per_kernel.values())
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
         out[name] = dict(cold_ms=cold_ms, warm_ms=warm_ms, device_ms=dev_ms,
@@ -1062,6 +1041,213 @@ def phase_profile(ctx, main_stats, bulk_stats, mul_stats, wide_stats):
         log(f"[profile] {name}: cold {cold_ms:.3f} ms, warm {warm_ms:.3f} ms wall, device "
             f"{dev_ms:.3f} ms (busy {dev_ms / warm_ms:.1%}); top: "
             + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
+    return out
+
+
+def phase_verify(ctx):
+    """The verify gate (``run_verification``) in full, scaled round trip
+    included, on the card; each check's line logged."""
+    import homomorph_tpu_torch as ht
+
+    lines = []
+
+    def gate_log(*parts):
+        lines.append(" ".join(str(p) for p in parts))
+        log(f"[verify] {lines[-1]}")
+
+    _, ms = stage(ctx["torch"], lambda: ht.run_verification(log=gate_log))
+    log(f"[verify] run_verification(quick=False, scaled=True) passed in {ms:.3f} ms")
+    return dict(ms=ms, lines=lines)
+
+
+# (label, key's context in ctx, limbs): the decrypt-mask classes of the paths
+MASK_CLASSES = (("d128-L9", "add_inputs", 9), ("d1024-L65", "u16_inputs", 65),
+                ("d1024-L8192", "u16_inputs", 8192), ("d2432-L98304", "u32_inputs", 98304))
+
+
+def phase_masks(ctx):
+    """The native decrypt mask against the Python-int recurrence at the
+    paths' degree classes, word for word, both timed on the host."""
+    import numpy as np
+
+    from homomorph_tpu_torch import native
+    from homomorph_tpu_torch.gf2 import poly as gf2
+
+    native.library()  # built and loaded before the clock starts
+    out = []
+    def median_ms(fn, reps):
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            res = fn()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return res, sorted(walls)[reps // 2]
+
+    for label, source, n_limbs in MASK_CLASSES:
+        sk = ctx[source][0].get_secret_key()
+        host = gf2.to_numpy(sk.limbs)
+        small = n_limbs <= 1024  # a single call is too short for the host clock
+        fast, native_ms = median_ms(lambda: native.decrypt_mask(host, sk.degree, n_limbs),
+                                    21 if small else 3)
+        plain, python_ms = median_ms(lambda: gf2.decrypt_mask_words(host, sk.degree, n_limbs),
+                                     21 if small else 1)
+        check(np.array_equal(fast, plain), f"mask {label}: native differs from the Python-int recurrence")
+        out.append(dict(label=label, degree=sk.degree, limbs=n_limbs, native_ms=native_ms,
+                        python_ms=python_ms))
+        log(f"[masks] {label} (median of {21 if small else 3} and {21 if small else 1} calls): "
+            f"native {native_ms:.4f} ms, Python ints {python_ms:.4f} ms "
+            f"({python_ms / native_ms:.1f}x); equal word for word")
+    return out
+
+
+def launch_counts(ctx):
+    return {name: w.launches for name, w in ctx["wrappers"].items()}
+
+
+def compiled_case(ctx, name, graphed, call, eager_fn, meta_fn, replays=5):
+    """Eager's warm wall time (median of 3, before any capture: a capture
+    empties the allocator's cache, which the next eager calls refill), the
+    output metadata's derivation on the meta device alone (the circuit's
+    Python without device work), a compiled callable's first call (meta,
+    warm-up, capture, replay), the median wall time of ``replays`` more and
+    one replay's device time.  The launch counters move at the first call
+    (warm-up and capture) and must not move at a replay.  Returns (stats,
+    first output, last output, eager output)."""
+    torch = ctx["torch"]
+    eager_walls = []
+    for _ in range(3):
+        eager, ms = stage(torch, eager_fn)
+        eager_walls.append(ms)
+    _, meta_ms = stage(torch, meta_fn)
+    before = launch_counts(ctx)
+    first, capture_ms = stage(torch, call)
+    mid = launch_counts(ctx)
+    walls = []
+    for _ in range(replays):
+        out, ms = stage(torch, call)
+        walls.append(ms)
+    check(launch_counts(ctx) == mid, f"compiled {name}: a replay counted a launch")
+    rec = device_records(call)
+    stats = dict(eager_ms=sorted(eager_walls)[1], eager_walls_ms=eager_walls, meta_ms=meta_ms,
+                 capture_ms=capture_ms, replay_ms=sorted(walls)[len(walls) // 2],
+                 replays_ms=walls, replay_device_ms=sum(rec.values()), graphs=graphed.graphs,
+                 captured_launches={k: mid[k] - before[k] for k in mid})
+    log(f"[compiled] {name}: eager median {stats['eager_ms']:.3f} ms of "
+        f"{[round(w, 3) for w in eager_walls]}, metadata on the meta device {meta_ms:.3f} ms, "
+        f"first call (meta, warm-up, capture, replay) {capture_ms:.3f} ms, replay median "
+        f"{stats['replay_ms']:.3f} ms of {[round(w, 3) for w in walls]}, one replay's device "
+        f"time {stats['replay_device_ms']:.3f} ms; launches at warm-up and capture "
+        f"{stats['captured_launches']}")
+    return stats, first, out, eager
+
+
+def profiler_after_graphs(ctx):
+    """Whether ``torch.profiler`` still records device time after the CUDA
+    graphs (not a gate): the u32 product's widest direct K1 launch and a
+    small one, each traced once."""
+    torch = ctx["torch"]
+    from homomorph_tpu_torch.gf2 import kernels as k
+
+    out = {}
+    for label, (B, La, Lb) in (("u32-widest", max(ctx["u32_shapes"], key=lambda s: s[1] + s[2])),
+                               ("add-chain", (2048, 9, 256))):
+        a, b = random_words(ctx, (B, La)), random_words(ctx, (B, Lb))
+        try:
+            out[label] = device_ms(lambda: k.clmul_flat(a, b), 2)
+        except RuntimeError as err:
+            out[label] = str(err)
+        log(f"[profiler] after the graphs, direct K1 {label} {B}x{La}x{Lb}: {out[label]}")
+        del a, b
+        torch.cuda.synchronize()
+    return out
+
+
+def phase_compiled(ctx):
+    """Compiled pipelines on the card: the u32 add (2,048 pairs) and the u32
+    product (8 pairs) as CUDA graphs against eager, limb for limb and
+    decrypted, and the u32 add's encrypt -> add -> decrypt round trip under
+    a new key at every call."""
+    import numpy as np
+
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch import rng as hrng
+    from homomorph_tpu_torch.gf2 import poly as gf2
+    from homomorph_tpu_torch.models import HomomorphicAddition, HomomorphicMultiplication
+    from homomorph_tpu_torch.models.compiled import _derive_meta, compile_op2, compile_roundtrip
+
+    torch = ctx["torch"]
+    out = {}
+    c, ca, cb = ctx["add_inputs"]
+    xs, ys = ctx["add_values"]
+    xc, w32a, w32b = ctx["u32_inputs"]
+    cases = (("add_u32", c, HomomorphicAddition, ca, cb, lambda x, y: (x + y) % (1 << 32)),
+             ("mul_u32", xc, HomomorphicMultiplication, w32a, w32b,
+              lambda x, y: (x * y) % (1 << 32)))
+    for name, cc, op, a, b, plain_fn in cases:
+        bound = cc.parameters.pk_degree
+        fn = compile_op2(op, ht.U32, bound)
+        stats, first, last, eager = compiled_case(
+            ctx, name, fn.graphed, lambda: fn(a, b), lambda: cc.apply2(op, a, b),
+            lambda: _derive_meta(op.unsafe_apply, bound, ht.U32, a.limbs.shape, b.limbs.shape))
+        for got in (first, last):
+            check(torch.equal(got.limbs, eager.limbs)
+                  and (got.bound, got.noise, got.zero_lanes) == (eager.bound, eager.noise,
+                                                                 eager.zero_lanes),
+                  f"compiled {name}: limbs or metadata differ from eager")
+        xa = np.array(cc.decrypt(a).tolist(), dtype=np.uint64)
+        xb = np.array(cc.decrypt(b).tolist(), dtype=np.uint64)
+        got = np.array(cc.decrypt(last).tolist(), dtype=np.uint64)
+        check(np.array_equal(got, plain_fn(xa, xb)), f"compiled {name}: decrypts wrong")
+        stats["pairs"] = len(got)
+        out[name] = stats
+        del fn, first, last, eager
+
+    # the round trip: T1 (device key) -> K2 -> add -> decrypt in one graph
+    fn = compile_roundtrip(c, HomomorphicAddition, ht.U32)
+
+    def u32_bits(v):
+        return np.unpackbits(v.astype("<u4").view(np.uint8).reshape(-1, 4), axis=1,
+                             bitorder="little")
+
+    bits_a, bits_b = u32_bits(xs), u32_bits(ys)
+    key = [hrng.threefry_key(ctx["seed"])]
+    outs = []
+
+    def roundtrip():
+        key[0] = hrng.threefry_split(key[0])[0]  # a new key every call
+        outs.append(fn(key[0], bits_a, bits_b))
+        return outs[-1]
+
+    def eager():
+        ea = c.encrypt(xs.tolist(), ht.U32, batch=True)
+        eb = c.encrypt(ys.tolist(), ht.U32, batch=True)
+        return c.apply2(HomomorphicAddition, ea, eb).decipher_bits(c.get_secret_key())
+
+    L = gf2.limbs_for(c.get_public_key().max_degree)
+    stats, _, _, _ = compiled_case(
+        ctx, "roundtrip_add_u32", fn.graphed, roundtrip, eager,
+        lambda: _derive_meta(HomomorphicAddition.unsafe_apply, c.get_public_key().max_degree,
+                             ht.U32, bits_a.shape + (L,), bits_b.shape + (L,)))
+    # the same replays with the plaintext bits already on the card: what the
+    # two host-to-device copies of numpy bits cost a call
+    dev_a, dev_b = (torch.from_numpy(b.astype(np.int32)).to(ctx["dev"]) for b in (bits_a, bits_b))
+    walls = []
+    for _ in range(5):
+        key[0] = hrng.threefry_split(key[0])[0]
+        o, ms = stage(torch, lambda: fn(key[0], dev_a, dev_b))
+        outs.append(o)
+        walls.append(ms)
+    stats["replay_device_bits_ms"] = sorted(walls)[2]
+    want = (xs + ys) % (1 << 32)
+    for o in outs:
+        packed = np.packbits(o.cpu().numpy().astype(np.uint8), axis=1, bitorder="little")
+        check(np.array_equal(packed.view("<u4").reshape(-1), want),
+              "compiled u32 add round trip: decrypts wrong")
+    stats["pairs"] = len(xs)
+    out["roundtrip_add_u32"] = stats
+    log(f"[compiled] roundtrip_add_u32: replay median {stats['replay_device_bits_ms']:.3f} ms with "
+        f"the bits on the card; {len(outs)} calls under {len(outs)} keys decrypt to the "
+        f"{len(xs)} sums")
     return out
 
 
@@ -1075,8 +1261,6 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
-    import homomorph_tpu_torch  # noqa: F401  (fails outside a checkout)
     from homomorph_tpu_torch import prng
     from homomorph_tpu_torch.gf2 import cuda_build
     from homomorph_tpu_torch.gf2 import encrypt_kernel as enc
@@ -1090,11 +1274,10 @@ def main(argv=None):
     # 1. device line
     card = nvidia_smi("name,power.limit")
     log(card)
-    ctx["int32_rate"], sms, mhz = int32_rate(torch)
-    ctx["sms"], ctx["mhz"] = sms, mhz
-    log(f"[device] {torch.cuda.get_device_name(0)}: {sms} SMs, max SM clock {mhz:.0f} MHz "
-        f"-> INT32 {ctx['int32_rate'] / 1e12:.2f} Tops/s; torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}")
+    ctx["peaks"] = peaks = chip_peaks()
+    log(f"[device] {torch.cuda.get_device_name(0)}: {peaks['sms']} SMs, max SM clock "
+        f"{peaks['mhz']:.0f} MHz -> INT32 {peaks['int32_ops'] / 1e12:.2f} Tops/s, shared memory "
+        f"{peaks['smem_bw'] / 1e12:.2f} TB/s; torch {torch.__version__}, CUDA {torch.version.cuda}")
     # 2. build
     t0 = time.perf_counter()
     cuda_build.build()
@@ -1118,9 +1301,10 @@ def main(argv=None):
     phase_fixtures(ctx)
 
     # 5-6, 5b, 6b. the paths, each with its launch counts from 0
-    wrappers = {"clmul": k.clmul_flat, "encrypt": enc.encrypt_words_table,
-                "encrypt_v1": enc.encrypt_words_mma, "encrypt_v3": enc.encrypt_sel_mma,
-                "threefry": prng.random_bits}
+    ctx["wrappers"] = wrappers = {
+        "clmul": k.clmul_flat, "encrypt": enc.encrypt_words_table,
+        "encrypt_v1": enc.encrypt_words_mma, "encrypt_v3": enc.encrypt_sel_mma,
+        "threefry": prng.random_bits, "threefry_dkey": prng.random_bits_device_key}
 
     def run_path(fn):
         for w in wrappers.values():
@@ -1143,18 +1327,7 @@ def main(argv=None):
     exp_stats, paths["exp_enc"] = run_path(lambda: phase_exp_enc(ctx))
     peak = torch.cuda.max_memory_allocated() / 1e9
     wide_stats, paths["wide"] = run_path(lambda: phase_wide(ctx))
-    for path, counts in paths.items():
-        log(f"[paths] launches in {path}: {counts}")
     log(f"[paths] peak device memory over the first three paths {peak:.3f} GB")
-    # which kernels each path must have run, and K2 must not run under pallas_v1
-    needs = {"add": ("clmul", "encrypt", "threefry"),
-             "mul_cmp": ("clmul", "encrypt_v1", "threefry"),
-             "exp_enc": ("encrypt", "encrypt_v1", "encrypt_v3", "threefry"),
-             "wide": ("clmul", "encrypt", "threefry")}
-    for path, names in needs.items():
-        for name in names:
-            check(paths[path][name] > 0, f"{name} was not launched on the {path} path")
-    check(paths["mul_cmp"]["encrypt"] == 0, "K2 ran while pallas_v1 selected K3")
 
     # 3b. K1 at the multiplications' and lt's busiest shapes
     t0 = time.perf_counter()
@@ -1173,6 +1346,34 @@ def main(argv=None):
     profile_stats = phase_profile(ctx, main_stats, bulk_stats, mul_stats, wide_stats)
     log(f"[profile] phase done in {time.perf_counter() - t0:.3f} s")
 
+    # 9-11. the verify gate, the native masks and the compiled pipelines (the
+    # CUDA graphs last: in one run, a phase 3b trace that ran after them came
+    # back with no device records; profiler_after_graphs checks the profiler
+    # after them and records what it finds)
+    verify_stats, paths["verify"] = run_path(lambda: phase_verify(ctx))
+    t0 = time.perf_counter()
+    mask_stats = phase_masks(ctx)
+    log(f"[masks] phase done in {time.perf_counter() - t0:.3f} s")
+    compiled_stats, _ = run_path(lambda: phase_compiled(ctx))
+    # the compiled path's launches are those of its warm-ups and captures
+    # (the counters do not move at a replay)
+    paths["compiled"] = {name: sum(st["captured_launches"][name] for st in compiled_stats.values())
+                         for name in wrappers}
+    profiler_probe = profiler_after_graphs(ctx)
+    for path, counts in paths.items():
+        log(f"[paths] launches in {path}: {counts}")
+    # which kernels each path must have run, and K2 must not run under pallas_v1
+    needs = {"add": ("clmul", "encrypt", "threefry"),
+             "mul_cmp": ("clmul", "encrypt_v1", "threefry"),
+             "exp_enc": ("encrypt", "encrypt_v1", "encrypt_v3", "threefry"),
+             "wide": ("clmul", "encrypt", "threefry"),
+             "verify": ("clmul", "encrypt", "threefry"),
+             "compiled": ("clmul", "encrypt", "threefry_dkey")}
+    for path, names in needs.items():
+        for name in names:
+            check(paths[path][name] > 0, f"{name} was not launched on the {path} path")
+    check(paths["mul_cmp"]["encrypt"] == 0, "K2 ran while pallas_v1 selected K3")
+
     # 8. kernels line: each kernel at its busiest path shape
     meta = {
         "clmul": ("homomorph_tpu_torch/csrc/clmul.cu", "homomorph_tpu/gf2/kernels.py:56",
@@ -1186,6 +1387,9 @@ def main(argv=None):
         # not a Pallas kernel: the threefry stream XLA generates there
         "threefry": ("homomorph_tpu_torch/csrc/threefry.cu", "homomorph_tpu/cipher.py:360",
                      "words"),
+        # T1's device-key entry (hm_threefry_bits_dkey): the same stream
+        "threefry_dkey": ("homomorph_tpu_torch/csrc/threefry.cu",
+                          "homomorph_tpu/cipher.py:360", "words"),
     }
     kernels = []
     for name, (source, replaces, label) in meta.items():
@@ -1207,6 +1411,8 @@ def main(argv=None):
             json.dump(dict(card=card, rows=rows, main=main_stats, bulk=bulk_stats,
                            mulcmp=mul_stats, exp_enc=exp_stats, launches=paths,
                            route_sweep=sweep, wide=wide_stats, u32_widest=widest,
+                           verify=verify_stats, masks=mask_stats, compiled=compiled_stats,
+                           profiler_after_graphs=profiler_probe,
                            lt_launch_times=ctx["lt_launch_times"],
                            clocks=clocks,
                            peak_gb=peak, kernels=kernels, profile=profile_stats,

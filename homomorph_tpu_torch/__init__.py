@@ -80,6 +80,8 @@ from .operations import (  # noqa: F401
 )
 from .params import Parameters  # noqa: F401
 from .rng import OsRandomSource, RandomSource, RecordedSource, ThreefrySource  # noqa: F401
+from .utils.cache import enable_compilation_cache  # noqa: F401
+from .verify import VerificationError, run_verification  # noqa: F401
 from .utils.errors import (  # noqa: F401
     CipherError,
     ContextCryptoError,
@@ -113,6 +115,8 @@ __all__ = [
     "OsRandomSource",
     "RecordedSource",
     "ThreefrySource",
+    "enable_compilation_cache",
+    "run_verification", "VerificationError",
     # codec
     "TypeDescriptor", "StructDescriptor", "ArrayDescriptor", "BytesDescriptor",
     "VecDescriptor", "StringDescriptor", "OptionDescriptor", "EnumDescriptor",

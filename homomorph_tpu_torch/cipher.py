@@ -126,7 +126,9 @@ class CipheredBit:
 
     @classmethod
     def one(cls, batch: tuple[int, ...] = (), *, device=None) -> "CipheredBit":
-        m = gf2.monomial(0, device=device)
+        # ``monomial(0)`` made on the device (a fill, not a host copy, so a
+        # CUDA graph capture can hold it)
+        m = torch.ones((1,), dtype=gf2.LIMB_DTYPE, device=_resolve(device))
         return cls(m.expand(batch + (1,)), 0, noise=0)
 
     # -- gates (src/cipher.rs:53-90) ----------------------------------------

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve"]
+__all__ = ["resolve", "capturing"]
 
 
 def resolve(device: "str | torch.device | None" = None) -> torch.device:
@@ -22,3 +22,9 @@ def resolve(device: "str | torch.device | None" = None) -> torch.device:
             "default; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (False where
+    the card is absent: the CPU build of torch cannot answer the query)."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()

@@ -2,10 +2,11 @@
 
 Each source ``homomorph_tpu_torch/csrc/<name>.cu`` exports a plain C
 function and is compiled by ``nvcc`` for ``sm_90a`` into its own shared
-library under ``homomorph_tpu_torch/_build/`` (listed in ``.gitignore``),
-then loaded with ``ctypes``.  A library's file name carries a hash of its
-source and flags, so an edited source is rebuilt and an unchanged one is
-reused.  :func:`build` starts one ``nvcc`` per missing library, all at
+library in the build directory (``homomorph_tpu_torch/_build/``, listed in
+``.gitignore``, unless :func:`~homomorph_tpu_torch.utils.cache.
+enable_compilation_cache` names another), then loaded with ``ctypes``.  A
+library's file name carries a hash of its source and flags, so an edited
+source is rebuilt and an unchanged one is reused.  :func:`build` starts one ``nvcc`` per missing library, all at
 once, and waits for all of them.
 
 Nothing here runs at import: the CPU tests import every module on a
@@ -21,11 +22,12 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ..utils.cache import build_dir
+
 __all__ = ["SOURCES", "build", "library", "build_logs"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
 SOURCES = ("clmul", "encrypt", "encrypt_mma", "threefry")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -51,12 +53,11 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    return build_dir() / f"lib{name}-{digest[:16]}.so"
 
 
 def build(names=SOURCES) -> dict[str, Path]:
     """Compile every named source that has no up-to-date library, in parallel."""
-    BUILD_DIR.mkdir(exist_ok=True)
     pending = {}
     for name in names:
         out = _target(name)

@@ -199,15 +199,10 @@ def _join_pieces(p: torch.Tensor, B: int, Ls: int, Lg: int, n: int) -> torch.Ten
 
 
 def clmul_plain(af: torch.Tensor, bf: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of the kernel: flat [B, La] x [B, Lb] -> [B, La+Lb]."""
-    B, La = af.shape
-    Lb = bf.shape[1]
-    chunk = max(1, _PLAIN_ELEM_CAP // (La * Lb))
-    if B <= chunk:
-        return gf2.clmul(af, bf)
-    return torch.cat(
-        [gf2.clmul(af[r : r + chunk], bf[r : r + chunk]) for r in range(0, B, chunk)]
-    )
+    """Plain torch version of the kernel: flat [B, La] x [B, Lb] -> [B, La+Lb],
+    the 32-plane sweep chunked over the rows (:func:`~homomorph_tpu_torch.
+    gf2.poly.clmul_chunked`)."""
+    return gf2.clmul_chunked(af, bf, cap=_PLAIN_ELEM_CAP)
 
 
 def _funnel_l(lo: torch.Tensor, hi: torch.Tensor, n: int) -> torch.Tensor:
@@ -262,12 +257,18 @@ def clmul_flat(af: torch.Tensor, bf: torch.Tensor) -> torch.Tensor:
     """The kernel's wrapper: flat [B, La] x [B, Lb] -> [B, La+Lb] int32.
 
     A CPU tensor gets :func:`clmul_plain`; a CUDA tensor launches the
-    kernel on the current stream (and counts the launch) or raises."""
+    kernel on the current stream (and counts the launch) or raises.  A
+    tensor on PyTorch's ``meta`` device gets an empty output of the
+    product's shape and counts nothing: the compiled pipelines read an
+    operation's output metadata that way, with no device work."""
     _check(af, bf)
     if af.device.type == "cpu":
         return clmul_plain(af, bf)
+    if af.device.type == "meta":
+        return torch.empty((af.shape[0], af.shape[1] + bf.shape[1]), dtype=gf2.LIMB_DTYPE,
+                           device="meta")
     if af.device.type != "cuda":
-        raise ValueError(f"clmul runs on cpu or cuda, not {af.device}")
+        raise ValueError(f"clmul runs on cpu, cuda or meta, not {af.device}")
     B = af.shape[0]
     small, big = (af, bf) if af.shape[1] <= bf.shape[1] else (bf, af)
     out = torch.empty((B, af.shape[1] + bf.shape[1]), dtype=gf2.LIMB_DTYPE, device=af.device)

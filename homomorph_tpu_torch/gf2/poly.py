@@ -20,17 +20,27 @@ demand with :func:`compute_degree`.
 The plain :func:`clmul` here is the 32-plane sweep of the JAX package; the
 product that the rest of the port calls is
 :func:`homomorph_tpu_torch.gf2.kernels.clmul`, which launches the CUDA
-kernel for tensors on the card.  ``rem_iterative``, ``rem_linear`` and
-``reduction_rows`` are not ported yet: the main path (decrypt by mask and
-parity) does not use them.
+kernel for tensors on the card.
+
+Remainders: reduction mod a fixed ``S`` is GF(2)-linear in the dividend,
+so decryption uses a mask (:func:`decrypt_mask`) and the full remainder a
+table of ``X^i mod S`` rows (:func:`reduction_rows`, :func:`rem_linear`).
+Both tables come from the native host engine
+(:mod:`homomorph_tpu_torch.native`), which runs the JAX package's monic
+recurrence in C, and move to the tensor's device.
+:func:`rem_iterative`, the fixed-trip masked division, is kept for API
+parity and as a cross-check.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import native as _native
 from ..device import resolve as _resolve
 
 LIMB_BITS = 32
@@ -199,8 +209,14 @@ def xor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def xor_const_bit(a: torch.Tensor, bit: "torch.Tensor | int") -> torch.Tensor:
-    """Conditionally flip the constant term (src/polynomial.rs:237-243)."""
-    bit = torch.as_tensor(bit, dtype=a.dtype, device=a.device) & 1
+    """Conditionally flip the constant term (src/polynomial.rs:237-243).
+
+    A Python-int ``bit`` stays a scalar operand: no host-to-device copy,
+    which a CUDA graph capture could not hold."""
+    if not isinstance(bit, torch.Tensor):
+        bit = int(bit) & 1
+    else:
+        bit = bit.to(a.dtype) & 1
     out = a.clone()
     out[..., 0] ^= bit
     return out
@@ -286,6 +302,97 @@ def clmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return F.pad(diag_lo, (0, 1)) ^ F.pad(diag_hi, (1, 0))
 
 
+_CLMUL_ELEM_CAP = 1 << 22  # cap on La*Lb*batch elements materialized at once
+
+
+def clmul_chunked(
+    a: torch.Tensor, b: torch.Tensor, cap: "int | None" = None
+) -> torch.Tensor:
+    """:func:`clmul` in chunks of the flattened batch, so that the
+    [chunk, La, Lb] planes stay under ``cap`` elements (default
+    :data:`_CLMUL_ELEM_CAP`, the JAX package's).  Same result as
+    :func:`clmul`, broadcast over leading dims."""
+    La, Lb = a.shape[-1], b.shape[-1]
+    lead = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+    batch = math.prod(lead)
+    cap = _CLMUL_ELEM_CAP if cap is None else cap
+    if batch * La * Lb <= cap or not lead:
+        return clmul(a, b)
+    af = a.expand(*lead, La).reshape(batch, La)
+    bf = b.expand(*lead, Lb).reshape(batch, Lb)
+    chunk = max(1, cap // (La * Lb))
+    out = torch.cat(
+        [clmul(af[r : r + chunk], bf[r : r + chunk]) for r in range(0, batch, chunk)]
+    )
+    return out.reshape(*lead, La + Lb)
+
+
+# --------------------------------------------------------------------------
+# Remainder
+# --------------------------------------------------------------------------
+
+
+def rem_iterative(c: torch.Tensor, s: torch.Tensor, s_degree: int) -> torch.Tensor:
+    """Fixed-trip masked long division: remainder of ``c`` mod ``s``.
+
+    The JAX package's branch-free re-design of the reference's shift-XOR
+    loop (src/polynomial.rs:316-365): exactly ``32*L - s_degree``
+    iterations, from the top shift down, each XORing ``s << shift`` where
+    bit ``s_degree + shift`` of the running remainder is set (as a mask, no
+    branch on data).  ``s_degree`` is the exact degree of ``s``.  Batched
+    over leading dims of ``c``; ``s`` is shared.  Returns limbs of the same
+    length as ``c``.
+    """
+    L = c.shape[-1]
+    max_shift = bit_capacity(L) - 1 - s_degree
+    if max_shift < 0:
+        return c
+    r = c.clone()
+    for shift in range(max_shift, -1, -1):
+        pos = s_degree + shift
+        bit = (r[..., pos // LIMB_BITS] >> (pos % LIMB_BITS)) & 1
+        r ^= (-bit)[..., None] & shift_left_static(s, shift, L)
+    return r
+
+
+def reduction_rows(s: torch.Tensor, s_degree: int, n_rows: int) -> torch.Tensor:
+    """Rows ``X^i mod S`` for i in [0, n_rows), bit-packed [n_rows, Ls] on
+    ``s``'s device, ``Ls = limbs_for(s_degree)``; bit ``s_degree`` of every
+    row is 0.
+
+    The core of linear-map reduction: ``C mod S = XOR_i C_i * (X^i mod S)``.
+    The JAX package runs the monic recurrence ``r' = (r << 1) ^ (bit_d(r <<
+    1) ? S : 0)`` as a device scan; the port runs the same recurrence in
+    the native engine (:func:`homomorph_tpu_torch.native.reduction_rows`)
+    and moves the table to the device.  Requires ``S`` of exact degree
+    ``s_degree``, which keygen forces (src/polynomial.rs:89-90).
+    """
+    # fit, not pad: a key loaded from the reference's 64-bit-word byte
+    # format may carry a trailing all-zero limb; trimming is sound because
+    # deg S = s_degree
+    host = to_numpy(fit_limbs(s, limbs_for(s_degree)))
+    return from_numpy(_native.reduction_rows(host, s_degree, n_rows), s.device)
+
+
+def rem_linear(c: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Full remainder via the linear map: ``c mod S`` for shared ``S``.
+
+    ``c``: [..., L]; ``rows``: [>= 32*L, Ls] from :func:`reduction_rows`.
+    Returns [..., Ls].  The XOR-accumulation is a parity matmul: the bits
+    of ``c`` times the bits of the rows as a ``torch.matmul`` of 0/1
+    float32 values, whose counts are exact while ``32*L < 2^24`` (inputs
+    of 0 and 1 are exact in TF32 and bf16 too, and the sums accumulate in
+    float32), then each count's parity packed into limbs.
+    """
+    L = c.shape[-1]
+    n_bits = bit_capacity(L)
+    if rows.shape[0] < n_bits or n_bits >= 1 << 24:
+        raise ValueError(f"rem_linear needs {n_bits} rows below 2^24, got {rows.shape[0]}")
+    c_bits = unpack_bits(c, n_bits, dtype=torch.float32)
+    rows_bits = unpack_bits(rows[:n_bits], bit_capacity(rows.shape[-1]), dtype=torch.float32)
+    return parity_pack(torch.matmul(c_bits, rows_bits), rows.shape[-1])
+
+
 # --------------------------------------------------------------------------
 # Decryption by mask
 # --------------------------------------------------------------------------
@@ -296,7 +403,9 @@ def decrypt_mask_words(s: np.ndarray, s_degree: int, n_limbs: int) -> np.ndarray
 
     The monic recurrence ``r' = (r << 1) ^ (bit_d(r << 1) ? S : 0)`` of the
     JAX package (``poly.py:352-380``), run on Python integers: exact, and
-    ``32 * n_limbs`` steps of a few big-int operations each.
+    ``32 * n_limbs`` steps of a few big-int operations each.  The plain
+    version that the tests and ``chip_smoke.py`` hold the native engine's
+    mask (:func:`decrypt_mask`) against.
     """
     s_int = int.from_bytes(np.asarray(s, dtype="<u4").tobytes(), "little")
     top = 1 << s_degree
@@ -317,10 +426,12 @@ def decrypt_mask(s: torch.Tensor, s_degree: int, n_limbs: int) -> torch.Tensor:
 
     Decryption of a ciphered bit is then one masked parity:
     ``(C mod S)(0) = parity(popcount(C & w))`` (src/cipher.rs:117-123).
-    Computed on the host (:func:`decrypt_mask_words`) and moved to ``s``'s
-    device.
+    Computed on the host by the native engine
+    (:func:`homomorph_tpu_torch.native.decrypt_mask`, the recurrence of
+    :func:`decrypt_mask_words` in C) for every degree class, and moved to
+    ``s``'s device.
     """
-    words = decrypt_mask_words(to_numpy(s), s_degree, n_limbs)
+    words = _native.decrypt_mask(to_numpy(s), s_degree, n_limbs)
     return from_numpy(words, s.device)
 
 

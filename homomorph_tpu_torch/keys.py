@@ -4,7 +4,8 @@ Counterpart of :mod:`homomorph_tpu.keys` (reference:
 src/context.rs:121-298):
 
 * :class:`SecretKey` - one polynomial of exact degree ``d``, plus lazily
-  built decrypt masks (computed on the host, cached on the device).
+  built decrypt masks and ``X^i mod S`` tables (computed on the host by the
+  native engine, cached on the device).
 * :class:`PublicKey` - ``tau`` polynomials ``T_i = S*Q_i + X*R_i`` stored as
   one device tensor ``[tau, L]`` (which the encrypt kernel K2 reads),
   plus lazily built bit columns packed along tau and the int8 bit planes
@@ -23,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import native as _native
 from . import rng as _rng
 from .device import resolve as _resolve
 from .gf2 import encrypt_kernel as _enc
@@ -52,7 +54,7 @@ class SecretKey:
     Zeroization: the reference volatile-zeroes the polynomial on drop
     (src/context.rs:199-206, src/polynomial.rs:367-401).  Torch tensors are
     mutable, so :meth:`zeroize` overwrites the host copy, the device copy
-    and every cached mask in place, then poisons the object.
+    and every cached mask and table in place, then poisons the object.
     """
 
     def __init__(self, limbs, *, device=None):
@@ -72,6 +74,7 @@ class SecretKey:
                 "constant) - a valid key has exact degree d >= 1"
             )
         self._mask_cache: dict[int, torch.Tensor] = {}
+        self._rows_cache: dict[int, torch.Tensor] = {}
 
     # -- constructors -------------------------------------------------------
 
@@ -106,36 +109,55 @@ class SecretKey:
         self._check_alive()
         return gf2.limbs_to_bytes(self._host)
 
-    # -- decrypt masks ------------------------------------------------------
+    # -- reduction caches ---------------------------------------------------
 
     def decrypt_mask(self, n_limbs: int) -> torch.Tensor:
         """Packed ``w`` with ``w_i = (X^i mod S)(0)`` for ciphertexts of
-        ``n_limbs`` limbs; computed on the host by the monic recurrence and
-        cached on the device per degree class."""
+        ``n_limbs`` limbs; cached on the device per degree class.
+
+        Every class goes through the native host engine
+        (:func:`homomorph_tpu_torch.native.decrypt_mask`, the monic
+        recurrence in C; held against :func:`~homomorph_tpu_torch.gf2.poly.
+        decrypt_mask_words` word for word).  The JAX package sends classes
+        below ``NATIVE_MASK_MIN_LIMBS`` to a device scan; the port has no
+        device scan, so it has no threshold."""
         self._check_alive()
         w = self._mask_cache.get(n_limbs)
         if w is None:
-            words = gf2.decrypt_mask_words(self._host, self._degree, n_limbs)
+            words = _native.decrypt_mask(self._host, self._degree, n_limbs)
             w = gf2.from_numpy(words, self.device)
             self._mask_cache[n_limbs] = w
         return w
+
+    def reduction_rows(self, n_limbs: int) -> torch.Tensor:
+        """Full ``X^i mod S`` table for remainders of ``n_limbs``-limb
+        ciphertexts (:func:`~homomorph_tpu_torch.gf2.poly.reduction_rows`,
+        [32*n_limbs, Ls]); cached on the device per degree class."""
+        self._check_alive()
+        rows = self._rows_cache.get(n_limbs)
+        if rows is None:
+            rows = gf2.reduction_rows(self._limbs, self._degree, gf2.bit_capacity(n_limbs))
+            self._rows_cache[n_limbs] = rows
+        return rows
 
     # -- lifecycle ----------------------------------------------------------
 
     def zeroize(self) -> None:
         """Overwrite ALL secret-derived material in place - the host copy,
-        the device copy of ``S`` and every cached decrypt mask (a linear
-        image of ``S``) - then poison the object (reference semantics at
-        src/polynomial.rs:367-401, src/context.rs:199-206)."""
+        the device copy of ``S``, every cached decrypt mask and every
+        ``X^i mod S`` table (linear images of ``S``) - then poison the
+        object (reference semantics at src/polynomial.rs:367-401,
+        src/context.rs:199-206)."""
         if self._host is not None:
             self._host.fill(0)
         self._host = None
         if self._limbs is not None:
             self._limbs.zero_()
         self._limbs = None
-        for w in self._mask_cache.values():
-            w.zero_()
-        self._mask_cache.clear()
+        for cache in (self._mask_cache, self._rows_cache):
+            for t in cache.values():
+                t.zero_()
+            cache.clear()
 
     def _check_alive(self) -> None:
         if self._host is None:

@@ -32,7 +32,8 @@ import; the results are the same either way):
 ``HOMOMORPH_TPU_TORCH_CARRY_SCAN=1`` evaluates the adder's carries by the
 blocked prefix scan (:func:`_affine_carry_scan`), and
 ``HOMOMORPH_TPU_TORCH_EAGER_SYNC=1`` synchronizes the card after any
-carry-save level whose outputs exceed 8,192 limbs (:func:`_csa_accumulate`).
+carry-save level whose outputs exceed 8,192 limbs (:func:`_csa_accumulate`);
+under a CUDA graph capture (:mod:`.compiled`) it raises instead.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from typing import Sequence
 import torch
 
 from .. import codec as _codec
+from .. import device as _device
 from ..cipher import Ciphered, CipheredBit
 from ..gf2 import kernels as gf2k
 from ..gf2 import poly as gf2
@@ -678,6 +680,11 @@ def _csa_accumulate(
                 needed.add(op.z)
         live_after.insert(0, needed)
     sync = os.environ.get(EAGER_SYNC_ENV, "0") == "1"
+    if sync and _device.capturing():
+        raise RuntimeError(
+            f"{EAGER_SYNC_ENV}=1 synchronizes the card inside the operation, which a "
+            "CUDA graph capture cannot hold: unset it to compile this operation"
+        )
 
     for li, level in enumerate(plan.levels):
         pairs: list[tuple[CipheredBit, CipheredBit, object]] = []

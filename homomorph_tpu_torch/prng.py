@@ -12,6 +12,10 @@ package's ciphertext bytes.
 ``csrc/threefry.cu`` (see the note in that file) or raises; on the CPU it
 computes :func:`random_bits_plain`, the same rounds in torch int64 ops
 masked to 32 bits (torch has no ``uint32`` shifts on the CPU).
+:func:`random_bits_device_key` is T1's second entry, which reads the key
+from a tensor when the kernel runs: a CUDA graph bakes scalar kernel
+arguments in at capture, so only this entry lets a replayed graph draw
+under a new key.
 """
 
 from __future__ import annotations
@@ -23,29 +27,32 @@ import torch
 
 from .gf2 import poly as gf2
 
-__all__ = ["random_bits", "random_bits_plain"]
+__all__ = ["random_bits", "random_bits_device_key", "random_bits_plain", "key_words"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 # flat words per chunk of the plain version (bounds its int64 intermediates)
 _PLAIN_CHUNK = 1 << 22
 
-_fn = None
+_fns: dict = {}
+_ARGS = {
+    "hm_threefry_bits": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint,
+                         ctypes.c_void_p],
+    "hm_threefry_bits_dkey": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                              ctypes.c_void_p],
+}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(symbol: str = "hm_threefry_bits"):
+    fn = _fns.get(symbol)
+    if fn is None:
         from .gf2.cuda_build import library
 
-        fn = library("threefry").hm_threefry_bits
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint,
-            ctypes.c_void_p,
-        ]
+        fn = getattr(library("threefry"), symbol)
+        fn.argtypes = _ARGS[symbol]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[symbol] = fn
+    return fn
 
 
 def _check_key(key) -> tuple[int, int]:
@@ -108,5 +115,41 @@ def random_bits(key, shape, device=None) -> torch.Tensor:
     return out
 
 
-#: launches of the CUDA kernel since the last reset (a plain integer)
+def random_bits_device_key(key: torch.Tensor, shape) -> torch.Tensor:
+    """:func:`random_bits` under the key held in ``key``, a tensor of the
+    two key words (int32 bit patterns of ``(k0, k1)``), on ``key``'s device.
+
+    A CPU tensor gets :func:`random_bits_plain` of the words it holds; a
+    CUDA tensor launches T1's device-key entry on the current stream (and
+    counts the launch on this function) or raises.  The kernel reads the
+    words when it runs, so a CUDA graph that captured the launch draws
+    under whatever the buffer holds at each replay."""
+    if key.shape != (2,) or key.dtype != gf2.LIMB_DTYPE or not key.is_contiguous():
+        raise ValueError(f"a device key is 2 contiguous int32 words, got {key.dtype} {tuple(key.shape)}")
+    if key.device.type == "cpu":
+        k0, k1 = (int(w) & _M32 for w in key.tolist())
+        return random_bits_plain((k0, k1), shape, key.device)
+    if key.device.type != "cuda":
+        raise ValueError(f"random_bits_device_key runs on cpu or cuda, not {key.device}")
+    out = torch.empty(tuple(int(s) for s in shape), dtype=gf2.LIMB_DTYPE, device=key.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(key.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel("hm_threefry_bits_dkey")(out.data_ptr(), out.numel(), key.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"threefry device-key launch failed: cudaError {err}")
+    random_bits_device_key.launches += 1
+    return out
+
+
+def key_words(key) -> torch.Tensor:
+    """A threefry key ``(k0, k1)`` as the 2-word int32 CPU tensor that
+    :func:`random_bits_device_key` reads (copy it into a device buffer)."""
+    k0, k1 = _check_key(key)
+    return torch.tensor([k0, k1], dtype=torch.int64).to(gf2.LIMB_DTYPE)
+
+
+#: launches of each CUDA kernel entry since the last reset (plain integers)
 random_bits.launches = 0
+random_bits_device_key.launches = 0

@@ -222,3 +222,116 @@ def test_wrappers_raise_on_unsupported_input():
         enc.encrypt_words_mma(selw, skew, plain, 2)
     with pytest.raises(ValueError):
         enc.encrypt_sel_mma(gf2.unpack_bits(selw, 33, dtype=torch.int8), planes.cpu(), plain, 2)
+
+
+@pytest.mark.parametrize("key", [(0, 0), (0, 1234), (0xDEADBEEF, 0x12345678)])
+def test_threefry_device_key_matches_plain(key):
+    on_card((1,), 0)
+    buf = prng.key_words(key).cuda()
+    before = prng.random_bits_device_key.launches
+    got = prng.random_bits_device_key(buf, (4099, 4))
+    torch.cuda.synchronize()
+    assert prng.random_bits_device_key.launches == before + 1
+    assert torch.equal(got, prng.random_bits_plain(key, (4099, 4), "cuda"))
+    assert torch.equal(got, prng.random_bits(key, (4099, 4), "cuda"))
+
+
+def test_threefry_device_key_under_a_replayed_graph():
+    """A captured draw reads the key buffer at each replay: after the
+    buffer is rewritten, the replay gives the new key's words."""
+    on_card((1,), 0)
+    buf = prng.key_words((0, 1)).cuda()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        prng.random_bits_device_key(buf, (1000, 4))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = prng.random_bits_device_key(buf, (1000, 4))
+    for key in ((0, 1), (7, 9), (0xFFFFFFFF, 0x80000000)):
+        buf.copy_(prng.key_words(key))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, prng.random_bits_plain(key, (1000, 4), "cuda")), key
+
+
+def card_context(params, seed):
+    import homomorph_tpu_torch as ht
+
+    on_card((1,), 0)
+    ctx = ht.Context(params, encrypt_seed=seed, device="cuda")
+    ctx.generate_secret_key()
+    ctx.generate_public_key()
+    return ctx
+
+
+@pytest.mark.parametrize("op_name,params", [
+    ("HomomorphicAddition", (64, 16, 1, 16)),
+    ("HomomorphicLessThan", (128, 16, 1, 16)),
+    ("HomomorphicMultiplication", (160, 16, 1, 16)),
+])
+def test_compiled_op2_replays_equal_eager(op_name, params):
+    """Each replay of the captured graph gives eager's limbs and metadata,
+    for new inputs of the same shape too; one graph for the shape."""
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch import models
+    from homomorph_tpu_torch.models.compiled import compile_op2
+
+    op = getattr(models, op_name)
+    ctx = card_context(ht.Parameters(*params), 5)
+    fn = compile_op2(op, ht.U8, ctx.parameters.pk_degree)
+    rng = np.random.default_rng(6)
+    for _ in range(3):
+        xs, ys = rng.integers(0, 256, size=64).tolist(), rng.integers(0, 256, size=64).tolist()
+        a, b = ctx.encrypt(xs, ht.U8, batch=True), ctx.encrypt(ys, ht.U8, batch=True)
+        got, want = fn(a, b), op.unsafe_apply(a, b)
+        assert torch.equal(got.limbs, want.limbs)
+        assert (got.bound, got.noise, got.zero_lanes, got.desc) == (
+            want.bound, want.noise, want.zero_lanes, want.desc)
+        assert list(ctx.decrypt(got)) == list(ctx.decrypt(want))
+    assert fn.graphed.graphs == 1
+
+
+def test_compiled_roundtrip_on_card():
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch import rng as hrng
+    from homomorph_tpu_torch.models import HomomorphicAddition
+    from homomorph_tpu_torch.models.compiled import compile_roundtrip
+
+    ctx = card_context(ht.Parameters(64, 16, 1, 16), 7)
+    fn = compile_roundtrip(ctx, HomomorphicAddition, ht.U8)
+    rng = np.random.default_rng(8)
+    for seed in (1, 2):
+        xs = rng.integers(0, 256, size=256).astype(np.uint8)
+        ys = rng.integers(0, 256, size=256).astype(np.uint8)
+        bits = [np.unpackbits(v[:, None], axis=1, bitorder="little") for v in (xs, ys)]
+        out = fn(hrng.threefry_key(seed), *bits).cpu().numpy().astype(np.uint8)
+        got = np.packbits(out, axis=1, bitorder="little").reshape(-1)
+        assert (got == (xs + ys).astype(np.uint8)).all()
+
+
+def test_eager_sync_refuses_capture(monkeypatch):
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch.models import HomomorphicMultiplication, circuits
+    from homomorph_tpu_torch.models.compiled import compile_op2
+
+    ctx = card_context(ht.Parameters(160, 16, 1, 16), 9)
+    a, b = ctx.encrypt([3, 5], ht.U8, batch=True), ctx.encrypt([7, 11], ht.U8, batch=True)
+    fn = compile_op2(HomomorphicMultiplication, ht.U8, ctx.parameters.pk_degree)
+    monkeypatch.setenv(circuits.EAGER_SYNC_ENV, "1")
+    with pytest.raises(RuntimeError, match=circuits.EAGER_SYNC_ENV):
+        fn(a, b)
+
+
+def test_run_verification_on_card():
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch.gf2 import kernels as k
+
+    on_card((1,), 0)
+    before = (k.clmul_flat.launches, enc.encrypt_words_table.launches, prng.random_bits.launches)
+    lines = []
+    ht.run_verification(quick=True, log=lines.append)
+    after = (k.clmul_flat.launches, enc.encrypt_words_table.launches, prng.random_bits.launches)
+    assert all(x > y for x, y in zip(after, before))
+    assert any("route chunk+split" in line for line in lines), lines

@@ -40,7 +40,9 @@ def imported_roots(path):
 def test_port_files_exist():
     assert os.path.exists(os.path.join(ROOT, "chip_smoke.py"))
     assert len(port_files()) > 15
-    for rel in ("prng.py", "experiments/exp_enc.py", "csrc/encrypt_mma.cu", "csrc/threefry.cu"):
+    for rel in ("prng.py", "experiments/exp_enc.py", "csrc/encrypt_mma.cu", "csrc/threefry.cu",
+                "native/__init__.py", "native/gf2_native.cpp", "verify.py",
+                "models/compiled.py", "utils/profiling.py", "utils/cache.py"):
         assert os.path.exists(os.path.join(PKG, rel)), rel
 
 
@@ -54,7 +56,10 @@ def test_import_does_not_load_jax():
     code = (
         "import sys, homomorph_tpu_torch, homomorph_tpu_torch.models, "
         "homomorph_tpu_torch.gf2.kernels, homomorph_tpu_torch.gf2.encrypt_kernel, "
-        "homomorph_tpu_torch.prng, homomorph_tpu_torch.experiments.exp_enc; "
+        "homomorph_tpu_torch.prng, homomorph_tpu_torch.experiments.exp_enc, "
+        "homomorph_tpu_torch.native, homomorph_tpu_torch.verify, "
+        "homomorph_tpu_torch.models.compiled, homomorph_tpu_torch.utils.profiling, "
+        "homomorph_tpu_torch.utils.cache; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'homomorph_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

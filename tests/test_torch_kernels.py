@@ -76,18 +76,22 @@ class TestClmul:
 
     @pytest.mark.parametrize("La,Lb", [(5, 5), (9, 9), (9, 256), (256, 9), (9, 48)])
     def test_smoke_bound_counts_the_kernels_work(self, La, Lb):
-        """chip_smoke.py's bit-serial count (kept beside the comb's bound)
-        counts the (limb, output limb) pairs that a bit-serial loop visits,
-        32 steps of 2 ops each."""
+        """The bit-serial count that chip_smoke.py keeps beside the comb's
+        bound (``homomorph_tpu_torch.utils.profiling.clmul_ops``, which
+        chip_smoke.py imports) counts the (limb, output limb) pairs that a
+        bit-serial loop visits, 32 steps of 2 ops each."""
+        from homomorph_tpu_torch.utils import profiling
+
         path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "chip_smoke.py")
         spec = importlib.util.spec_from_file_location("chip_smoke", path)
         smoke = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(smoke)
+        assert smoke.clmul_ops is profiling.clmul_ops
         Ls, Lg = min(La, Lb), max(La, Lb)
         pairs = sum(
             min(Ls - 1, m) - max(0, m - Lg) + 1 for m in range(Ls + Lg)
         )  # the kernel's i0..i1 range for each output limb m
-        assert smoke.clmul_ops(3, La, Lb) == 3 * pairs * 32 * 2
+        assert profiling.clmul_ops(3, La, Lb) == 3 * pairs * 32 * 2
 
     def test_cpu_tensor_takes_the_plain_version(self, rng):
         before = tk.clmul_flat.launches

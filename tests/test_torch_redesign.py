@@ -117,12 +117,15 @@ class TestSmokeBounds:
         """At the card's per-SM rates (32 shared-memory words, 64 INT32
         operations a clock) the comb's loads take ~15/32 of the time of the
         bit-serial count's 64 operations per pair, and bind its own ops."""
+        from homomorph_tpu_torch.utils import profiling  # chip_smoke.py's bounds live here
+
         smoke = _smoke()
+        assert smoke.clmul_comb_work is profiling.clmul_comb_work
         smem_bytes, ops = smoke.clmul_comb_work(2, La, Lb)
         old = smoke.clmul_ops(2, La, Lb)
-        t_loads = smem_bytes / smoke.SMEM_BYTES_PER_SM_PER_CLOCK
-        assert t_loads / (old / smoke.INT32_OPS_PER_SM_PER_CLOCK) == pytest.approx(15 / 32)
-        assert ops / smoke.INT32_OPS_PER_SM_PER_CLOCK < t_loads
+        t_loads = smem_bytes / profiling.SMEM_BYTES_PER_SM_PER_CLOCK
+        assert t_loads / (old / profiling.INT32_OPS_PER_SM_PER_CLOCK) == pytest.approx(15 / 32)
+        assert ops / profiling.INT32_OPS_PER_SM_PER_CLOCK < t_loads
 
     def test_encrypt_lookups(self):
         smoke = _smoke()
