@@ -10,13 +10,17 @@ Phases, in order; any failure exits non-zero before the result line:
    per source, all at once);
 3. each kernel against its plain torch version on the card, at the shapes
    the paths give it (0 mismatches required), timed by its device time
-   from ``torch.profiler`` (see :func:`device_records`): K1 clmul, the
+   from ``torch.profiler`` (see :func:`timed`; by CUDA events, marked
+   ``ms_by``, only when the profiler traced no device time): K1 clmul, the
    encrypt kernels K2, K3 and X1 at tau 128, 256 and 33, and T1 threefry,
    whose first words must also equal ``jax.random.bits``' (:data:`JAX_BITS`),
    and T1's device-key entry, for three keys eager and in a captured CUDA
    graph replayed after each rewrite of its key buffer;
    K2 also at tau 1 and 300, at L above the key's limbs and at keys whose
-   tables the launcher tiles (checked only);
+   tables the launcher tiles (checked only); beside each K3 and X1 row, its
+   share of the bound and of the tensor-core count, and the device time of
+   ``torch._int_mm`` on the bare count product (a yardstick the port never
+   calls);
 4. replay of the interop fixtures (``tests/fixtures/interop_v1.json``):
    keygen and recorded-stream encryption on the card must give the
    fixture's bytes;
@@ -62,8 +66,11 @@ Phases, in order; any failure exits non-zero before the result line:
    add (2,048 pairs) and the u32 product (8 pairs) against eager limb for
    limb and decrypted, and the u32 add's encrypt -> add -> decrypt round
    trip under a new key each call: first call, replays, eager and one
-   replay's device time; their launches are those counted at warm-up and
-   capture (a replay must count none);
+   replay's device time; the u32 add through the carry scan
+   (``HOMOMORPH_TPU_TORCH_CARRY_SCAN=1``) against eager, and the round trip
+   through K3 (``HOMOMORPH_TPU_TORCH_ENC_IMPL=pallas_v1``), each replay
+   against the same function run eagerly on its keys; their launches are
+   those counted at warm-up and capture (a replay must count none);
 8. one JSON line of kernels (launches counted over the paths: phases 5-6,
    5b, 6b, 5c, 9 and 11, each counted from 0; each bound the larger of the
    bytes and the necessary work of the best design in the repo, see
@@ -95,7 +102,6 @@ from homomorph_tpu_torch.utils.profiling import (  # noqa: E402
     clmul_bytes,
     clmul_comb_work,
     clmul_ops,
-    device_ms,
     device_records,
     encrypt_lookup_bytes,
 )
@@ -162,14 +168,47 @@ def random_words(ctx, shape):
                          generator=ctx["gen"])
 
 
+def profiled(fn, iters=1):
+    """Device ms by record name over ``iters`` calls of ``fn`` from
+    ``torch.profiler`` (:func:`device_records`), or None when its traces
+    held no device time: the caller reports the value as not measured
+    (null), never as a span of event or wall time."""
+    try:
+        return device_records(fn, iters)
+    except RuntimeError as err:
+        log(f"[profiler] not measured: {err}")
+        return None
+
+
+def profiled_ms(fn, iters):
+    """Device ms per call of ``fn`` (:func:`profiled`), or None."""
+    rec = profiled(fn, iters)
+    return None if rec is None else sum(rec.values()) / iters
+
+
+def ms_text(ms, digits=5):
+    return "not measured" if ms is None else f"{ms:.{digits}f}"
+
+
 def timed(torch, kernel_fn, plain_fn, plain_events=False):
-    """Device times of the kernel and its plain version.  With
-    ``plain_events`` the plain version is timed by CUDA events over one
-    call instead: at the wide path's row counts it runs ~10^5 small torch
-    kernels a call, more than a profiler trace should hold."""
-    plain_ms = call_ms(torch, plain_fn, 1) if plain_events else device_ms(plain_fn, 3)
-    return dict(ms=device_ms(kernel_fn, 20), call_ms=call_ms(torch, kernel_fn),
-                plain_ms=plain_ms, plain_by="events" if plain_events else "profiler")
+    """Device times of the kernel and its plain version, each with what
+    took it (``ms_by``, ``plain_by``: "profiler" or "events").  The kernel:
+    two profiler traces of 20 calls, the larger kept (a trace that lost some
+    device records reads low: one read K3 at 0.04 of 0.26 ms).  Only if
+    neither traced any device time, CUDA events over back-to-back calls,
+    which include the host's issue gaps.  With ``plain_events`` the plain
+    version is timed by CUDA events over one call: at the wide path's row
+    counts it runs ~10^5 small torch kernels a call, more than a profiler
+    trace should hold; so too when its trace held no device time."""
+    plain_ms = None if plain_events else profiled_ms(plain_fn, 3)
+    plain_by = "events" if plain_ms is None else "profiler"
+    if plain_ms is None:
+        plain_ms = call_ms(torch, plain_fn, 1)
+    traces = [ms for ms in (profiled_ms(kernel_fn, 20) for _ in range(2)) if ms is not None]
+    calls = call_ms(torch, kernel_fn)
+    return dict(ms=max(traces) if traces else calls,
+                ms_by="profiler" if traces else "events",
+                call_ms=calls, plain_ms=plain_ms, plain_by=plain_by)
 
 
 def stage(torch, fn):
@@ -266,8 +305,8 @@ def clmul_rows(ctx, shapes, plain_events=False):
             bytes=clmul_bytes(B, La, Lb),
         ))
         log(f"[kernels] clmul {label:9s} B={B} {La}x{Lb}: mismatches {bad}, "
-            f"kernel {rows[-1]['ms']} ms (call {rows[-1]['call_ms']} ms), "
-            f"plain {rows[-1]['plain_ms']} ms")
+            f"kernel {rows[-1]['ms']} ms by {rows[-1]['ms_by']} (call {rows[-1]['call_ms']} ms), "
+            f"plain {rows[-1]['plain_ms']} ms by {rows[-1]['plain_by']}")
     return set_bounds(ctx, rows)
 
 
@@ -313,6 +352,7 @@ def phase_kernels(ctx):
                  lambda: enc.encrypt_sel_plain(sel, planes, plain, L),
                  want_sel, B * tau + D * 32 * W),
             )
+            int_mm_ms = count_product_ms(ctx, selw, planes)
             for name, fn, plain_fn, ref, in_bytes in variants:
                 got = fn()
                 torch.cuda.synchronize()
@@ -323,12 +363,23 @@ def phase_kernels(ctx):
                     mismatches=bad, max_abs_err=err, **timed(torch, fn, plain_fn),
                     work=lookups, old_ops=2 * B * tau * D, old_rate="int8_tc_ops",
                     bytes=in_bytes + out_bytes,
+                    **({} if name == "encrypt" else dict(int_mm_ms=int_mm_ms)),
                 ))
                 log(f"[kernels] {name} tau={tau} B={B}: mismatches {bad}, "
-                    f"kernel {enc_rows[-1]['ms']} ms (call {enc_rows[-1]['call_ms']} ms), "
-                    f"plain {enc_rows[-1]['plain_ms']} ms")
+                    f"kernel {enc_rows[-1]['ms']} ms by {enc_rows[-1]['ms_by']} "
+                    f"(call {enc_rows[-1]['call_ms']} ms), "
+                    f"plain {enc_rows[-1]['plain_ms']} ms by {enc_rows[-1]['plain_by']}")
                 del got
+            log(f"[kernels] torch._int_mm of the count product [B, Kp] x [Kp, D] alone, tau={tau} "
+                f"B={B}: {ms_text(int_mm_ms)} ms (a yardstick: not the function, not used by the "
+                f"port)")
             del want, want_sel, selw, sel, plain
+            # the two encrypt designs on one card: which is faster at this shape
+            (k2, k2_by), (k3, k3_by) = ((r["ms"], r["ms_by"]) for r in enc_rows[-3:-1])
+            ctx.setdefault("k2_vs_k3", {})[f"tau={tau} B={B}"] = dict(
+                k2_ms=k2, k3_ms=k3, by=[k2_by, k3_by], faster="K2" if k2 < k3 else "K3")
+            log(f"[kernels] tau={tau} B={B}: {'K2' if k2 < k3 else 'K3'} is faster, K2 {k2} ms "
+                f"by {k2_by}, K3 {k3} ms by {k3_by} ({max(k2, k3) / min(k2, k3):.2f}x)")
     rows += set_bounds(ctx, enc_rows)
     k2_edges(ctx)
 
@@ -353,10 +404,28 @@ def phase_kernels(ctx):
         work=t1_work, old_ops=n * THREEFRY_ALU_OPS_PER_WORD, old_rate="int32_ops", bytes=n * 4,
     )])
     log(f"[kernels] threefry {shape}: mismatches {bad}, seeds {sorted(JAX_BITS)} equal "
-        f"jax.random.bits; kernel {rows[-1]['ms']} ms (call {rows[-1]['call_ms']} ms), "
-        f"plain {rows[-1]['plain_ms']} ms")
+        f"jax.random.bits; kernel {rows[-1]['ms']} ms by {rows[-1]['ms_by']} (call "
+        f"{rows[-1]['call_ms']} ms), plain {rows[-1]['plain_ms']} ms by {rows[-1]['plain_by']}")
     rows += set_bounds(ctx, [threefry_device_key(ctx, shape, t1_work)])
     return rows
+
+
+def count_product_ms(ctx, selw, planes):
+    """Device time of ``torch._int_mm`` on K3's and X1's count product, the
+    selection unpacked to [B, Kp] int8 times the planes [Kp, D]: a library
+    time for the product alone (no parity, pack or plaintext bit), which
+    the port never calls; None if the profiler traced nothing."""
+    torch = ctx["torch"]
+    from homomorph_tpu_torch.gf2 import poly as gf2
+
+    a = gf2.unpack_bits(selw, planes.shape[1], dtype=torch.int8)
+    b = planes.T  # [Kp, D], column-major
+    torch._int_mm(a, b)
+    torch.cuda.synchronize()
+    ms = profiled_ms(lambda: torch._int_mm(a, b), 5)
+    del a
+    torch.cuda.empty_cache()
+    return ms
 
 
 def threefry_device_key(ctx, shape, work):
@@ -398,8 +467,8 @@ def threefry_device_key(ctx, shape, work):
                        lambda: prng.random_bits_plain(key, shape, dev)),
                work=work, old_ops=work[0][0], old_rate="int32_ops", bytes=shape[0] * shape[1] * 4)
     log(f"[kernels] threefry device key {shape}: 3 keys equal random_bits_plain eager and in "
-        f"graph replays after each key rewrite; kernel {row['ms']} ms (call {row['call_ms']} ms), "
-        f"plain {row['plain_ms']} ms")
+        f"graph replays after each key rewrite; kernel {row['ms']} ms by {row['ms_by']} (call "
+        f"{row['call_ms']} ms), plain {row['plain_ms']} ms by {row['plain_by']}")
     return row
 
 
@@ -679,25 +748,29 @@ def route_case(ctx, Ls, Lg):
     check(bad == 0, f"route {Ls}x{Lg} at B={B}: {bad} limbs differ from the direct launch")
     del got, want
     iters = 5
-    rec_d, rec_r = device_records(direct, iters), device_records(routed, iters)
-    k1 = sum(v for name, v in rec_r.items() if "clmul" in name) / iters
+    rec_d, rec_r = profiled(direct, iters), profiled(routed, iters)
+    k1 = None if rec_r is None else sum(v for name, v in rec_r.items() if "clmul" in name) / iters
     row = dict(Ls=Ls, Lg=Lg, B=B, pairs=B * Ls * (Lg + 1),
                steps=[s[0] for s in k.route_plan(Ls, Lg, Ls)],
-               direct_ms=sum(rec_d.values()) / iters, routed_ms=sum(rec_r.values()) / iters,
+               direct_ms=None if rec_d is None else sum(rec_d.values()) / iters,
+               routed_ms=None if rec_r is None else sum(rec_r.values()) / iters,
                routed_k1_ms=k1, direct_call_ms=call_ms(torch, direct, 10),
                routed_call_ms=call_ms(torch, routed, 10))
-    row["routed_glue_ms"] = row["routed_ms"] - k1
-    log(f"[route] {Ls}x{Lg} B={B} {'+'.join(row['steps'])}: direct {row['direct_ms']:.5f} ms, "
-        f"routed {row['routed_ms']:.5f} ms (K1 {k1:.5f} + glue {row['routed_glue_ms']:.5f}); "
-        f"per call {row['direct_call_ms']:.5f} / {row['routed_call_ms']:.5f} ms; equal")
+    row["routed_glue_ms"] = None if rec_r is None else row["routed_ms"] - k1
+    log(f"[route] {Ls}x{Lg} B={B} {'+'.join(row['steps'])}: direct {ms_text(row['direct_ms'])} "
+        f"ms, routed {ms_text(row['routed_ms'])} ms (K1 {ms_text(k1)} + glue "
+        f"{ms_text(row['routed_glue_ms'])}); per call {row['direct_call_ms']:.5f} / "
+        f"{row['routed_call_ms']:.5f} ms; equal")
     return row
 
 
 def crossover(rows):
     """The smallest Ls from which the routed product wins at every larger
-    width of the sweep (None if it never does)."""
+    width of the sweep (None if it never does), over the rows whose device
+    times were measured."""
     best = None
-    for r in sorted(rows, key=lambda r: -r["Ls"]):
+    measured = [r for r in rows if r["direct_ms"] is not None and r["routed_ms"] is not None]
+    for r in sorted(measured, key=lambda r: -r["Ls"]):
         if r["routed_ms"] >= r["direct_ms"]:
             break
         best = r["Ls"]
@@ -804,11 +877,12 @@ def threshold_scan(ctx, c, ea, eb, prod):
         check(torch.equal(got.limbs, prod.limbs), f"u16 at threshold {kmin}: limbs differ")
         del got
         _, wall = stage(torch, run)
-        rec = device_records(run)
-        k1 = sum(v for name, v in rec.items() if "clmul" in name)
-        out.append(dict(kmin=kmin, wall_ms=wall, device_ms=sum(rec.values()), k1_ms=k1))
+        rec = profiled(run)
+        k1 = None if rec is None else sum(v for name, v in rec.items() if "clmul" in name)
+        out.append(dict(kmin=kmin, wall_ms=wall, device_ms=None if rec is None else sum(rec.values()),
+                        k1_ms=k1))
         log(f"[wide] u16 at threshold {kmin}: wall {wall:.3f} ms, device "
-            f"{out[-1]['device_ms']:.3f} ms (K1 {k1:.3f} ms); same limbs")
+            f"{ms_text(out[-1]['device_ms'], 3)} ms (K1 {ms_text(k1, 3)} ms); same limbs")
     return out
 
 
@@ -953,12 +1027,12 @@ def mul_shape_rows(ctx):
     for shape in sorted(set(lt_shapes), key=lambda s: -clmul_ops(*s)):
         B, La, Lb = shape
         a, b = random_words(ctx, (B, La)), random_words(ctx, (B, Lb))
-        ms = device_ms(lambda: k.clmul_flat(a, b), 5)
+        ms = profiled_ms(lambda: k.clmul_flat(a, b), 5)
         lt_times.append(dict(shape=list(shape), launches=lt_shapes.count(shape), ms=ms))
         del a, b
     ctx["lt_launch_times"] = lt_times
     log(f"[kernels] lt's {len(lt_shapes)} clmul launches by shape (B, La, Lb), count, kernel "
-        "ms: " + "; ".join(f"{tuple(t['shape'])} x{t['launches']} {t['ms']:.5f}"
+        "ms: " + "; ".join(f"{tuple(t['shape'])} x{t['launches']} {ms_text(t['ms'])}"
                            for t in lt_times))
     rows = clmul_rows(ctx, (("mul-pp", *shapes[0]),
                             ("mul-group", *max(groups, key=lambda s: clmul_ops(*s))),
@@ -987,11 +1061,12 @@ def widest_product(ctx):
     torch.cuda.synchronize()
     bad, _ = compare(torch, got, want)
     check(bad == 0, f"u32 widest product {B}x{La}x{Lb}: {bad} limbs differ, route against K1")
-    out = dict(shape=[B, La, Lb], direct_ms=device_ms(lambda: k.clmul_flat(a, b), 2),
-               routed_ms=device_ms(lambda: k.clmul_rows(a, b), 2),
+    out = dict(shape=[B, La, Lb], direct_ms=profiled_ms(lambda: k.clmul_flat(a, b), 2),
+               routed_ms=profiled_ms(lambda: k.clmul_rows(a, b), 2),
                leaf=list(leaf_shape(B, La, Lb, k.karatsuba_min())))
     log(f"[kernels] u32 widest product B={B} {La}x{Lb}: one direct K1 launch "
-        f"{out['direct_ms']:.5f} ms, routed (launch {out['leaf']}) {out['routed_ms']:.5f} ms; equal")
+        f"{ms_text(out['direct_ms'])} ms, routed (launch {out['leaf']}) "
+        f"{ms_text(out['routed_ms'])} ms; equal")
     return out
 
 
@@ -1001,8 +1076,9 @@ def phase_profile(ctx, main_stats, bulk_stats, mul_stats, wide_stats):
     u32 comparison and the u16 and u32 multiplications.  Each stage runs once more
     unprofiled for its warm wall time (phases 5-6, 5b and 5c ran it cold),
     then under
-    ``torch.profiler`` (:func:`device_records`); the busy share is the
-    profiled device time over the warm wall time."""
+    ``torch.profiler`` (:func:`profiled`); the busy share is the profiled
+    device time over the warm wall time, null with the device time when the
+    profiler traced nothing."""
     import homomorph_tpu_torch as ht
     from homomorph_tpu_torch.models import (
         HomomorphicAddition, HomomorphicLessThan, HomomorphicMultiplication,
@@ -1033,14 +1109,15 @@ def phase_profile(ctx, main_stats, bulk_stats, mul_stats, wide_stats):
         fn()
         torch.cuda.synchronize()
         warm_ms = (time.perf_counter() - t0) * 1e3
-        per_kernel = device_records(fn)
-        dev_ms = sum(per_kernel.values())
+        per_kernel = profiled(fn) or {}
+        dev_ms = sum(per_kernel.values()) if per_kernel else None
+        busy = None if dev_ms is None else dev_ms / warm_ms
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
         out[name] = dict(cold_ms=cold_ms, warm_ms=warm_ms, device_ms=dev_ms,
-                         busy_share=dev_ms / warm_ms, top=top)
+                         busy_share=busy, top=top)
         log(f"[profile] {name}: cold {cold_ms:.3f} ms, warm {warm_ms:.3f} ms wall, device "
-            f"{dev_ms:.3f} ms (busy {dev_ms / warm_ms:.1%}); top: "
-            + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
+            f"{ms_text(dev_ms, 3)} ms (busy {'not measured' if busy is None else f'{busy:.1%}'}); "
+            "top: " + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
     return out
 
 
@@ -1127,16 +1204,15 @@ def compiled_case(ctx, name, graphed, call, eager_fn, meta_fn, replays=5):
         out, ms = stage(torch, call)
         walls.append(ms)
     check(launch_counts(ctx) == mid, f"compiled {name}: a replay counted a launch")
-    rec = device_records(call)
     stats = dict(eager_ms=sorted(eager_walls)[1], eager_walls_ms=eager_walls, meta_ms=meta_ms,
                  capture_ms=capture_ms, replay_ms=sorted(walls)[len(walls) // 2],
-                 replays_ms=walls, replay_device_ms=sum(rec.values()), graphs=graphed.graphs,
+                 replays_ms=walls, replay_device_ms=profiled_ms(call, 1), graphs=graphed.graphs,
                  captured_launches={k: mid[k] - before[k] for k in mid})
     log(f"[compiled] {name}: eager median {stats['eager_ms']:.3f} ms of "
         f"{[round(w, 3) for w in eager_walls]}, metadata on the meta device {meta_ms:.3f} ms, "
         f"first call (meta, warm-up, capture, replay) {capture_ms:.3f} ms, replay median "
         f"{stats['replay_ms']:.3f} ms of {[round(w, 3) for w in walls]}, one replay's device "
-        f"time {stats['replay_device_ms']:.3f} ms; launches at warm-up and capture "
+        f"time {ms_text(stats['replay_device_ms'], 3)} ms; launches at warm-up and capture "
         f"{stats['captured_launches']}")
     return stats, first, out, eager
 
@@ -1152,11 +1228,9 @@ def profiler_after_graphs(ctx):
     for label, (B, La, Lb) in (("u32-widest", max(ctx["u32_shapes"], key=lambda s: s[1] + s[2])),
                                ("add-chain", (2048, 9, 256))):
         a, b = random_words(ctx, (B, La)), random_words(ctx, (B, Lb))
-        try:
-            out[label] = device_ms(lambda: k.clmul_flat(a, b), 2)
-        except RuntimeError as err:
-            out[label] = str(err)
-        log(f"[profiler] after the graphs, direct K1 {label} {B}x{La}x{Lb}: {out[label]}")
+        out[label] = profiled_ms(lambda: k.clmul_flat(a, b), 2)
+        log(f"[profiler] after the graphs, direct K1 {label} {B}x{La}x{Lb}: "
+            f"{ms_text(out[label])} ms")
         del a, b
         torch.cuda.synchronize()
     return out
@@ -1172,6 +1246,7 @@ def phase_compiled(ctx):
     import homomorph_tpu_torch as ht
     from homomorph_tpu_torch import rng as hrng
     from homomorph_tpu_torch.gf2 import poly as gf2
+    from homomorph_tpu_torch.gf2 import encrypt_kernel as enc
     from homomorph_tpu_torch.models import HomomorphicAddition, HomomorphicMultiplication
     from homomorph_tpu_torch.models.compiled import _derive_meta, compile_op2, compile_roundtrip
 
@@ -1248,7 +1323,77 @@ def phase_compiled(ctx):
     log(f"[compiled] roundtrip_add_u32: replay median {stats['replay_device_bits_ms']:.3f} ms with "
         f"the bits on the card; {len(outs)} calls under {len(outs)} keys decrypt to the "
         f"{len(xs)} sums")
+
+    # the u32 add through the carry scan: capturable since the scan takes its
+    # positions as views (no host-to-device index copy)
+    from homomorph_tpu_torch.models import circuits
+
+    def scan_case():
+        fn = compile_op2(HomomorphicAddition, ht.U32, c.parameters.pk_degree)
+        stats, first, last, eager = compiled_case(
+            ctx, "add_u32_scan", fn.graphed, lambda: fn(ca, cb),
+            lambda: c.apply2(HomomorphicAddition, ca, cb),
+            lambda: _derive_meta(HomomorphicAddition.unsafe_apply, c.parameters.pk_degree, ht.U32,
+                                 ca.limbs.shape, cb.limbs.shape))
+        for got in (first, last):
+            check(torch.equal(got.limbs, eager.limbs) and (got.bound, got.noise) == (
+                eager.bound, eager.noise), "compiled add_u32_scan: limbs or metadata differ")
+        got = np.array(c.decrypt(last).tolist(), dtype=np.uint64)
+        check(np.array_equal(got, (xs + ys) % (1 << 32)), "compiled add_u32_scan: decrypts wrong")
+        stats["pairs"] = len(got)
+        return stats
+
+    out["add_u32_scan"] = with_env(circuits.CARRY_SCAN_ENV, "1", scan_case)
+    out["roundtrip_add_u32_k3"] = with_env(
+        enc.ENC_IMPL_ENV, "pallas_v1", lambda: roundtrip_k3(ctx, bits_a, bits_b, want))
     return out
+
+
+def roundtrip_k3(ctx, bits_a, bits_b, want):
+    """The u32 add's round trip captured under ``pallas_v1``: K3 encrypts
+    (counted at warm-up and capture, K2 never); each replay, under a new
+    key, equals the same function run eagerly on the same keys and
+    decrypts to the sums."""
+    import numpy as np
+
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch import prng
+    from homomorph_tpu_torch import rng as hrng
+    from homomorph_tpu_torch.gf2 import encrypt_kernel as enc
+    from homomorph_tpu_torch.models import HomomorphicAddition
+    from homomorph_tpu_torch.models.compiled import compile_roundtrip
+
+    torch = ctx["torch"]
+    c = ctx["add_inputs"][0]
+    fn = compile_roundtrip(c, HomomorphicAddition, ht.U32)
+    dev_a, dev_b = (torch.from_numpy(b.astype(np.int32)).to(ctx["dev"]) for b in (bits_a, bits_b))
+    key = hrng.threefry_key(ctx["seed"] + 1)
+    before = launch_counts(ctx)
+    walls = []
+    for i in range(6):
+        key = hrng.threefry_split(key)[0]
+        out, ms = stage(torch, lambda: fn(key, dev_a, dev_b))
+        if i:
+            walls.append(ms)
+        else:
+            captured = {k: v - before[k] for k, v in launch_counts(ctx).items()}
+        ka, kb = hrng.threefry_split(key)
+        keys = torch.stack([prng.key_words(ka), prng.key_words(kb)]).to(ctx["dev"])
+        check(torch.equal(out, fn.graphed._fn(keys, dev_a, dev_b)),
+              "compiled round trip through K3: a replay differs from eager")
+        packed = np.packbits(out.cpu().numpy().astype(np.uint8), axis=1, bitorder="little")
+        check(np.array_equal(packed.view("<u4").reshape(-1), want),
+              "compiled round trip through K3: decrypts wrong")
+    check(captured["encrypt_v1"] > 0 and captured["encrypt"] == 0,
+          f"compiled round trip under pallas_v1 captured {captured}")
+    stats = dict(replay_ms=sorted(walls)[len(walls) // 2], replays_ms=walls,
+                 replay_device_ms=profiled_ms(lambda: fn(key, dev_a, dev_b), 1),
+                 captured_launches=captured, graphs=fn.graphed.graphs, pairs=len(want))
+    log(f"[compiled] roundtrip_add_u32_k3 ({enc.ENC_IMPL_ENV}=pallas_v1): replay median "
+        f"{stats['replay_ms']:.3f} ms with the bits on the card, one replay's device time "
+        f"{ms_text(stats['replay_device_ms'], 3)} ms; 6 replays under 6 keys equal eager and decrypt "
+        f"to the sums; launches at warm-up and capture {captured}")
+    return stats
 
 
 def main(argv=None):
@@ -1284,7 +1429,7 @@ def main(argv=None):
     log(f"[build] {', '.join(cuda_build.SOURCES)} built in {time.perf_counter() - t0:.3f} s")
     for name, text in cuda_build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma", "Performance")):
                 log(f"[build] {name}: {line.strip()}")
 
     # 3-4. kernels against plain versions, fixture replay; the SM clock and
@@ -1338,9 +1483,12 @@ def main(argv=None):
     clocks["after phase 3b"] = nvidia_smi(clock_query)
     log(f"[device] {clock_query}: " + "; ".join(f"{k} {v}" for k, v in clocks.items()))
     for r in rows:
-        log(f"[bounds] {r['kernel']} {r['label']} {r['shape']}: kernel {r['ms']:.5f} ms, bound "
+        log(f"[bounds] {r['kernel']} {r['label']} {r['shape']}: kernel {r['ms']:.5f} ms by "
+            f"{r['ms_by']}, bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of it), "
-            f"old count's bound {r['old_bound_ms']:.5f} ms")
+            f"old count's bound {r['old_bound_ms']:.5f} ms ({r['old_bound_ms'] / r['ms']:.1%} "
+            f"of it)" + (f"; torch._int_mm of the count product {ms_text(r['int_mm_ms'])} ms"
+                         if "int_mm_ms" in r else ""))
     # 7. where the time of each path goes
     t0 = time.perf_counter()
     profile_stats = phase_profile(ctx, main_stats, bulk_stats, mul_stats, wide_stats)
@@ -1368,7 +1516,7 @@ def main(argv=None):
              "exp_enc": ("encrypt", "encrypt_v1", "encrypt_v3", "threefry"),
              "wide": ("clmul", "encrypt", "threefry"),
              "verify": ("clmul", "encrypt", "threefry"),
-             "compiled": ("clmul", "encrypt", "threefry_dkey")}
+             "compiled": ("clmul", "encrypt", "encrypt_v1", "threefry_dkey")}
     for path, names in needs.items():
         for name in names:
             check(paths[path][name] > 0, f"{name} was not launched on the {path} path")
@@ -1401,9 +1549,12 @@ def main(argv=None):
             launches_by_path={path: counts[name] for path, counts in paths.items()},
             max_abs_err=max(r["max_abs_err"] for r in mine),
             mismatches=sum(r["mismatches"] for r in mine),
-            shape=rep["shape"], ms=rep["ms"], plain_ms=rep["plain_ms"],
+            shape=rep["shape"], ms=rep["ms"], ms_by=rep["ms_by"], plain_ms=rep["plain_ms"],
+            plain_by=rep["plain_by"],
             bound_ms=rep["bound_ms"], bound_by=rep["bound_by"], library_ms=None,
             old_bound_ms=rep["old_bound_ms"],
+            # torch._int_mm of the bare count product: a yardstick, not the function
+            int_mm_ms=rep.get("int_mm_ms"),
         ))
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
@@ -1414,6 +1565,7 @@ def main(argv=None):
                            verify=verify_stats, masks=mask_stats, compiled=compiled_stats,
                            profiler_after_graphs=profiler_probe,
                            lt_launch_times=ctx["lt_launch_times"],
+                           k2_vs_k3=ctx["k2_vs_k3"],
                            clocks=clocks,
                            peak_gb=peak, kernels=kernels, profile=profile_stats,
                            seconds=time.perf_counter() - t_start), f, indent=1)

@@ -20,17 +20,23 @@ computes a plain torch version on a CPU tensor:
   the tests.
 * K3 :func:`encrypt_words_mma` (``csrc/encrypt_mma.cu``) unpacks the words
   to 0/1 int8 and takes the counts ``sum_k sel[k] * T_k[j]`` as an int8
-  tensor-core product against the key's bit planes ``planes`` [D, 32W]
-  (:func:`pk_planes`); bit ``j`` of ``C`` is each count's parity.
+  tensor-core product (``wgmma``) against the key's bit planes ``planes``
+  [D, 32W] (:func:`pk_planes`); bit ``j`` of ``C`` is each count's parity.
 * X1 :func:`encrypt_sel_mma` (the same source) takes the same product from
   a pre-unpacked ``sel``.
+
+K3 and X1 run the tile plan of :func:`mma_plan` (column slices of the
+planes kept in shared memory, passes over K, 64-row tiles, shared-memory
+bytes), which the wrapper passes to the kernel; :func:`encrypt_mma_walk`
+walks the same plan in torch, for the tests.
 
 The plain versions (:func:`encrypt_plain`, :func:`encrypt_sel_plain`) take
 the counts as a float matmul the way the JAX package does, so they check
 the kernels by another route.  :func:`encrypt_bits_fused` is the encrypt
 path's entry: it runs K2, or K3 when ``HOMOMORPH_TPU_TORCH_ENC_IMPL`` is
 ``pallas_v1`` (the counterpart of the JAX package's
-``HOMOMORPH_TPU_ENC_IMPL``, read at each call).
+``HOMOMORPH_TPU_ENC_IMPL``, read at each eager call; a compiled callable
+keeps the value it was captured with).
 
 The TPU-only devices of the JAX module (the bf16 pk-row permutation, the
 MXU and byte-plane packs, the segmented ``lax.map`` and the plaintext
@@ -42,7 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -60,9 +66,13 @@ __all__ = [
     "encrypt_plain",
     "encrypt_sel_plain",
     "encrypt_tables_plain",
+    "MmaPlan",
+    "mma_plan",
+    "encrypt_mma_walk",
 ]
 
-#: environment variable that selects the encrypt kernel, read at each call
+#: environment variable that selects the encrypt kernel, read at each eager
+#: call; a compiled callable keeps the value it was captured with
 ENC_IMPL_ENV = "HOMOMORPH_TPU_TORCH_ENC_IMPL"
 #: its values: K2 (the default) and K3, named as in the JAX package
 ENC_IMPLS = ("pallas", "pallas_v1")
@@ -76,7 +86,10 @@ _fns: dict = {}
 
 
 _PTRS = [ctypes.c_void_p] * 4
-_MMA_ARGS = _PTRS + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# the mma entries: pointers, B, (W or tau), D, L, the plan (MmaPlan's fields
+# as int64), and the stream
+_MMA_ARGS = (_PTRS + [ctypes.c_longlong] + [ctypes.c_int] * 3
+             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
 _TABLE_ARGS = _PTRS + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
@@ -185,6 +198,140 @@ def encrypt_tables_plain(
 
 
 # --------------------------------------------------------------------------
+# K3's and X1's tile plan
+# --------------------------------------------------------------------------
+
+#: consumer warpgroups in a block of ``csrc/encrypt_mma.cu`` (128 threads each)
+MMA_WARPGROUPS = 4
+#: rows of a warpgroup's tile (``wgmma``'s m64)
+MMA_TILE_ROWS = 64
+#: limbs (32 columns each) of the widest ``wgmma`` tile, m64n96k32
+MMA_TILE_LIMBS = 3
+#: dynamic shared memory a block may use on the H100 (227 KB)
+MMA_SMEM_CAP = 232_448
+# k-steps (32 bytes of K) of A fragments a thread holds at once
+_MMA_KSTEPS = 8
+
+
+class MmaPlan(NamedTuple):
+    """How ``csrc/encrypt_mma.cu`` cuts a [B, 32W] x [32W, D] count product.
+
+    The block of ``slice_limbs`` limbs (``32 * slice_limbs`` plane rows) by
+    ``kc`` bytes of K stays in shared memory while the block's warpgroups
+    walk their 64-row tiles; ``n_pass`` passes over K XOR their parities
+    together; every row tile of a slice goes through :meth:`col_tiles`.
+    K is padded with zeros to ``Kq``, so that every run of ``wgmma`` k-steps
+    has a length the kernel unrolls (1, 2, 4 or 8)."""
+
+    W: int  # selection words a row
+    Kp: int  # 32 * W, the planes' width
+    Kq: int  # K padded with zeros to 1, 2 or 4 k-steps or a multiple of 8
+    Lc: int  # limbs that have key columns: min(L, D // 32); limbs beyond are 0
+    kc: int  # bytes of K a pass: 32, 64, 128 or a multiple of 256
+    n_pass: int
+    slice_limbs: int  # limbs a column slice computes (the last may have fewer)
+    n_slices: int
+    stage_stride: int  # words a row of a warpgroup's output stage (odd)
+    row_tiles: int
+    groups: int  # blocks on each slice; a block's warpgroups stride over the row tiles
+    smem_bytes: int
+
+    def col_tiles(self, limbs: int) -> list[tuple[int, int]]:
+        """The slice-local limb ranges of one ``wgmma`` tile each, at most
+        :data:`MMA_TILE_LIMBS` wide, as even as they go."""
+        n = -(-limbs // MMA_TILE_LIMBS)
+        return [(i * limbs // n, (i + 1) * limbs // n) for i in range(n)]
+
+
+def _mma_smem(limbs: int, kc: int) -> tuple[int, int]:
+    stride = limbs | 1  # an odd stride spreads a warp's rows over the banks
+    return limbs * 32 * kc + MMA_WARPGROUPS * MMA_TILE_ROWS * 4 * stride, stride
+
+
+def mma_plan(B: int, tau: int, D: int, L: int, sms: int = 132,
+             smem_cap: int = MMA_SMEM_CAP) -> MmaPlan:
+    """K3's and X1's plan for ``B`` rows of ``tau`` selection bits, ``D``
+    plane rows and ``L`` output limbs on ``sms`` SMs.
+
+    All of K in one pass when one tile's limbs fit ``smem_cap`` with it,
+    else the most that fits; then the widest column slice that fits, the
+    slices evened out; one block per SM in all (at least one a slice)."""
+    W = -(-tau // 32)
+    Kp = 32 * W
+    steps = _MMA_KSTEPS * -(-W // _MMA_KSTEPS) if W > _MMA_KSTEPS else 1 << (W - 1).bit_length()
+    Kq = 32 * steps
+    Lc = min(L, D // 32)
+    first = min(Lc, MMA_TILE_LIMBS)
+    stage = _mma_smem(first, 0)[0]
+    fits = (smem_cap - stage) // (first * 32)  # bytes of K one tile's limbs may hold
+    if fits < 32:
+        raise ValueError(f"no tile plan fits {smem_cap} bytes of shared memory")
+    run = 32 * _MMA_KSTEPS  # a pass is a whole number of unrolled runs
+    if Kq <= fits:
+        kc = Kq
+    elif fits >= run:
+        kc = fits // run * run
+    else:
+        kc = 1 << (fits.bit_length() - 1)  # 32, 64 or 128
+    n_pass = -(-Kq // kc)
+    fit = first
+    while fit < Lc and _mma_smem(fit + 1, kc)[0] <= smem_cap:
+        fit += 1
+    n_slices = -(-Lc // fit)
+    slice_limbs = -(-Lc // n_slices)
+    n_slices = -(-Lc // slice_limbs)
+    smem, stride = _mma_smem(slice_limbs, kc)
+    row_tiles = -(-B // MMA_TILE_ROWS)
+    groups = max(1, min(-(-row_tiles // MMA_WARPGROUPS), sms // n_slices))
+    return MmaPlan(W, Kp, Kq, Lc, kc, n_pass, slice_limbs, n_slices, stride, row_tiles,
+                   groups, smem)
+
+
+def encrypt_mma_walk(
+    a: torch.Tensor, planes: torch.Tensor, plain: torch.Tensor, L: int,
+    plan: MmaPlan | None = None,
+) -> torch.Tensor:
+    """K3's and X1's decomposition in torch: ``a`` is ``selw`` [B, W] int32
+    words or ``sel`` [B, tau] int8, ``planes`` [D, 32W] -> [B, L].
+
+    Walks ``plan`` (by default :func:`mma_plan`'s) in the kernel's order:
+    for each pass over K, each column slice, each 64-row tile and each
+    ``wgmma`` tile of the slice, the counts of the tile, their parities
+    packed per 32 columns into the stage; the stage then goes out, zero
+    for limbs beyond ``Lc`` (the last slice writes them), the plain bit
+    XORed into limb 0 in the first pass, and every later pass XORed onto
+    what the earlier ones wrote.  Every plan gives the same bits."""
+    B = a.shape[0]
+    D, Kp = planes.shape
+    plan = plan or mma_plan(B, a.shape[1] * (32 if a.dtype == gf2.LIMB_DTYPE else 1), D, L)
+    if a.dtype == gf2.LIMB_DTYPE:
+        sel = gf2.unpack_bits(a, Kp, dtype=torch.float32)
+    else:
+        sel = a.to(torch.float32)
+    sel = torch.nn.functional.pad(sel, (0, plan.Kq - sel.shape[1]))  # zero K padding
+    pk = torch.nn.functional.pad(planes.to(torch.float32), (0, plan.Kq - Kp))
+    out = torch.zeros((B, L), dtype=gf2.LIMB_DTYPE, device=a.device)
+    for p in range(plan.n_pass):
+        k0 = p * plan.kc
+        k1 = min(plan.Kq, k0 + plan.kc)
+        for s in range(plan.n_slices):
+            m0 = s * plan.slice_limbs
+            limbs = min(plan.slice_limbs, plan.Lc - m0)
+            m_end = L if s == plan.n_slices - 1 else m0 + limbs
+            for r0 in range(0, plan.row_tiles * MMA_TILE_ROWS, MMA_TILE_ROWS):
+                rows = sel[r0 : r0 + MMA_TILE_ROWS, k0:k1]
+                stage = torch.zeros((rows.shape[0], m_end - m0), dtype=gf2.LIMB_DTYPE,
+                                    device=a.device)
+                for lo, hi in plan.col_tiles(limbs):
+                    cols = pk[32 * (m0 + lo) : 32 * (m0 + hi), k0:k1]
+                    stage[:, lo:hi] = gf2.parity_pack(rows @ cols.T, hi - lo)
+                if p == 0 and m0 == 0:
+                    stage[:, 0] ^= plain[r0 : r0 + MMA_TILE_ROWS] & 1
+                out[r0 : r0 + MMA_TILE_ROWS, m0:m_end] ^= stage
+    return out
+
+
+# --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
 
@@ -231,16 +378,19 @@ def _check(name, a, a_dtype, pk, pk_dtype, pk_width, plain, L) -> None:
                 raise ValueError(f"{name} takes a 16-byte aligned {arg} on the card")
 
 
-def _launch(library_name, symbol, a, pk, plain, L, k_arg) -> torch.Tensor:
+def _launch(symbol, a, pk, plain, L, tau, k_arg) -> torch.Tensor:
+    """Launch K3's or X1's entry on :func:`mma_plan`'s plan for ``tau``."""
     B = a.shape[0]
     out = torch.empty((B, L), dtype=gf2.LIMB_DTYPE, device=a.device)
     if B == 0:
         return out
     with torch.cuda.device(a.device):
+        sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+        plan = mma_plan(B, tau, pk.shape[0], L, sms)
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel(library_name, symbol)(
+        err = _kernel("encrypt_mma", symbol)(
             a.data_ptr(), pk.data_ptr(), plain.data_ptr(), out.data_ptr(),
-            B, k_arg, pk.shape[0], L, stream,
+            B, k_arg, pk.shape[0], L, (ctypes.c_longlong * len(plan))(*plan), stream,
         )
     if err:
         raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
@@ -297,7 +447,8 @@ def encrypt_words_mma(
            gf2.bit_capacity(selw.shape[1]), plain, L)
     if selw.device.type == "cpu":
         return encrypt_plain(selw, planes, plain, L)
-    out = _launch("encrypt_mma", "hm_encrypt_mma_words", selw, planes, plain, L, selw.shape[1])
+    W = selw.shape[1]
+    out = _launch("hm_encrypt_mma_words", selw, planes, plain, L, gf2.bit_capacity(W), W)
     encrypt_words_mma.launches += 1
     return out
 
@@ -315,7 +466,8 @@ def encrypt_sel_mma(
            gf2.bit_capacity(-(-sel.shape[1] // gf2.LIMB_BITS)), plain, L)
     if sel.device.type == "cpu":
         return encrypt_sel_plain(sel, planes, plain, L)
-    out = _launch("encrypt_mma", "hm_encrypt_mma_sel", sel, planes, plain, L, sel.shape[1])
+    tau = sel.shape[1]
+    out = _launch("hm_encrypt_mma_sel", sel, planes, plain, L, tau, tau)
     encrypt_sel_mma.launches += 1
     return out
 

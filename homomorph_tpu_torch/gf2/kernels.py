@@ -41,7 +41,8 @@ plain version runs unrouted, as the JAX package gates Karatsuba to TPU
 backends, unless ``HOMOMORPH_TPU_TORCH_FORCE_KARATSUBA=1``; then the same
 decomposition runs over :func:`clmul_plain`, which is how the CPU tests
 cover its indexing.  ``HOMOMORPH_TPU_TORCH_KARATSUBA_MIN`` overrides the
-threshold.  Both are read at each call.
+threshold.  Both are read at each eager call; a compiled callable keeps the
+value it was captured with.
 
 **Not ported as routes: the strips and the blocked scan**
 (``kernels.py:244-254, 257-353``).  The strips exist because the Pallas

@@ -27,8 +27,9 @@ Degree classes: a fresh ciphered bit has bound ``B0 = d + dp``; AND adds
 bounds; the carry bound grows by ``B0`` per position, so lane ``i`` of a sum
 has bound ``<= (i+1)*B0``.
 
-Knobs, read at each call (the JAX package snapshots its carry-scan knob at
-import; the results are the same either way):
+Knobs, read at each eager call; a compiled callable keeps the value it was
+captured with (:mod:`.compiled`; the JAX package snapshots its carry-scan
+knob at import; the results are the same either way):
 ``HOMOMORPH_TPU_TORCH_CARRY_SCAN=1`` evaluates the adder's carries by the
 blocked prefix scan (:func:`_affine_carry_scan`), and
 ``HOMOMORPH_TPU_TORCH_EAGER_SYNC=1`` synchronizes the card after any
@@ -224,7 +225,8 @@ _SCAN_BLOCK = 8  # carry-scan block size (sequential stages ~ 2*log2(K) + n/K)
 
 def _use_carry_scan() -> bool:
     """The opt-in knob for the prefix-scan carries (see :func:`add`):
-    ``HOMOMORPH_TPU_TORCH_CARRY_SCAN=1``, read at each call."""
+    ``HOMOMORPH_TPU_TORCH_CARRY_SCAN=1``, read at each eager call; a
+    compiled callable keeps the value it was captured with."""
     return os.environ.get(CARRY_SCAN_ENV, "0") == "1"
 
 
@@ -263,45 +265,50 @@ def _affine_carry_scan(
     """
     P = g.shape[-2]
     K = _SCAN_BLOCK
-    dev = g.device
-    Gp, gb, gn = g, g_bound, g_noise
-    Mp, mb, mn = m, m_bound, m_noise
+    n_blocks = -(-P // K)
+    gb, gn = g_bound, g_noise
+    mb, mn = m_bound, m_noise
+
+    def blocks(t: torch.Tensor) -> torch.Tensor:
+        # [..., P, L] -> [..., n_blocks, K, L], zero positions beyond P: every
+        # position set below is a view, so no index tensor is copied to the
+        # card and a CUDA graph can capture the scan
+        t = torch.nn.functional.pad(t, (0, 0, 0, n_blocks * K - P))
+        return t.reshape(t.shape[:-2] + (n_blocks, K, t.shape[-1]))
+
+    Gp, Mp = blocks(g), blocks(m)
 
     # -- phase 1: segmented Hillis-Steele scan over each K-block -----------
+    # round r updates offsets r..K-1 of every block from offsets 0..K-1-r;
+    # the padded positions compute values nothing reads
     r = 1
     while r < min(K, P):
-        ps = [p for p in range(P) if (p % K) >= r]
-        if not ps:
-            break
-        idx = torch.tensor(ps, device=dev)
-        prev = idx - r
-        G_at, M_at = Gp.index_select(-2, idx), Mp.index_select(-2, idx)
-        G_pv, M_pv = Gp.index_select(-2, prev), Mp.index_select(-2, prev)
+        G_at, M_at = Gp[..., r:, :], Mp[..., r:, :]
+        G_pv, M_pv = Gp[..., : K - r, :], Mp[..., : K - r, :]
         new_gb, new_mb = gb + mb, 2 * mb
         new_gn, new_mn = gn + mn, 2 * mn
         Gn = gf2.xor(G_at, gf2k.clmul(M_at, G_pv))
         Mn = gf2k.clmul(M_at, M_pv)
         Lg = gf2.bucket(gf2.limbs_for(new_gb))
         Lm = gf2.bucket(gf2.limbs_for(new_mb))
-        # scatter back at the static positions; the others keep their values
+        # write back at offsets r..K-1; the others keep their values
         Gp = gf2.pad_limbs(Gp, Lg).clone()
-        Gp[..., idx, :] = gf2.fit_limbs(Gn, Lg)
+        Gp[..., r:, :] = gf2.fit_limbs(Gn, Lg)
         Mp = gf2.pad_limbs(Mp, Lm).clone()
-        Mp[..., idx, :] = gf2.fit_limbs(Mn, Lm)
+        Mp[..., r:, :] = gf2.fit_limbs(Mn, Lm)
         gb, mb = new_gb, new_mb
         gn, mn = new_gn, new_mn
         r *= 2
 
     # -- phase 2: sequential chain over block summaries ---------------------
-    n_blocks = -(-P // K)
     # when K divides P, carry c_P is itself a block-entry carry (t == 0
     # below) and needs one more chain step
     n_chain = n_blocks - 1 + (1 if P % K == 0 else 0)
     Cs: list[CipheredBit] = [carry0]  # carry entering each block
     for blk in range(n_chain):
-        e = (blk + 1) * K - 1  # last position of block blk
-        Gb = CipheredBit(Gp[..., e, :], gb, noise=gn)
-        Mb = CipheredBit(Mp[..., e, :], mb, noise=mn)
+        # the last position of block blk
+        Gb = CipheredBit(Gp[..., blk, K - 1, :], gb, noise=gn)
+        Mb = CipheredBit(Mp[..., blk, K - 1, :], mb, noise=mn)
         Cs.append(Gb.xor(Mb.and_(Cs[-1])))
 
     # -- phase 3: batched fill of interior carries --------------------------
@@ -314,12 +321,8 @@ def _affine_carry_scan(
     cb = max(c.bound for c in entry)
     cn = max(c.noise for c in entry)
 
-    pos = [min(blk * K + t, P - 1) for blk in range(n_blocks) for t in range(K - 1)]
-    pos = torch.tensor(pos, device=dev)  # the clamped tail's duplicates are unused
-    Gsel, Msel = Gp.index_select(-2, pos), Mp.index_select(-2, pos)
-    lead = Gsel.shape[:-2]
-    Gsel = Gsel.reshape(lead + (n_blocks, K - 1, Gsel.shape[-1]))
-    Msel = Msel.reshape(lead + (n_blocks, K - 1, Msel.shape[-1]))
+    # offsets 0..K-2 of every block (those beyond P are unused)
+    Gsel, Msel = Gp[..., : K - 1, :], Mp[..., : K - 1, :]
     prod = gf2k.clmul(Msel, C_stack[..., :, None, :])  # [..., nb, K-1, *]
     fill = gf2.xor(Gsel, prod)
     fill_bound = max(gb, mb + cb)

@@ -22,7 +22,7 @@ comes from running the operation on tensors of PyTorch's ``meta`` device,
 the counterpart of ``jax.eval_shape``: shapes only, no device work (the
 clmul wrapper returns an empty product there and counts no launch).
 
-Two things a graph cannot hold, and what happens to them:
+Three things a graph cannot hold, and what happens to them:
 
 * scalar kernel arguments are baked in at capture, so T1's key would be
   the capture key at every replay: :func:`compile_roundtrip` draws its
@@ -30,7 +30,13 @@ Two things a graph cannot hold, and what happens to them:
   (:func:`~homomorph_tpu_torch.prng.random_bits_device_key`) and writes the
   call's split keys into the buffer it reads before each replay;
 * ``HOMOMORPH_TPU_TORCH_EAGER_SYNC=1`` synchronizes the card inside the
-  multipliers: under capture they raise and name the variable.
+  multipliers: under capture they raise and name the variable;
+* the routing knobs (``HOMOMORPH_TPU_TORCH_KARATSUBA_MIN``,
+  ``HOMOMORPH_TPU_TORCH_FORCE_KARATSUBA``, ``HOMOMORPH_TPU_TORCH_ENC_IMPL``
+  and ``HOMOMORPH_TPU_TORCH_CARRY_SCAN``) are read when a graph is
+  captured, and a replay keeps the route and kernel it was captured with,
+  as the JAX package's knobs are snapshots taken when a function is traced.
+  Set them before the first call of a shape.
 
 The launch counters are plain integers on the wrappers, so they count a
 captured kernel at capture (and at the warm-up), never at a replay.

@@ -204,3 +204,43 @@ def test_eager_sync_raises_under_capture(monkeypatch):
     monkeypatch.setattr(device, "capturing", lambda: True)
     with pytest.raises(RuntimeError, match=circuits.EAGER_SYNC_ENV):
         circuits.mul_unsigned(a, b)
+
+
+class TestCarryScanCompiled:
+    """The opt-in carry scan inside a compiled add: on the CPU the callable
+    runs eagerly and equals the JAX package's jitted scan, and the scan
+    makes no tensor from host data, which a CUDA graph capture could not
+    hold (the card test captures it for real)."""
+
+    @pytest.fixture
+    def scan_on(self, monkeypatch):
+        from homomorph_tpu.models import circuits as jcirc
+
+        monkeypatch.setattr(jcirc, "_CARRY_SCAN", True)
+        monkeypatch.setenv(circuits.CARRY_SCAN_ENV, "1")
+
+    def test_compile_op2_add_matches_jax(self, scan_on):
+        jctx, tctx = make_ctxs(11, (256, 16, 1, 16))
+        xs, ys = [1, 0xFFFFFFFF, 123456789], [0xFFFFFFFF, 1, 987654321]
+        ja, ta = encrypt_both(jctx, tctx, xs, hm.U32, ht.U32)
+        jb, tb = encrypt_both(jctx, tctx, ys, hm.U32, ht.U32)
+        got = compile_op2(tmodels.HomomorphicAddition, ht.U32, tctx.parameters.pk_degree)(ta, tb)
+        jfn = jcompiled.compile_op2(hm.models.HomomorphicAddition, hm.U32,
+                                    jctx.parameters.pk_degree)
+        assert same_limbs(got, jfn(ja, jb))
+        assert [int(v) for v in tctx.decrypt(got)] == [(x + y) % (1 << 32) for x, y in zip(xs, ys)]
+
+    @pytest.mark.parametrize("desc", ["U16", "U32"])
+    def test_scan_makes_no_tensor_from_host_data(self, scan_on, monkeypatch, desc):
+        _, tctx = make_ctxs(12, (256, 16, 1, 16))
+        d = getattr(ht, desc)
+        a, b = tctx.encrypt([3, 9], d, batch=True), tctx.encrypt([5, 7], d, batch=True)
+        want = circuits.add(a, b)
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("the carry scan made a tensor from host data")
+
+        monkeypatch.setattr(torch, "tensor", refuse)
+        monkeypatch.setattr(torch, "as_tensor", refuse)
+        got = circuits.add(a, b)
+        assert torch.equal(got.limbs, want.limbs)

@@ -12,6 +12,7 @@ card and no jax it runs as
 Parity is bit-exact (integer GF(2) values, tolerance 0).
 """
 
+import ctypes
 import importlib.util
 import os
 
@@ -174,6 +175,81 @@ def test_encrypt_mma_kernels_match_plain(tau, Lpk, L):
     assert torch.equal(x1, want)
 
 
+MMA_TAUS = [1, 31, 32, 33, 64, 127, 128, 255, 256, 257, 512]
+MMA_BATCHES = [1, 63, 64, 65, 127, 129, 130]
+
+
+@pytest.mark.parametrize("case", ["below", "equal", "above"])
+@pytest.mark.parametrize("tau", MMA_TAUS)
+def test_wgmma_kernels_match_plain_and_the_walk(tau, case):
+    """K3 and X1 on the plan grid: ragged last row tiles, L below, at and
+    above the key's limbs, the slice tails of D = 288 (three tiles of three
+    limbs) and D = 2080 (three slices of 22, 22 and 21 limbs), random
+    selection bits beyond tau; against the plain versions and the walk."""
+    for Lpk in (9, 65):
+        L = {"below": Lpk - 4, "equal": Lpk, "above": Lpk + 3}[case]
+        planes = enc.pk_planes(enc.pk_columns(on_card((tau, Lpk), 40 + tau)))
+        for B in MMA_BATCHES:
+            selw = on_card((B, -(-tau // 32)), B)
+            plain = on_card((B,), B + 1) & 1
+            sel = gf2.unpack_bits(selw, tau, dtype=torch.int8)
+            want = enc.encrypt_plain(selw, planes, plain, L)
+            k3 = enc.encrypt_words_mma(selw, planes, plain, L)
+            x1 = enc.encrypt_sel_mma(sel, planes, plain, L)
+            torch.cuda.synchronize()
+            assert torch.equal(k3, want), (Lpk, B)
+            assert torch.equal(x1, want), (Lpk, B)
+            assert torch.equal(enc.encrypt_mma_walk(selw, planes, plain, L), want)
+
+
+@pytest.mark.parametrize("tau,Lpk,L", [(512, 9, 9), (256, 65, 70), (2000, 3, 3), (7000, 1, 2)])
+def test_wgmma_kernels_on_tight_plans(tau, Lpk, L):
+    """Plans with several passes over K and several column slices, passed
+    to the kernel entry directly (the wrapper always takes the default
+    plan), against the plain version: the later passes XOR onto the
+    earlier ones."""
+    B = 1000
+    planes = enc.pk_planes(enc.pk_columns(on_card((tau, Lpk), 50)))
+    selw, plain = on_card((B, -(-tau // 32)), 51), on_card((B,), 52) & 1
+    want = enc.encrypt_plain(selw, planes, plain, L)
+    sel = gf2.unpack_bits(selw, tau, dtype=torch.int8)
+    for cap in (enc._mma_smem(enc.MMA_TILE_LIMBS, 64)[0], 40_000, enc.MMA_SMEM_CAP):
+        plan = enc.mma_plan(B, tau, planes.shape[0], L, smem_cap=cap)
+        for symbol, a, k_arg in (("hm_encrypt_mma_words", selw, selw.shape[1]),
+                                 ("hm_encrypt_mma_sel", sel, tau)):
+            out = torch.empty((B, L), dtype=torch.int32, device="cuda")
+            err = enc._kernel("encrypt_mma", symbol)(
+                a.data_ptr(), planes.data_ptr(), plain.data_ptr(), out.data_ptr(), B, k_arg,
+                planes.shape[0], L, plan_arg(plan), torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            assert err == 0
+            assert torch.equal(out, want), (cap, symbol, plan)
+
+
+def plan_arg(plan):
+    """``mma_plan``'s fields as the kernel entries take them: int64, in order."""
+    return (ctypes.c_longlong * len(plan))(*plan)
+
+
+def test_wgmma_entry_refuses_a_plan_it_was_not_given():
+    """The kernel takes the plan as it comes and refuses one whose fields
+    disagree with the operands or with each other."""
+    planes = enc.pk_planes(enc.pk_columns(on_card((128, 9), 53)))
+    selw, plain = on_card((100, 4), 54), on_card((100,), 55) & 1
+    out = torch.empty((100, 9), dtype=torch.int32, device="cuda")
+    plan = enc.mma_plan(100, 128, 288, 9)
+    fn = enc._kernel("encrypt_mma", "hm_encrypt_mma_words")
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (selw.data_ptr(), planes.data_ptr(), plain.data_ptr(), out.data_ptr(), 100, 4, 288, 9)
+    for bad in (dict(smem_bytes=plan.smem_bytes + 16), dict(W=3), dict(Kq=96),
+                dict(kc=0), dict(n_slices=plan.n_slices + 1), dict(stage_stride=plan.slice_limbs - 1),
+                dict(row_tiles=plan.row_tiles + 1), dict(Lc=8)):
+        assert fn(*args, plan_arg(plan._replace(**bad)), stream) != 0, bad
+    assert fn(*args, plan_arg(plan), stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, enc.encrypt_plain(selw, planes, plain, 9))
+
+
 def test_selector_launches_k3_on_the_card(monkeypatch):
     pk = on_card((128, 9), 12)
     selw, plain = on_card((256, 4), 13), on_card((256,), 14) & 1
@@ -309,6 +385,73 @@ def test_compiled_roundtrip_on_card():
         out = fn(hrng.threefry_key(seed), *bits).cpu().numpy().astype(np.uint8)
         got = np.packbits(out, axis=1, bitorder="little").reshape(-1)
         assert (got == (xs + ys).astype(np.uint8)).all()
+
+
+def test_compiled_roundtrip_through_k3_replays_equal_eager(monkeypatch):
+    """Under ``HOMOMORPH_TPU_TORCH_ENC_IMPL=pallas_v1`` the captured round
+    trip encrypts through K3 (launched at warm-up and capture, K2 never):
+    each replay equals the same function run eagerly on the same keys, and
+    decrypts to the sums; a captured encrypt alone equals eager limb for
+    limb."""
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch import rng as hrng
+    from homomorph_tpu_torch.models import HomomorphicAddition
+    from homomorph_tpu_torch.models.compiled import _Graphed, compile_roundtrip
+
+    ctx = card_context(ht.Parameters(64, 16, 1, 16), 13)
+    monkeypatch.setenv(enc.ENC_IMPL_ENV, "pallas_v1")
+    fn = compile_roundtrip(ctx, HomomorphicAddition, ht.U8)
+    rng = np.random.default_rng(14)
+    before = (enc.encrypt_words_table.launches, enc.encrypt_words_mma.launches)
+    for seed in (3, 4, 5):
+        xs = rng.integers(0, 256, size=300).astype(np.uint8)
+        ys = rng.integers(0, 256, size=300).astype(np.uint8)
+        bits = [np.unpackbits(v[:, None], axis=1, bitorder="little") for v in (xs, ys)]
+        out = fn(hrng.threefry_key(seed), *bits)
+        ka, kb = hrng.threefry_split(hrng.threefry_key(seed))
+        keys = torch.stack([prng.key_words(ka), prng.key_words(kb)]).cuda()
+        dev_bits = [torch.from_numpy(b.astype(np.int32)).cuda() for b in bits]
+        assert torch.equal(out, fn.graphed._fn(keys, *dev_bits))
+        got = np.packbits(out.cpu().numpy().astype(np.uint8), axis=1, bitorder="little")
+        assert (got.reshape(-1) == (xs + ys).astype(np.uint8)).all()
+    assert enc.encrypt_words_table.launches == before[0]
+    assert enc.encrypt_words_mma.launches > before[1]
+    assert fn.graphed.graphs == 1
+
+    pk = ctx.get_public_key()
+    plain = on_card((4099,), 15) & 1
+
+    def encrypt(key, bits):
+        selw = prng.random_bits_device_key(key, (bits.shape[0], 1))
+        return enc.encrypt_bits_fused(selw, pk.limbs, bits, 5, planes=pk.planes)
+
+    graphed = _Graphed(encrypt, "encrypt")
+    for key in ((0, 1), (7, 8)):
+        buf = prng.key_words(key).cuda()
+        assert torch.equal(graphed(buf, plain), encrypt(buf, plain))
+    assert graphed.graphs == 1
+
+
+def test_compiled_add_through_the_carry_scan(monkeypatch):
+    """``compile_op2`` of a u32 add under ``HOMOMORPH_TPU_TORCH_CARRY_SCAN=1``
+    captures (the scan's positions are views, no host-to-device copy): each
+    replay equals the scan run eagerly, limb for limb, and decrypts right."""
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch.models import HomomorphicAddition, circuits
+    from homomorph_tpu_torch.models.compiled import compile_op2
+
+    ctx = card_context(ht.Parameters(256, 16, 1, 16), 16)
+    monkeypatch.setenv(circuits.CARRY_SCAN_ENV, "1")
+    fn = compile_op2(HomomorphicAddition, ht.U32, ctx.parameters.pk_degree)
+    rng = np.random.default_rng(17)
+    for _ in range(3):
+        xs, ys = (rng.integers(0, 2**32, size=256, dtype=np.uint64).tolist() for _ in range(2))
+        a, b = ctx.encrypt(xs, ht.U32, batch=True), ctx.encrypt(ys, ht.U32, batch=True)
+        got, want = fn(a, b), HomomorphicAddition.unsafe_apply(a, b)
+        assert torch.equal(got.limbs, want.limbs)
+        assert (got.bound, got.noise) == (want.bound, want.noise)
+        assert [int(v) for v in ctx.decrypt(got)] == [(x + y) % (1 << 32) for x, y in zip(xs, ys)]
+    assert fn.graphed.graphs == 1
 
 
 def test_eager_sync_refuses_capture(monkeypatch):

@@ -9,6 +9,9 @@ kernels against the plain versions on the card.  Tolerance 0 (integer
 GF(2) values).
 """
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -141,6 +144,110 @@ class TestWrappers:
         empty = torch.zeros((0, 2), dtype=torch.int32)
         out = tenc.encrypt_words_mma(empty, planes, torch.zeros(0, dtype=torch.int32), 3)
         assert out.shape == (0, 3)
+
+
+TAUS = [1, 31, 32, 33, 64, 127, 128, 255, 256, 257, 512]
+BATCHES = [1, 63, 64, 65, 127, 129, 130]
+# L below, at and above the key's D / 32 limbs
+L_CASES = {"below": lambda lk: lk - 4, "equal": lambda lk: lk, "above": lambda lk: lk + 3}
+# a cap that forces passes over K and several column slices at small shapes
+TIGHT_CAP = tenc._mma_smem(tenc.MMA_TILE_LIMBS, 64)[0]
+
+
+class TestMmaPlan:
+    """K3's and X1's tile plan (``mma_plan``), which the wrappers pass to
+    ``csrc/encrypt_mma.cu``: what the kernel's indexing relies on."""
+
+    @pytest.mark.parametrize("case", list(L_CASES))
+    @pytest.mark.parametrize("tau", TAUS)
+    def test_plans_are_valid(self, tau, case):
+        for Lpk in (9, 65):
+            L = L_CASES[case](Lpk)
+            for B in BATCHES:
+                for cap in (tenc.MMA_SMEM_CAP, TIGHT_CAP):
+                    self.check(tenc.mma_plan(B, tau, 32 * Lpk, L, smem_cap=cap), B, tau, Lpk, L, cap)
+
+    @staticmethod
+    def check(p, B, tau, Lpk, L, cap):
+        assert (p.W, p.Kp, p.Lc) == (-(-tau // 32), 32 * -(-tau // 32), min(L, Lpk))
+        # K padded to a run of k-steps the kernel unrolls: 1, 2, 4 or 8s
+        steps = p.Kq // 32
+        assert p.Kq % 32 == 0 and (steps in (1, 2, 4) or steps % 8 == 0)
+        assert p.Kp <= p.Kq < max(2 * p.Kp, p.Kp + 256)
+        # passes over K: every pass, the last too, a run the kernel unrolls
+        assert p.kc in (32, 64, 128) or p.kc % 256 == 0
+        assert (p.n_pass - 1) * p.kc < p.Kq <= p.n_pass * p.kc
+        last = p.Kq - (p.n_pass - 1) * p.kc
+        assert last in (32, 64, 128) or last % 256 == 0
+        # slices cover the limbs that have key columns, none empty
+        assert (p.n_slices - 1) * p.slice_limbs < p.Lc <= p.n_slices * p.slice_limbs
+        for s in range(p.n_slices):
+            limbs = min(p.slice_limbs, p.Lc - s * p.slice_limbs)
+            tiles = p.col_tiles(limbs)
+            assert tiles[0][0] == 0 and tiles[-1][1] == limbs
+            assert all(a[1] == b[0] for a, b in zip(tiles, tiles[1:]))
+            assert all(1 <= hi - lo <= tenc.MMA_TILE_LIMBS for lo, hi in tiles)
+        # shared memory: the slice's planes and the warpgroups' odd-strided stages fit
+        assert p.stage_stride % 2 == 1 and p.slice_limbs <= p.stage_stride <= p.slice_limbs + 1
+        assert p.smem_bytes == (p.slice_limbs * 32 * p.kc
+                                + tenc.MMA_WARPGROUPS * tenc.MMA_TILE_ROWS * 4 * p.stage_stride)
+        assert p.smem_bytes <= cap
+        # the wgmma descriptor's 14-bit fields (16-byte units) hold the offsets
+        assert p.smem_bytes < 1 << 18 and 4 * p.slice_limbs * 128 // 16 < 1 << 14
+        # row tiles cover the batch; at most one block an SM unless slices need more
+        assert (p.row_tiles - 1) * tenc.MMA_TILE_ROWS < B <= p.row_tiles * tenc.MMA_TILE_ROWS
+        assert 1 <= p.groups <= -(-p.row_tiles // tenc.MMA_WARPGROUPS)
+        assert p.groups * p.n_slices <= max(132, p.n_slices)
+
+    def test_main_path_shapes(self):
+        """The plans the card runs at 2^21 bits: one slice at tau = 128,
+        three of 22 limbs at tau = 256, one pass each."""
+        p = tenc.mma_plan(1 << 21, 128, 288, 9)
+        assert (p.n_slices, p.slice_limbs, p.n_pass, p.groups) == (1, 9, 1, 132)
+        assert p.col_tiles(9) == [(0, 3), (3, 6), (6, 9)]
+        p = tenc.mma_plan(1 << 21, 256, 2080, 65)
+        assert (p.n_slices, p.slice_limbs, p.n_pass, p.groups) == (3, 22, 1, 44)
+        assert p.smem_bytes == 203_776
+        p = tenc.mma_plan(5, 65535, 64, 3)  # the widest tau: passes over K
+        assert p.n_pass == 19 and p.smem_bytes <= tenc.MMA_SMEM_CAP
+
+    def test_no_plan_below_one_k_step(self):
+        with pytest.raises(ValueError, match="shared memory"):
+            tenc.mma_plan(64, 128, 288, 9, smem_cap=4000)
+
+    def test_kernel_takes_the_plans_fields_in_order(self):
+        """The kernel entries read the plan as int64 fields in ``MmaPlan``'s
+        order (the ``Plan`` struct of ``csrc/encrypt_mma.cu``), and derive
+        none of them."""
+        src = open(os.path.join(os.path.dirname(tenc.__file__), "..", "csrc",
+                                "encrypt_mma.cu")).read()
+        body = re.search(r"struct Plan \{\s*long long ([^;]*);", src).group(1)
+        assert [f.strip() for f in body.split(",")] == list(tenc.MmaPlan._fields)
+        assert "kq_of" not in src and "slice_limbs | 1" not in src
+
+
+class TestMmaWalkMatchesJax:
+    """The torch walk of the plan (slices, passes, row and column tiles in
+    the kernel's order) against ``_encrypt_core``, bit for bit, for K3's
+    words and X1's int8 rows, on the default plan and a tight one."""
+
+    @pytest.mark.parametrize("case", list(L_CASES))
+    @pytest.mark.parametrize("tau", TAUS)
+    def test_walk(self, rng, tau, case):
+        Lpk = 9
+        L = L_CASES[case](Lpk)
+        B = BATCHES[(TAUS.index(tau) + list(L_CASES).index(case)) % len(BATCHES)]
+        pk, selw, plain = inputs(rng, tau, B, Lpk)
+        want, jsel = jax_reference(pk, selw, plain, tau, L)
+        planes = tenc.pk_planes(tenc.pk_columns(T(pk)))
+        sel = torch.from_numpy(jsel.astype(np.int8))
+        tight = tenc.mma_plan(B, tau, 32 * Lpk, L, smem_cap=TIGHT_CAP)
+        for a in (T(selw), sel):
+            for plan in (None, tight):
+                got = tenc.encrypt_mma_walk(a, planes, T(plain), L, plan)
+                assert np.array_equal(tpoly.to_numpy(got), want), (a.dtype, plan)
+        # the tight cap cuts the slice and K (a 32-byte K keeps five limbs whole)
+        assert (tight.n_slices > 1 or tight.Kp == 32) and (tight.n_pass > 1 or tau <= 64)
 
 
 def test_experiment_rows_agree_on_the_cpu():
