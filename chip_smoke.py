@@ -62,6 +62,22 @@ Phases, in order; any failure exits non-zero before the result line:
    included), a path of its own;
 10. the native decrypt masks at the 9-, 65-, 8,192- and 98,304-limb classes
    against the Python-int recurrence, word for word, both timed (host);
+10b. the mesh path (:func:`phase_mesh`), grids of places on the one card
+   (one card cannot give NCCL two ranks, so every exchange stays in the
+   process): ``sharded_encrypt_bits`` at ``(128, 128, 64, 128)``, 2^21
+   bits, under the meshes (4, 1), (2, 2) and (1, 4), and at ``(1024, 1024,
+   64, 256)``, 2^20 bits, under (1, 2), each bit-identical to K2's dense
+   output and decrypted through ``sharded_decrypt_bits``, with K2's dense
+   output held against its plain version and X1 held against its own at
+   each grid's partial shapes (:func:`mesh_partials`); a
+   ``Context(sharding=make_mesh(2, 2))`` u32 add of 2,048 pairs whose
+   ciphertext bytes equal an unsharded context's under the same seed; the
+   checked u32 product at ``(2432, 128, 1, 128)`` under a limb mesh of four
+   places, equal to the dense product limb for limb, with the exchange
+   primitive's bytes equal to ``comm_bytes_per_call``'s sum over the
+   products the hook took (its own counters); K1's launches
+   on the earlier paths must be :data:`K1_EARLIER_PATHS` (the hook is
+   inert without a mesh);
 11. the compiled pipelines as CUDA graphs (:func:`phase_compiled`): the u32
    add (2,048 pairs) and the u32 product (8 pairs) against eager limb for
    limb and decrypted, and the u32 add's encrypt -> add -> decrypt round
@@ -72,7 +88,7 @@ Phases, in order; any failure exits non-zero before the result line:
    against the same function run eagerly on its keys; their launches are
    those counted at warm-up and capture (a replay must count none);
 8. one JSON line of kernels (launches counted over the paths: phases 5-6,
-   5b, 6b, 5c, 9 and 11, each counted from 0; each bound the larger of the
+   5b, 6b, 5c, 9, 10b and 11, each counted from 0; each bound the larger of the
    bytes and the necessary work of the best design in the repo, see
    :func:`set_bounds` and ``homomorph_tpu_torch/utils/profiling.py``, with
    the older operation count's bound beside it);
@@ -1177,6 +1193,207 @@ def phase_masks(ctx):
     return out
 
 
+#: K1's launches on the paths before the mesh phase, as counted before the
+#: limb-mesh hook existed in the clmul dispatcher (PERF.md section 6)
+K1_EARLIER_PATHS = {"add": 36, "mul_cmp": 47, "exp_enc": 1, "wide": 429, "verify": 39,
+                    "compiled": 378}
+
+# Phase 10b: the meshes of the bulk encrypt (four places on the one card)
+MESH_BULK = (((128, 128, 64, 128), 1 << 21, ((4, 1), (2, 2), (1, 4))),
+             ((1024, 1024, 64, 256), 1 << 20, ((1, 2),)))
+
+
+def mesh_partials(ctx, sel, pk_limbs, shape, L):
+    """X1 at one grid's partial shapes against its plain version, bit for
+    bit: the first data block's rows of the first and the last tau shard,
+    each on the planes of its shard's key rows and a zero plaintext, as
+    ``sharded_encrypt_bits`` launches them.  Held one by one, so that a
+    fault that is the same in every shard cannot cancel in the XOR of the
+    partials.  The launches made here are taken back off X1's count.
+    Returns the mismatches over both shards."""
+    from homomorph_tpu_torch.gf2 import encrypt_kernel as enc
+    from homomorph_tpu_torch.gf2 import poly as gf2
+
+    torch = ctx["torch"]
+    (n_data, n_tau), (B, n, tau) = shape, sel.shape
+    blk, ts = B // n_data, tau // n_tau
+    launches = enc.encrypt_sel_mma.launches
+    zero = torch.zeros(blk * n, dtype=gf2.LIMB_DTYPE, device=sel.device)
+    total = 0
+    for j in sorted({0, n_tau - 1}):
+        rows = sel[:blk, :, j * ts:(j + 1) * ts].reshape(blk * n, ts).contiguous()
+        planes = enc.pk_planes(enc.pk_columns(pk_limbs[j * ts:(j + 1) * ts].contiguous()))
+        bad, _ = compare(torch, enc.encrypt_sel_mma(rows, planes, zero, L),
+                         enc.encrypt_sel_plain(rows, planes, zero, L))
+        check(bad == 0, f"mesh {shape}: X1's partial of tau shard {j} ({blk * n} rows, {ts} key "
+                        f"rows): {bad} limbs differ from its plain version")
+        total += bad
+        del rows, planes
+    enc.encrypt_sel_mma.launches = launches
+    return total
+
+
+def mesh_bulk(ctx, params, n_bits, shapes, seed):
+    """``sharded_encrypt_bits`` on each grid of places against K2's dense
+    output on the same selections, bit for bit, and decrypted through
+    ``sharded_decrypt_bits``; K2's dense output against its plain version
+    and X1 at each grid's partial shapes against its own
+    (:func:`mesh_partials`); device time (X1's share), X1 launches and the
+    exchange primitive's bytes per grid."""
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch.gf2 import encrypt_kernel as enc
+    from homomorph_tpu_torch.gf2 import poly as gf2
+    from homomorph_tpu_torch.parallel import bulk, make_mesh, ppermute
+
+    torch, dev = ctx["torch"], ctx["dev"]
+    c = seeded_context(ht, params, seed, dev)
+    pk, sk = c.get_public_key(), c.get_secret_key()
+    tau, L, n = params.tau, gf2.limbs_for(pk.max_degree), 32
+    selw = random_words(ctx, (n_bits, -(-tau // 32)))
+    sel = gf2.unpack_bits(selw, tau, dtype=torch.int8).view(n_bits // n, n, tau)
+    plain = torch.randint(0, 2, (n_bits // n, n), dtype=torch.int32, device=dev,
+                          generator=ctx["gen"])
+    dense = enc.encrypt_words_table(selw, pk.limbs, plain.view(-1), L)
+    bad, _ = compare(torch, dense, enc.encrypt_plain(selw, enc.pk_planes(enc.pk_columns(pk.limbs)),
+                                                     plain.view(-1), L))
+    check(bad == 0, f"mesh {params}: K2's dense output has {bad} limbs that differ from its plain "
+                    "version")
+    dense_ms = profiled_ms(lambda: enc.encrypt_words_table(selw, pk.limbs, plain.view(-1), L), 3)
+    w = sk.decrypt_mask(L)
+    rows = []
+    for shape in shapes:
+        cfg = make_mesh(*shape, [dev] * (shape[0] * shape[1]))
+        partial_bad = mesh_partials(ctx, sel, pk.limbs, shape, L)
+
+        def run():
+            return bulk.sharded_encrypt_bits(cfg, sel, pk.limbs, plain, L)
+
+        x1 = enc.encrypt_sel_mma.launches
+        ppermute.local_bytes = ppermute.cross_bytes = 0
+        out, wall = stage(torch, run)
+        x1 = enc.encrypt_sel_mma.launches - x1
+        moved = (ppermute.local_bytes, ppermute.cross_bytes)
+        bad, _ = compare(torch, out.view(-1, L), dense)
+        check(bad == 0, f"mesh {shape} {params}: {bad} limbs differ from K2's dense output")
+        back = bulk.sharded_decrypt_bits(cfg, out, w)
+        check(torch.equal(back, plain), f"mesh {shape} {params}: decrypts wrong")
+        del out, back
+        rec = profiled(run) or {}
+        dev_ms = sum(rec.values()) if rec else None
+        x1_ms = sum(v for k, v in rec.items() if "encrypt_wgmma" in k) if rec else None
+        top = sorted(rec.items(), key=lambda kv: -kv[1])[:5]
+        rows.append(dict(params=[params.d, params.dp, params.delta, params.tau], bits=n_bits,
+                         mesh=list(shape), tau_slice=tau // shape[1], limbs=L, x1_launches=x1,
+                         local_bytes=moved[0], cross_bytes=moved[1], mismatches=bad,
+                         partial_mismatches=partial_bad,
+                         wall_ms=wall, device_ms=dev_ms, x1_ms=x1_ms, dense_k2_ms=dense_ms,
+                         top=top))
+        log(f"[mesh] {params} {n_bits} bits, mesh {shape} (tau slice {tau // shape[1]}): "
+            f"0 mismatches against K2, decrypts right, X1's first and last tau shard's partials "
+            f"equal its plain version; {x1} X1 launches "
+            f"({ms_text(x1_ms)} ms of X1 device time, {ms_text(None if x1_ms is None else x1_ms / x1)} "
+            f"ms a launch), device {ms_text(dev_ms)} ms, wall {wall:.3f} ms; exchanged "
+            f"{moved[0]} bytes within the process, {moved[1]} across; dense K2 "
+            f"{ms_text(dense_ms)} ms; top: " + "; ".join(f"{k[:40]} {v:.4f} ms" for k, v in top))
+    del sel, selw, dense
+    return rows
+
+
+def phase_mesh(ctx):
+    """Phase 10b: the sharded pipelines on grids of places on the one card:
+    the bulk meshes (:data:`MESH_BULK`), a sharded context's checked u32 add
+    against an unsharded one under the same seed, and the checked u32
+    product under a limb mesh of four places against the dense product."""
+    import numpy as np
+
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch.gf2 import encrypt_kernel as enc
+    from homomorph_tpu_torch.gf2 import kernels as k
+    from homomorph_tpu_torch.models import HomomorphicAddition, HomomorphicMultiplication
+    from homomorph_tpu_torch.parallel import Mesh, limbmul, make_mesh, ppermute
+
+    torch, dev, seed = ctx["torch"], ctx["dev"], ctx["seed"]
+    out = dict(bulk=[])
+    for params, n_bits, shapes in MESH_BULK:
+        out["bulk"] += mesh_bulk(ctx, ht.Parameters(*params), n_bits, shapes, seed + 30)
+        torch.cuda.synchronize()
+
+    # (c) Context(sharding=make_mesh(2, 2)): u32 add, bytes against one place
+    c, _, _ = ctx["add_inputs"]
+    xs, ys = ctx["add_values"]
+    sh = ht.Context(c.parameters, encrypt_seed=seed + 40, sharding=make_mesh(2, 2, [dev] * 4),
+                    device=dev)
+    one = ht.Context(c.parameters, encrypt_seed=seed + 40, device=dev)
+    for cc in (sh, one):
+        cc.set_secret_key(c.get_secret_key())
+        cc.set_public_key(c.get_public_key())
+    def pair(cc):
+        return cc.encrypt(xs.tolist(), ht.U32, batch=True), cc.encrypt(ys.tolist(), ht.U32,
+                                                                         batch=True)
+
+    x1 = enc.encrypt_sel_mma.launches
+    (sa, sb), enc_cold = stage(torch, lambda: pair(sh))
+    x1 = enc.encrypt_sel_mma.launches - x1
+    (oa, ob), one_cold = stage(torch, lambda: pair(one))
+    check(torch.equal(sa.limbs, oa.limbs) and torch.equal(sb.limbs, ob.limbs)
+          and sa.to_bytes() == oa.to_bytes(),
+          "sharded context: ciphertext bytes differ from the unsharded context's")
+    # warm, in turns (the contexts' key chains move on: these are new pairs)
+    walls = {"sharded": [], "one": []}
+    for name in ("one", "sharded", "sharded", "one", "one", "sharded"):
+        walls[name].append(stage(torch, lambda: pair(sh if name == "sharded" else one))[1])
+    enc_ms, one_ms = sorted(walls["sharded"])[1], sorted(walls["one"])[1]
+    s, add_ms = stage(torch, lambda: sh.apply2(HomomorphicAddition, sa, sb))
+    got = np.array(sh.decrypt(s).tolist(), dtype=np.uint64)
+    check(s.sharding == sa.sharding and np.array_equal(got, (xs + ys) % (1 << 32)),
+          "sharded context: u32 add decrypts wrong or lost its sharding")
+    out["context_add"] = dict(pairs=len(xs), x1_launches=x1, encrypt_cold_ms=enc_cold,
+                              dense_encrypt_cold_ms=one_cold, encrypt_ms=enc_ms,
+                              dense_encrypt_ms=one_ms, walls=walls, add_ms=add_ms)
+    log(f"[mesh] Context(sharding=make_mesh(2, 2)) at {c.parameters}, {len(xs)} u32 pairs: "
+        f"ciphertext bytes equal the unsharded context's, sums right; encrypting both operands "
+        f"{enc_cold:.3f} ms cold ({x1} X1 launches), warm median {enc_ms:.3f} ms; unsharded "
+        f"{one_cold:.3f} cold, {one_ms:.3f} ms warm; checked add {add_ms:.3f} ms")
+    del sa, sb, oa, ob, s
+
+    # (d) the checked u32 product under a limb mesh of four places
+    xc, w32a, w32b = ctx["u32_inputs"]
+    dense, dense_ms = stage(torch, lambda: xc.apply2(HomomorphicMultiplication, w32a, w32b))
+    hook = limbmul.maybe_sharded_clmul
+    lmesh = Mesh([dev] * 4, (limbmul.LIMB_AXIS,))
+    k1 = k.clmul_flat.launches
+    ppermute.local_bytes = ppermute.cross_bytes = hook.taken = hook.planned_bytes = 0
+    with limbmul.use_limb_mesh(lmesh):
+        prod, mesh_ms = stage(torch, lambda: xc.apply2(HomomorphicMultiplication, w32a, w32b))
+    k1 = k.clmul_flat.launches - k1
+    moved = ppermute.local_bytes, ppermute.cross_bytes
+    taken, expect = hook.taken, hook.planned_bytes
+    check(taken > 0, "no product of the u32 multiplication took the limb mesh")
+    check(torch.equal(prod.limbs, dense.limbs) and (prod.bound, prod.noise) == (
+        dense.bound, dense.noise), "limb mesh: the u32 product differs from the dense product")
+    check(moved == (expect, 0),
+          f"limb mesh: the primitive moved {moved} bytes, comm_bytes_per_call says {expect}")
+    xa = np.array(xc.decrypt(w32a).tolist(), dtype=np.uint64)
+    xb = np.array(xc.decrypt(w32b).tolist(), dtype=np.uint64)
+    got = np.array(xc.decrypt(prod).tolist(), dtype=np.uint64)
+    check(np.array_equal(got, (xa * xb) % (1 << len(prod))),
+          "limb mesh: the u32 product decrypts wrong")
+    del prod, dense
+    with limbmul.use_limb_mesh(lmesh):
+        mesh_dev = profiled_ms(lambda: xc.apply2(HomomorphicMultiplication, w32a, w32b), 1)
+    dense_dev = profiled_ms(lambda: xc.apply2(HomomorphicMultiplication, w32a, w32b), 1)
+    out["limb_mul_u32"] = dict(pairs=len(got), products_sharded=taken, k1_launches=k1,
+                               primitive_bytes=moved[0], comm_bytes_per_call=expect,
+                               mesh_ms=mesh_ms, dense_ms=dense_ms, mesh_device_ms=mesh_dev,
+                               dense_device_ms=dense_dev)
+    log(f"[mesh] u32 product at {xc.parameters}, {len(got)} pairs, limb mesh of 4 places: "
+        f"equal to the dense product limb for limb, decrypts right; {taken} products "
+        f"took the mesh, {k1} K1 launches; the primitive moved {moved[0]} bytes, "
+        f"comm_bytes_per_call sums to {expect}; wall {mesh_ms:.3f} ms (dense {dense_ms:.3f} ms), "
+        f"device {ms_text(mesh_dev, 3)} ms (dense {ms_text(dense_dev, 3)} ms)")
+    return out
+
+
 def launch_counts(ctx):
     return {name: w.launches for name, w in ctx["wrappers"].items()}
 
@@ -1502,6 +1719,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     mask_stats = phase_masks(ctx)
     log(f"[masks] phase done in {time.perf_counter() - t0:.3f} s")
+    # 10b. the grids of places, before the graphs
+    mesh_stats, paths["mesh"] = run_path(lambda: phase_mesh(ctx))
     compiled_stats, _ = run_path(lambda: phase_compiled(ctx))
     # the compiled path's launches are those of its warm-ups and captures
     # (the counters do not move at a replay)
@@ -1516,11 +1735,17 @@ def main(argv=None):
              "exp_enc": ("encrypt", "encrypt_v1", "encrypt_v3", "threefry"),
              "wide": ("clmul", "encrypt", "threefry"),
              "verify": ("clmul", "encrypt", "threefry"),
+             "mesh": ("clmul", "encrypt", "encrypt_v3", "threefry"),
              "compiled": ("clmul", "encrypt", "encrypt_v1", "threefry_dkey")}
     for path, names in needs.items():
         for name in names:
             check(paths[path][name] > 0, f"{name} was not launched on the {path} path")
     check(paths["mul_cmp"]["encrypt"] == 0, "K2 ran while pallas_v1 selected K3")
+    # the limb-mesh hook is inert without a mesh: K1's launches on the
+    # earlier paths are those of the runs before it existed
+    for path, want in K1_EARLIER_PATHS.items():
+        check(paths[path]["clmul"] == want,
+              f"K1 launched {paths[path]['clmul']} times on the {path} path, not {want}")
 
     # 8. kernels line: each kernel at its busiest path shape
     meta = {
@@ -1562,7 +1787,8 @@ def main(argv=None):
             json.dump(dict(card=card, rows=rows, main=main_stats, bulk=bulk_stats,
                            mulcmp=mul_stats, exp_enc=exp_stats, launches=paths,
                            route_sweep=sweep, wide=wide_stats, u32_widest=widest,
-                           verify=verify_stats, masks=mask_stats, compiled=compiled_stats,
+                           verify=verify_stats, masks=mask_stats, mesh=mesh_stats,
+                           compiled=compiled_stats,
                            profiler_after_graphs=profiler_probe,
                            lt_launch_times=ctx["lt_launch_times"],
                            k2_vs_k3=ctx["k2_vs_k3"],

@@ -209,10 +209,14 @@ class Ciphered:
     ``zero_lanes``: number of IMPLICIT trailing trivial-zero lanes that are
     not stored.  ``noise``: worst-case noise degree over all lanes, in
     normalized delta=1 units (:data:`FRESH_NOISE`), consumed by the checked
-    API so that composed results keep a sound envelope.
+    API so that composed results keep a sound envelope.  ``sharding``:
+    ``None``, or for a ciphertext encrypted with ``sharding=`` the
+    :class:`~homomorph_tpu_torch.parallel.mesh.ShardedRows` record (the
+    configuration, the global batch and the first global row): ``limbs``
+    then holds the rows of this process's data blocks, in global order.
     """
 
-    __slots__ = ("limbs", "bound", "desc", "zero_lanes", "noise")
+    __slots__ = ("limbs", "bound", "desc", "zero_lanes", "noise", "sharding")
 
     def __init__(
         self,
@@ -221,6 +225,7 @@ class Ciphered:
         desc: _codec.TypeDescriptor,
         zero_lanes: int = 0,
         noise: int = FRESH_NOISE,
+        sharding=None,
     ):
         if limbs.ndim < 2:
             raise ValueError("Ciphered limbs must be at least [n_bits, L]")
@@ -231,6 +236,7 @@ class Ciphered:
         self.desc = desc
         self.zero_lanes = int(zero_lanes)
         self.noise = int(noise)
+        self.sharding = sharding
 
     # -- construction --------------------------------------------------------
 
@@ -261,13 +267,16 @@ class Ciphered:
 
         Both go through the fused encrypt kernel.  With ``batch=True``,
         ``data`` is a sequence of values encrypted as one leading batch
-        dimension.  ``sharding=`` is not ported yet.
+        dimension.  With ``sharding=`` (a :class:`~homomorph_tpu_torch.
+        parallel.mesh.ShardingConfig`), the batch goes through the sharded
+        bulk pipeline (:func:`~homomorph_tpu_torch.parallel.bulk.
+        sharded_encrypt_bits`): the value axis in data blocks, the key's
+        rows in tau shards; it requires ``batch=True``, the ``key``
+        randomness mode, a batch divisible by the data axis and tau by the
+        tau axis.  The selection words are drawn as on the dense path, so
+        for one key the bytes equal the dense path's; the result holds
+        this process's rows and carries the ``sharding`` record.
         """
-        if sharding is not None:
-            raise NotImplementedError(
-                "sharding= is not ported yet: it waits for the sharding slice "
-                "(ROADMAP queue 1, item 10)"
-            )
         if (key is None) == (source is None):
             raise ValueError("pass exactly one of key= or source=")
         values = list(data) if batch else [data]
@@ -285,6 +294,8 @@ class Ciphered:
         W = -(-tau // 32)
         dev = pk.device
 
+        if sharding is not None:
+            return cls._cipher_sharded(sharding, key, batch, pk, desc, all_bits, L, W)
         if key is not None:
             # The JAX package draws jax.random.bits(key, (total, W)) when
             # total % 128 == 0 and jax.random.bits(key, (n_values, n_bits,
@@ -304,6 +315,31 @@ class Ciphered:
         if not batch:
             limbs = limbs[0]
         return cls(limbs, bound, desc, noise=FRESH_NOISE)
+
+    @classmethod
+    def _cipher_sharded(cls, cfg, key, batch, pk, desc, all_bits, L, W) -> "Ciphered":
+        """``cipher(sharding=cfg)``, after ``homomorph_tpu/cipher.py:331-353``."""
+        if key is None or not batch:
+            raise ValueError("sharding= requires the key= randomness mode and batch=True")
+        from .parallel import bulk
+        from .parallel.mesh import ShardedRows
+
+        n_values, n_bits = all_bits.shape
+        n_data = cfg.mesh.shape[cfg.data_axis]
+        if n_values % n_data:
+            raise ValueError(
+                f"batch of {n_values} values not divisible by the mesh data axis ({n_data})"
+            )
+        n_tau = cfg.mesh.shape[cfg.tau_axis]
+        if pk.tau % n_tau:
+            raise ValueError(f"tau={pk.tau} not divisible by the mesh tau axis ({n_tau})")
+        dev = cfg.device
+        selw = _prng.random_bits(key, (n_values * n_bits, W), dev)
+        sel = gf2.unpack_bits(selw, pk.tau, dtype=torch.int8).view(n_values, n_bits, pk.tau)
+        limbs = bulk.sharded_encrypt_bits(cfg, sel, pk.limbs, all_bits, L)
+        lo, _ = cfg.local_rows(n_values)
+        return cls(limbs, pk.max_degree, desc, noise=FRESH_NOISE,
+                   sharding=ShardedRows(cfg, n_values, lo))
 
     # Both names bind one implementation, as in the JAX package: exceptions
     # are the typed error surface in Python (see homomorph_tpu.cipher).
@@ -434,7 +470,7 @@ class Ciphered:
         )
         return Ciphered(
             torch.cat([self.limbs, z], dim=-2), self.bound, self.desc,
-            noise=self.noise,
+            noise=self.noise, sharding=self.sharding,
         )
 
     def bits(self) -> list[CipheredBit]:
@@ -452,7 +488,7 @@ class Ciphered:
                 f"{desc!r} needs {desc.num_bits} lanes, have {len(self)}"
             )
         return Ciphered(self.limbs, self.bound, desc, zero_lanes=self.zero_lanes,
-                        noise=self.noise)
+                        noise=self.noise, sharding=self.sharding)
 
     # -- ciphertext serialization (the JAX package's wire format) ------------
 

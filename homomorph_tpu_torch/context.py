@@ -20,6 +20,12 @@ raises when CUDA is missing).  Randomness mirrors the JAX package:
   a threefry key chain, ``jax.random.key(encrypt_seed)``, that every
   ``encrypt`` call splits as the JAX package does, so a seeded context
   gives the JAX package's ciphertext bytes for the same keys.
+
+With ``sharding=`` (a :class:`~homomorph_tpu_torch.parallel.mesh.
+ShardingConfig`), ``encrypt(batch=True)`` goes through the sharded bulk
+pipeline and the ciphertexts hold this process's rows
+(:class:`~homomorph_tpu_torch.parallel.mesh.ShardedRows`); decrypt and the
+checked API act on those rows without communication.
 """
 
 from __future__ import annotations
@@ -83,11 +89,6 @@ d/delta >= 21, got d=32, delta=2
         sharding=None,
         device=None,
     ):
-        if sharding is not None:
-            raise NotImplementedError(
-                "sharding= is not ported yet: it waits for the sharding slice "
-                "(ROADMAP queue 1, item 10)"
-            )
         if source is not None and encrypt_seed is not None:
             raise ValueError(
                 "source= and encrypt_seed= are mutually exclusive: with a "
@@ -103,12 +104,24 @@ d/delta >= 21, got d=32, delta=2
         self._enc_key = (
             _rng.threefry_key(encrypt_seed) if encrypt_seed is not None else None
         )
+        if sharding is not None and source is not None:
+            raise ValueError(
+                "sharding= is incompatible with source=: the host byte-"
+                "stream replay path encrypts bit-by-bit and cannot route "
+                "through the sharded bulk pipeline; use encrypt_seed= for "
+                "deterministic distributed encryption"
+            )
+        self._sharding = sharding
 
     # -- accessors (src/context.rs:353-402) ----------------------------------
 
     @property
     def parameters(self) -> Parameters:
         return self._parameters
+
+    @property
+    def device(self) -> "torch.device":
+        return self._device
 
     def get_secret_key(self) -> _keys.SecretKey | None:
         return self._secret_key
@@ -163,7 +176,10 @@ d/delta >= 21, got d=32, delta=2
             self._enc_key, sub = _rng.threefry_split(self._enc_key)
         else:
             sub = _rng.os_entropy_key()  # fresh OS entropy per stream
-        return Ciphered.cipher(data, self._public_key, desc, key=sub, batch=batch)
+        sharding = self._sharding if batch else None
+        return Ciphered.cipher(
+            data, self._public_key, desc, key=sub, batch=batch, sharding=sharding
+        )
 
     def decrypt(self, ciphered: Ciphered) -> Any:
         if self._secret_key is None:
@@ -197,12 +213,22 @@ d/delta >= 21, got d=32, delta=2
 
     def apply1(self, op, a: Ciphered) -> Ciphered:
         self.validate_operation(op, a)
-        return op.unsafe_apply(a)
+        return _keep_sharding(op.unsafe_apply(a), (a,))
 
     def apply2(self, op, a: Ciphered, b: Ciphered) -> Ciphered:
         self.validate_operation(op, a, b)
-        return op.unsafe_apply(a, b)
+        return _keep_sharding(op.unsafe_apply(a, b), (a, b))
 
     def apply_n(self, op, args: Sequence[Ciphered]) -> Ciphered:
         self.validate_operation(op, *args)
-        return op.unsafe_apply(args)
+        return _keep_sharding(op.unsafe_apply(args), args)
+
+
+def _keep_sharding(out: Ciphered, operands: Sequence[Ciphered]) -> Ciphered:
+    """An operation acts on the rows each operand holds, with no
+    communication: the result keeps the operands' sharding record when
+    they all share it."""
+    recs = {getattr(x, "sharding", None) for x in operands}
+    if len(recs) == 1 and None not in recs and isinstance(out, Ciphered):
+        out.sharding = recs.pop()
+    return out

@@ -83,6 +83,11 @@ _KARATSUBA_MIN = 64
 
 _fn = None
 
+#: the limb-sharded path's entry (``fn(a, b) -> tensor or None``), or None:
+#: :func:`homomorph_tpu_torch.parallel.limbmul.set_default_limb_mesh` fills
+#: it while a limb mesh is registered and empties it when the mesh goes
+limb_hook = None
+
 
 def _kernel():
     global _fn
@@ -104,7 +109,17 @@ def clmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     Same contract as :func:`homomorph_tpu_torch.gf2.poly.clmul`, with the
     leading dims broadcast (keygen multiplies a [tau, Lq] operand by an
-    [Ls] one)."""
+    [Ls] one).
+
+    While a limb mesh is registered, :data:`limb_hook` is set and the
+    product is first offered to the limb-sharded path, as the JAX
+    dispatcher does (``kernels.py:174-178``); the path returns None when
+    the shapes do not qualify.  With no mesh the slot is None and the
+    product goes straight to the dense route."""
+    if limb_hook is not None:
+        sharded = limb_hook(a, b)
+        if sharded is not None:
+            return sharded
     La, Lb = a.shape[-1], b.shape[-1]
     lead = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
     batch = math.prod(lead)

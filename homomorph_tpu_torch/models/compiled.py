@@ -33,10 +33,13 @@ Three things a graph cannot hold, and what happens to them:
   multipliers: under capture they raise and name the variable;
 * the routing knobs (``HOMOMORPH_TPU_TORCH_KARATSUBA_MIN``,
   ``HOMOMORPH_TPU_TORCH_FORCE_KARATSUBA``, ``HOMOMORPH_TPU_TORCH_ENC_IMPL``
-  and ``HOMOMORPH_TPU_TORCH_CARRY_SCAN``) are read when a graph is
-  captured, and a replay keeps the route and kernel it was captured with,
-  as the JAX package's knobs are snapshots taken when a function is traced.
-  Set them before the first call of a shape.
+  and ``HOMOMORPH_TPU_TORCH_CARRY_SCAN``) and the limb mesh registered with
+  :func:`~homomorph_tpu_torch.parallel.limbmul.set_default_limb_mesh` are
+  read when a graph is captured, and a replay keeps the route, kernel and
+  limb sharding it was captured with, as the JAX package's knobs and its
+  limb-mesh registry are snapshots taken when a function is traced
+  (``homomorph_tpu/parallel/limbmul.py:63-71``).  Set them before the
+  first call of a shape.
 
 The launch counters are plain integers on the wrappers, so they count a
 captured kernel at capture (and at the warm-up), never at a replay.

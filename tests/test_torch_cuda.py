@@ -478,3 +478,86 @@ def test_run_verification_on_card():
     after = (k.clmul_flat.launches, enc.encrypt_words_table.launches, prng.random_bits.launches)
     assert all(x > y for x, y in zip(after, before))
     assert any("route chunk+split" in line for line in lines), lines
+
+
+@pytest.mark.parametrize("shape,tau", [((2, 2), 128), ((1, 4), 128), ((1, 3), 96), ((4, 1), 33)])
+def test_sharded_encrypt_on_card_matches_k2(shape, tau):
+    """Each tau shard's partial is X1 on the card (τ/n_tau = 32, 96, 33
+    slices included); the combined bits equal K2's dense output and decrypt
+    right through sharded_decrypt_bits."""
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch.parallel import bulk, make_mesh
+
+    ctx = card_context(ht.Parameters(64, 64, 8, tau), 3)
+    pk, sk = ctx.get_public_key(), ctx.get_secret_key()
+    L = gf2.limbs_for(pk.max_degree)
+    B, n = 64, 32
+    selw = on_card((B * n, -(-tau // 32)), 4)
+    sel = gf2.unpack_bits(selw, tau, dtype=torch.int8).view(B, n, tau)
+    plain = on_card((B, n), 5) & 1
+    before = enc.encrypt_sel_mma.launches
+    cfg = make_mesh(*shape, ["cuda"] * (shape[0] * shape[1]))
+    got = bulk.sharded_encrypt_bits(cfg, sel, pk.limbs, plain, L)
+    torch.cuda.synchronize()
+    assert enc.encrypt_sel_mma.launches == before + shape[0] * shape[1]
+    assert torch.equal(got.view(B * n, L), enc.encrypt_words_table(selw, pk.limbs, plain.view(-1), L))
+    back = bulk.sharded_decrypt_bits(cfg, got, sk.decrypt_mask(L))
+    assert torch.equal(back, plain)
+
+
+@pytest.mark.parametrize("n,B,La,Lb", [(2, 3, 300, 9), (4, 8, 1024, 64), (3, 1, 200, 200)])
+def test_sharded_clmul_on_card_matches_dense(n, B, La, Lb):
+    from homomorph_tpu_torch.parallel import Mesh, limbmul, ppermute
+
+    a, b = on_card((B, La), 6), on_card((B, Lb), 7)
+    before = k.clmul_flat.launches
+    ppermute.local_bytes = 0
+    got = limbmul.sharded_clmul(a, b, Mesh(["cuda"] * n, ("limb",)))
+    torch.cuda.synchronize()
+    assert k.clmul_flat.launches == before + n
+    assert ppermute.local_bytes == limbmul.comm_bytes_per_call(B, Lb, n)
+    assert torch.equal(got, k.clmul(a, b))
+
+
+def test_compiled_product_under_a_limb_mesh_on_card(monkeypatch):
+    """A CUDA graph captured under ``use_limb_mesh`` keeps the limb
+    sharding: the products that qualify take the mesh at warm-up and
+    capture (not at a replay), and every replay equals eager without it."""
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch.models import HomomorphicMultiplication
+    from homomorph_tpu_torch.models.compiled import compile_op2
+    from homomorph_tpu_torch.parallel import Mesh, limbmul
+
+    monkeypatch.setattr(limbmul, "_SHARD_MIN_BLOCK", 1)
+    ctx = card_context(ht.Parameters(512, 16, 1, 16), 8)
+    fn = compile_op2(HomomorphicMultiplication, ht.U8, ctx.parameters.pk_degree)
+    rng = np.random.default_rng(9)
+    monkeypatch.setattr(limbmul.maybe_sharded_clmul, "taken", 0)
+    for i in range(3):
+        xs, ys = rng.integers(0, 256, size=64).tolist(), rng.integers(0, 256, size=64).tolist()
+        a, b = ctx.encrypt(xs, ht.U8, batch=True), ctx.encrypt(ys, ht.U8, batch=True)
+        want = HomomorphicMultiplication.unsafe_apply(a, b)
+        with limbmul.use_limb_mesh(Mesh(["cuda"] * 2, (limbmul.LIMB_AXIS,))):
+            got = fn(a, b)
+        torch.cuda.synchronize()
+        if i == 0:
+            taken = limbmul.maybe_sharded_clmul.taken
+            assert taken > 0, "no product took the limb mesh at capture"
+        assert limbmul.maybe_sharded_clmul.taken == taken  # a replay routes nothing
+        assert torch.equal(got.limbs, want.limbs)
+        assert [int(v) for v in ctx.decrypt(got)] == [(x * y) & 0xFF for x, y in zip(xs, ys)]
+    assert fn.graphed.graphs == 1
+
+
+def _example_names():
+    return sorted(n[:-3] for n in os.listdir(os.path.join(ROOT, "homomorph_tpu_torch", "examples"))
+                  if n.endswith(".py") and n != "__init__.py")
+
+
+@pytest.mark.parametrize("name", _example_names())
+def test_example_on_card(name, capsys):
+    on_card((1,), 0)
+    before = k.clmul_flat.launches + enc.encrypt_words_table.launches
+    importlib.import_module(f"homomorph_tpu_torch.examples.{name}").main(device="cuda")
+    assert k.clmul_flat.launches + enc.encrypt_words_table.launches > before
+    assert capsys.readouterr().out.strip()

@@ -42,7 +42,9 @@ def test_port_files_exist():
     assert len(port_files()) > 15
     for rel in ("prng.py", "experiments/exp_enc.py", "csrc/encrypt_mma.cu", "csrc/threefry.cu",
                 "native/__init__.py", "native/gf2_native.cpp", "verify.py",
-                "models/compiled.py", "utils/profiling.py", "utils/cache.py"):
+                "models/compiled.py", "utils/profiling.py", "utils/cache.py",
+                "parallel/__init__.py", "parallel/mesh.py", "parallel/bulk.py",
+                "parallel/limbmul.py", "parallel/distributed.py", "examples/__init__.py"):
         assert os.path.exists(os.path.join(PKG, rel)), rel
 
 
@@ -59,7 +61,11 @@ def test_import_does_not_load_jax():
         "homomorph_tpu_torch.prng, homomorph_tpu_torch.experiments.exp_enc, "
         "homomorph_tpu_torch.native, homomorph_tpu_torch.verify, "
         "homomorph_tpu_torch.models.compiled, homomorph_tpu_torch.utils.profiling, "
-        "homomorph_tpu_torch.utils.cache; "
+        "homomorph_tpu_torch.utils.cache, homomorph_tpu_torch.parallel, "
+        "homomorph_tpu_torch.parallel.distributed, homomorph_tpu_torch.examples; "
+        "import importlib, pkgutil, homomorph_tpu_torch.examples as ex; "
+        "[importlib.import_module('homomorph_tpu_torch.examples.' + m.name) "
+        "for m in pkgutil.iter_modules(ex.__path__)]; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'homomorph_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -67,6 +73,32 @@ def test_import_does_not_load_jax():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_parallel_exports_match_jax_package():
+    import homomorph_tpu_torch.parallel as tpar
+    from homomorph_tpu_torch.parallel import distributed
+
+    for name in ("ShardingConfig", "make_mesh", "sharded_encrypt_bits", "sharded_decrypt_bits",
+                 "sharded_gate_xor", "sharded_clmul", "maybe_sharded_clmul",
+                 "set_default_limb_mesh", "get_default_limb_mesh", "use_limb_mesh",
+                 "comm_bytes_per_call", "bulk", "limbmul", "mesh"):
+        assert hasattr(tpar, name), name
+    for name in ("initialize", "global_mesh", "broadcast_keys", "assert_same_across_processes",
+                 "save_sharded", "load_sharded"):
+        assert callable(getattr(distributed, name)), name
+
+
+def test_parallel_calls_no_all_reduce():
+    """NCCL has no ReduceOp.BXOR: the XOR combines are point-to-point
+    exchanges, one code path for gloo and NCCL."""
+    for name in os.listdir(os.path.join(PKG, "parallel")):
+        if not name.endswith(".py"):
+            continue
+        tree = ast.parse(open(os.path.join(PKG, "parallel", name)).read())
+        used = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+        used |= {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+        assert not used & {"all_reduce", "ReduceOp", "reduce_scatter"}, name
 
 
 def test_context_raises_without_cuda():

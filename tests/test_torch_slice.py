@@ -255,12 +255,18 @@ class TestEntryPoints:
             ht.Ciphered.trivial(1, ht.U8)
 
     def test_sharding_is_not_ported_yet(self, small_pair):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ht.Context(ht.Parameters(*SMALL), sharding=object(), device="cpu")
+        # The name is older than the sharding it now checks: sharding= no
+        # longer raises, Context takes a grid of places, and a sharded
+        # encrypt gives the dense path's bytes for the same key
+        from homomorph_tpu_torch.parallel import make_mesh
+
+        cfg = make_mesh(1, 2, ["cpu"] * 2)
+        ht.Context(ht.Parameters(*SMALL), sharding=cfg, device="cpu")
         _, tctx = small_pair
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ht.Ciphered.cipher([1], tctx.get_public_key(), ht.U8, batch=True,
-                               key=(0, 1), sharding=object())
+        pk = tctx.get_public_key()
+        got = ht.Ciphered.cipher([1], pk, ht.U8, batch=True, key=(0, 1), sharding=cfg)
+        want = ht.Ciphered.cipher([1], pk, ht.U8, batch=True, key=(0, 1))
+        assert got.sharding is not None and got.to_bytes() == want.to_bytes()
 
     def test_zeroize(self, small_pair):
         _, tctx = small_pair
