@@ -77,7 +77,23 @@ Phases, in order; any failure exits non-zero before the result line:
    primitive's bytes equal to ``comm_bytes_per_call``'s sum over the
    products the hook took (its own counters); K1's launches
    on the earlier paths must be :data:`K1_EARLIER_PATHS` (the hook is
-   inert without a mesh);
+   inert without a mesh); X1 at each grid's partial shape timed as in
+   phase 3 (device, call and plain time, bound, ``torch._int_mm``);
+10c. the u64 product at ``Parameters(13440, 128, 1, 128)``
+   (``homomorph_tpu_torch.experiments.exp_mul64``), decrypted against
+   ``x * y mod 2^64`` under a key with ``S(0) = 1``: keygen, the eager
+   tree's wall, device time, K1 launches and peak memory, the decrypt
+   mask's host time; K1's launch with the most rows and its widest held
+   against the plain version on their first and last 256 rows
+   (:func:`k1_spot_checked`);
+10d. the entry points (``homomorph_tpu_torch.entry``): ``entry()``'s
+   gate step and ``dryrun_multichip(4)`` on four places on the card, each
+   checked by decrypt;
+10e. the port's bench (``homomorph_tpu_torch.bench --with-mul32``) at full
+   size, its JSON printed on a line of its own: the verify gate, then every
+   section, the u16 and the d = 5888 u32 products decrypted on the card
+   under keys with ``S(0) = 1``, K1's largest and widest launches held
+   against the plain version as in 10c, every device-busy field a number;
 11. the compiled pipelines as CUDA graphs (:func:`phase_compiled`): the u32
    add (2,048 pairs) and the u32 product (8 pairs) against eager limb for
    limb and decrypted, and the u32 add's encrypt -> add -> decrypt round
@@ -88,7 +104,7 @@ Phases, in order; any failure exits non-zero before the result line:
    against the same function run eagerly on its keys; their launches are
    those counted at warm-up and capture (a replay must count none);
 8. one JSON line of kernels (launches counted over the paths: phases 5-6,
-   5b, 6b, 5c, 9, 10b and 11, each counted from 0; each bound the larger of the
+   5b, 6b, 5c, 9, 10b-10e and 11, each counted from 0; each bound the larger of the
    bytes and the necessary work of the best design in the repo, see
    :func:`set_bounds` and ``homomorph_tpu_torch/utils/profiling.py``, with
    the older operation count's bound beside it);
@@ -111,6 +127,7 @@ SEED = 1234  # keys, plaintexts and selection words all derive from it
 
 # the peaks and the bounds' work counts live in the port (fails outside a checkout)
 sys.path.insert(0, ROOT)
+from homomorph_tpu_torch.experiments.common import leaf_shape, recorded_products  # noqa: E402
 from homomorph_tpu_torch.utils.profiling import (  # noqa: E402
     THREEFRY_ALU_OPS_PER_WORD,
     bound,
@@ -209,10 +226,10 @@ def ms_text(ms, digits=5):
 def timed(torch, kernel_fn, plain_fn, plain_events=False):
     """Device times of the kernel and its plain version, each with what
     took it (``ms_by``, ``plain_by``: "profiler" or "events").  The kernel:
-    two profiler traces of 20 calls, the larger kept (a trace that lost some
-    device records reads low: one read K3 at 0.04 of 0.26 ms).  Only if
-    neither traced any device time, CUDA events over back-to-back calls,
-    which include the host's issue gaps.  With ``plain_events`` the plain
+    the profiler's device time of 20 calls (:func:`device_records`: three
+    traces, a record one lost counted from the others).  Only if no trace
+    held device time, CUDA events over back-to-back calls, which include
+    the host's issue gaps.  With ``plain_events`` the plain
     version is timed by CUDA events over one call: at the wide path's row
     counts it runs ~10^5 small torch kernels a call, more than a profiler
     trace should hold; so too when its trace held no device time."""
@@ -220,10 +237,10 @@ def timed(torch, kernel_fn, plain_fn, plain_events=False):
     plain_by = "events" if plain_ms is None else "profiler"
     if plain_ms is None:
         plain_ms = call_ms(torch, plain_fn, 1)
-    traces = [ms for ms in (profiled_ms(kernel_fn, 20) for _ in range(2)) if ms is not None]
+    traced = profiled_ms(kernel_fn, 20)
     calls = call_ms(torch, kernel_fn)
-    return dict(ms=max(traces) if traces else calls,
-                ms_by="profiler" if traces else "events",
+    return dict(ms=calls if traced is None else traced,
+                ms_by="events" if traced is None else "profiler",
                 call_ms=calls, plain_ms=plain_ms, plain_by=plain_by)
 
 
@@ -251,35 +268,6 @@ def with_env(name, value, fn):
             os.environ.pop(name, None)
         else:
             os.environ[name] = saved
-
-
-def recorded_rows(fn):
-    """``fn()`` and the [B, La, Lb] shapes of every product the clmul
-    dispatcher took (each is one K1 launch, routed or not)."""
-    from homomorph_tpu_torch.gf2 import kernels as k
-
-    shapes = []
-    rows = k.clmul_rows
-
-    def recording(af, bf):
-        shapes.append((af.shape[0], af.shape[1], bf.shape[1]))
-        return rows(af, bf)
-
-    k.clmul_rows = recording
-    try:
-        return fn(), shapes
-    finally:
-        k.clmul_rows = rows
-
-
-def leaf_shape(B, La, Lb, kmin):
-    """The K1 launch the route makes for a [B, La] x [B, Lb] product."""
-    from homomorph_tpu_torch.gf2 import kernels as k
-
-    Ls, Lg = min(La, Lb), max(La, Lb)
-    for kind, _, _, n in k.route_plan(Ls, Lg, kmin):
-        B, Ls, Lg = (B * n, Ls, Ls) if kind == "chunk" else (B * 3, n, n)
-    return B, Ls, Lg
 
 
 def set_bounds(ctx, rows):
@@ -434,7 +422,13 @@ def count_product_ms(ctx, selw, planes):
     torch = ctx["torch"]
     from homomorph_tpu_torch.gf2 import poly as gf2
 
-    a = gf2.unpack_bits(selw, planes.shape[1], dtype=torch.int8)
+    return int_mm_ms(ctx, gf2.unpack_bits(selw, planes.shape[1], dtype=torch.int8), planes)
+
+
+def int_mm_ms(ctx, a, planes):
+    """Device time of ``torch._int_mm`` of the int8 selections ``a``
+    [B, Kp] by the planes [Kp, D] (:func:`count_product_ms`)."""
+    torch = ctx["torch"]
     b = planes.T  # [Kp, D], column-major
     torch._int_mm(a, b)
     torch.cuda.synchronize()
@@ -688,7 +682,7 @@ def phase_mulcmp(ctx):
 
     # the multiplication's and lt's K1 launches as [B, La] x [B, Lb], for phase 3b
     def recorded(fn):
-        return recorded_rows(lambda: stage(torch, fn))
+        return recorded_products(lambda: stage(torch, fn))
 
     (prod, mul_ms), shapes = recorded(lambda: c.apply2(HomomorphicMultiplication, e8a, e8b))
     ctx["mul_shapes"] = shapes
@@ -826,7 +820,7 @@ def wide_mul(ctx, ht, name, params, n, desc, bits, direct_rows, seed):
     check(req * params.delta <= params.d, f"{name}: requirement {req} above d/delta")
     torch.cuda.reset_peak_memory_stats()
     before = k.clmul_flat.launches
-    (prod, mul_ms), shapes = recorded_rows(lambda: stage(torch, lambda: c.apply2(Mul, ea, eb)))
+    (prod, mul_ms), shapes = recorded_products(lambda: stage(torch, lambda: c.apply2(Mul, ea, eb)))
     launches = k.clmul_flat.launches - before
     peak = torch.cuda.max_memory_allocated() / 1e9
     sk = c.get_secret_key()
@@ -1223,14 +1217,46 @@ def mesh_partials(ctx, sel, pk_limbs, shape, L):
     for j in sorted({0, n_tau - 1}):
         rows = sel[:blk, :, j * ts:(j + 1) * ts].reshape(blk * n, ts).contiguous()
         planes = enc.pk_planes(enc.pk_columns(pk_limbs[j * ts:(j + 1) * ts].contiguous()))
-        bad, _ = compare(torch, enc.encrypt_sel_mma(rows, planes, zero, L),
-                         enc.encrypt_sel_plain(rows, planes, zero, L))
+        bad, err = compare(torch, enc.encrypt_sel_mma(rows, planes, zero, L),
+                           enc.encrypt_sel_plain(rows, planes, zero, L))
         check(bad == 0, f"mesh {shape}: X1's partial of tau shard {j} ({blk * n} rows, {ts} key "
                         f"rows): {bad} limbs differ from its plain version")
         total += bad
+        if j == 0:  # every shard's partial has this shape: time it once
+            mesh_x1_row(ctx, shape, rows, planes, zero, L, bad, err)
         del rows, planes
     enc.encrypt_sel_mma.launches = launches
     return total
+
+
+def mesh_x1_row(ctx, shape, rows, planes, zero, L, bad, err):
+    """X1 at a grid's partial shape: device time, call time, its plain
+    version's time, its bound and ``torch._int_mm``'s time for the bare
+    count product, as phase 3's X1 rows; kept in ``ctx["mesh_x1_rows"]``."""
+    import torch.nn.functional as F
+
+    from homomorph_tpu_torch.gf2 import encrypt_kernel as enc
+
+    torch = ctx["torch"]
+    B, ts = rows.shape
+    D, Kp = planes.shape
+    row = dict(
+        kernel="encrypt_v3", label=f"mesh{shape[0]}x{shape[1]}",
+        shape=f"B={B} tau={ts} D={D} L={L} (mesh {shape[0]}x{shape[1]} partial)",
+        mismatches=bad, max_abs_err=err,
+        **timed(torch, lambda: enc.encrypt_sel_mma(rows, planes, zero, L),
+                lambda: enc.encrypt_sel_plain(rows, planes, zero, L)),
+        work=[(encrypt_lookup_bytes(B, ts, L), "smem_bw")], old_ops=2 * B * ts * D,
+        old_rate="int8_tc_ops", bytes=B * ts + D * Kp + (B + B * L) * 4,
+        int_mm_ms=int_mm_ms(ctx, F.pad(rows, (0, Kp - ts)), planes),
+    )
+    set_bounds(ctx, [row])
+    ctx.setdefault("mesh_x1_rows", []).append(row)
+    log(f"[mesh] X1 at the partial of mesh {shape}, {row['shape']}: kernel {row['ms']:.5f} ms "
+        f"by {row['ms_by']} (call {row['call_ms']:.5f} ms), plain {row['plain_ms']:.3f} ms by "
+        f"{row['plain_by']}, bound {row['bound_ms']:.5f} ms ({row['bound_by']}, "
+        f"{row['bound_ms'] / row['ms']:.1%} of it), old count's bound {row['old_bound_ms']:.5f} "
+        f"ms; torch._int_mm of the count product {ms_text(row['int_mm_ms'])} ms")
 
 
 def mesh_bulk(ctx, params, n_bits, shapes, seed):
@@ -1392,6 +1418,129 @@ def phase_mesh(ctx):
         f"comm_bytes_per_call sums to {expect}; wall {mesh_ms:.3f} ms (dense {dense_ms:.3f} ms), "
         f"device {ms_text(mesh_dev, 3)} ms (dense {ms_text(dense_dev, 3)} ms)")
     return out
+
+
+#: rows at each end of a K1 launch that :func:`k1_spot_checked` holds
+#: against the plain version
+SPOT_ROWS = 256
+
+
+def k1_spot_checked(ctx, label, fn):
+    """``(fn(), checks)``: K1's launch with the most rows in ``fn`` and its
+    widest (most limbs) are held against ``clmul_plain`` on their first and
+    last :data:`SPOT_ROWS` rows.  The rows are copied right after each
+    launch, before the route joins and frees its output; launches under
+    CUDA graph capture are not copied.  While ``fn`` runs, the kernels
+    module's ``clmul_flat`` is a wrapper that calls the real one, so every
+    launch is counted once, on the wrapper, and the count is handed back."""
+    torch = ctx["torch"]
+    from homomorph_tpu_torch.gf2 import kernels as k
+
+    real = k.clmul_flat
+    kept = {}
+
+    def spy(af, bf):
+        out = real(af, bf)
+        if out.is_cuda and out.shape[0] and not torch.cuda.is_current_stream_capturing():
+            B, width = af.shape[0], out.shape[1]
+            for key, size in (("most rows", (B, width)), ("widest", (width, B))):
+                if key not in kept or size > kept[key]["size"]:
+                    ends = (slice(0, min(B, SPOT_ROWS)), slice(max(0, B - SPOT_ROWS), B))
+                    kept[key] = dict(size=size, shape=[B, af.shape[1], bf.shape[1]],
+                                     blocks=[(af[e].clone(), bf[e].clone(), out[e].clone())
+                                             for e in ends])
+        return out
+
+    spy.launches = real.launches
+    k.clmul_flat = spy
+    try:
+        result = fn()
+    finally:
+        k.clmul_flat = real
+        real.launches = spy.launches
+    torch.cuda.synchronize()
+    check(kept, f"{label}: no K1 launch to check")
+    checks = []
+    for key, rec in kept.items():
+        bad = sum(compare(torch, got, k.clmul_plain(a, b))[0] for a, b, got in rec["blocks"])
+        rows = sum(a.shape[0] for a, _, _ in rec["blocks"])
+        check(bad == 0, f"{label}: K1's {key} launch {rec['shape']}: {bad} limbs differ from "
+              "the plain version")
+        checks.append(dict(launch=key, shape=rec["shape"], rows_checked=rows, mismatches=0))
+        log(f"[{label}] K1's {key} launch [rows, La, Lb] = {rec['shape']}: first and last "
+            f"{SPOT_ROWS} rows equal to the plain version")
+    return result, checks
+
+
+def phase_u64(ctx):
+    """Phase 10c: the u64 product at ``Parameters(13440, 128, 1, 128)``
+    (``homomorph_tpu_torch.experiments.exp_mul64``): keygen, the eager tree,
+    its K1 launches and peak memory, the decrypt mask on the host, the
+    decrypt against ``x * y mod 2^64`` under a key with ``S(0) = 1`` (inside
+    the envelope, so every coefficient of the product counts), and a warm
+    call's wall and device time.  K1's largest and widest launches are held
+    against the plain version (:func:`k1_spot_checked`)."""
+    from homomorph_tpu_torch.experiments import exp_mul64
+
+    torch = ctx["torch"]
+    torch.cuda.empty_cache()
+    out, spots = k1_spot_checked(ctx, "u64", lambda: exp_mul64.run(
+        device=ctx["dev"], log=lambda m: log(f"[u64] {m.strip()}")))
+    check(out["correct"], "the u64 product decrypts wrong")
+    check(out["s0"] == 1, "the u64 key has S(0) = 0: its decrypt reads only the constant term")
+    torch.cuda.empty_cache()
+    return dict(out, k1_spot_checks=spots)
+
+
+def phase_entry(ctx):
+    """Phase 10d: the entry points (``homomorph_tpu_torch.entry``):
+    ``entry()``'s step on the card (checked by decrypt inside, and again
+    here), and ``dryrun_multichip(4)`` on four places on the card."""
+    import numpy as np
+
+    from homomorph_tpu_torch import entry
+
+    fn, args = entry.entry(ctx["dev"])
+    out_x, out_m = fn(*args)
+    a, b = (x.cpu().numpy() for x in args[2:])
+    check(np.array_equal(out_x.cpu().numpy(), a ^ b) and np.array_equal(out_m.cpu().numpy(), a & b),
+          "entry(): the gate layer decrypts wrong")
+    dry = entry.dryrun_multichip(4, ctx["dev"])
+    log(f"[entry] entry(): XOR and AND of 256x32 bits decrypt right; dryrun_multichip(4): {dry}")
+    return dict(entry_shapes=[list(out_x.shape), list(out_m.shape)], dryrun=dry)
+
+
+def phase_bench(ctx):
+    """Phase 10e: the port's bench (``homomorph_tpu_torch.bench``) at full
+    size with ``--with-mul32``: the verify gate, then every section; its
+    JSON line is printed here.  The u16 and u32 products must decrypt right
+    under keys with ``S(0) = 1`` (the bench exits 1 otherwise), K1's largest
+    and widest launches must equal the plain version
+    (:func:`k1_spot_checked`), and every device-busy field must be a
+    number."""
+    from homomorph_tpu_torch import bench
+
+    def bench_log(*a):
+        log("[bench] " + " ".join(str(x) for x in a))
+
+    try:
+        result, spots = k1_spot_checked(ctx, "bench", lambda: bench.run(
+            bench.parse_args(["--with-mul32"]), bench_log))
+    except SystemExit as err:
+        raise SmokeFailure(f"the bench exited with {err.code}") from err
+    print(json.dumps(result), flush=True)
+    busy = {k: v for part in (result["extras"], result["headline"]) for k, v in part.items()
+            if "device_busy" in k or k == "decrypt_u32_device_latency_us"}
+    check(all(v is not None for v in busy.values()), f"bench: device fields not measured: {busy}")
+    check("mul_u32_per_s_batched" in result["extras"] and "mul_u16_per_s_batched"
+          in result["extras"], "bench: the u16 or u32 product did not run")
+    with open(result["extras"]["windows_file"]) as f:
+        windows = json.load(f)
+    for label, w in windows.items():
+        log(f"[bench] window {label}: p50 {w['p50_s_per_step']:.9f} s, p95 "
+            f"{w['p95_s_per_step']:.9f} s, min {w['min_s_per_step']:.9f} s a step "
+            f"({w['windows']} x {w['steps_per_window']})")
+    return dict(result, windows=windows, k1_spot_checks=spots)
 
 
 def launch_counts(ctx):
@@ -1721,6 +1870,12 @@ def main(argv=None):
     log(f"[masks] phase done in {time.perf_counter() - t0:.3f} s")
     # 10b. the grids of places, before the graphs
     mesh_stats, paths["mesh"] = run_path(lambda: phase_mesh(ctx))
+    rows += ctx.get("mesh_x1_rows", [])
+    # 10c-10e. the u64 product, the entry points and the bench, before the
+    # compiled pipelines (the bench captures graphs of its own last)
+    u64_stats, paths["u64"] = run_path(lambda: phase_u64(ctx))
+    entry_stats, paths["entry"] = run_path(lambda: phase_entry(ctx))
+    bench_stats, paths["bench"] = run_path(lambda: phase_bench(ctx))
     compiled_stats, _ = run_path(lambda: phase_compiled(ctx))
     # the compiled path's launches are those of its warm-ups and captures
     # (the counters do not move at a replay)
@@ -1736,6 +1891,9 @@ def main(argv=None):
              "wide": ("clmul", "encrypt", "threefry"),
              "verify": ("clmul", "encrypt", "threefry"),
              "mesh": ("clmul", "encrypt", "encrypt_v3", "threefry"),
+             "u64": ("clmul", "encrypt"),
+             "entry": ("clmul", "encrypt", "encrypt_v3", "threefry"),
+             "bench": ("clmul", "encrypt", "threefry"),
              "compiled": ("clmul", "encrypt", "encrypt_v1", "threefry_dkey")}
     for path, names in needs.items():
         for name in names:
@@ -1788,6 +1946,7 @@ def main(argv=None):
                            mulcmp=mul_stats, exp_enc=exp_stats, launches=paths,
                            route_sweep=sweep, wide=wide_stats, u32_widest=widest,
                            verify=verify_stats, masks=mask_stats, mesh=mesh_stats,
+                           u64=u64_stats, entry=entry_stats, bench=bench_stats,
                            compiled=compiled_stats,
                            profiler_after_graphs=profiler_probe,
                            lt_launch_times=ctx["lt_launch_times"],

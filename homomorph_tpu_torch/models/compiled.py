@@ -63,7 +63,7 @@ from ..context import Context
 from ..gf2 import poly as gf2
 from ..gf2.encrypt_kernel import encrypt_bits_fused
 
-__all__ = ["compile_op2", "compile_op1", "compile_roundtrip"]
+__all__ = ["compile_op2", "compile_op1", "compile_roundtrip", "Graphed"]
 
 
 def _derive_meta(apply_fn, bound: int, desc, *shapes, noise: int = FRESH_NOISE) -> dict:
@@ -79,7 +79,7 @@ def _derive_meta(apply_fn, bound: int, desc, *shapes, noise: int = FRESH_NOISE) 
                 shape=tuple(out.limbs.shape))
 
 
-class _Graphed:
+class Graphed:
     """``fn(*tensors) -> tensor`` with one CUDA graph per input shape on the
     card, and eager on the CPU."""
 
@@ -162,7 +162,7 @@ def compile_op2(
         b = Ciphered(b_limbs, bound, desc, noise=noise)
         return op.unsafe_apply(a, b).limbs
 
-    graphed = _Graphed(run, getattr(op, "__name__", "op"))
+    graphed = Graphed(run, getattr(op, "__name__", "op"))
 
     def call(a: Ciphered, b: Ciphered) -> Ciphered:
         _noise_check(noise, a, b)
@@ -184,7 +184,7 @@ def compile_op1(
     def run(a_limbs):
         return op.unsafe_apply(Ciphered(a_limbs, bound, desc, noise=noise)).limbs
 
-    graphed = _Graphed(run, getattr(op, "__name__", "op"))
+    graphed = Graphed(run, getattr(op, "__name__", "op"))
 
     def call(a: Ciphered) -> Ciphered:
         _noise_check(noise, a)
@@ -256,7 +256,7 @@ def compile_roundtrip(ctx: Context, op, desc: _codec.TypeDescriptor) -> Callable
             bits = torch.cat([bits, bits.new_zeros(bits.shape[:-1] + (zero_lanes,))], dim=-1)
         return bits
 
-    graphed = _Graphed(run, f"roundtrip of {getattr(op, '__name__', 'op')}")
+    graphed = Graphed(run, f"roundtrip of {getattr(op, '__name__', 'op')}")
 
     def call(key, bits_a, bits_b) -> torch.Tensor:
         ba, bb = _bits_tensor(bits_a, dev), _bits_tensor(bits_b, dev)

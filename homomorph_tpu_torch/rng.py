@@ -135,10 +135,10 @@ def threefry_key(seed: int) -> "tuple[int, int]":
     return (0, int(seed) & _MASK32)
 
 
-def threefry_split(key: "tuple[int, int]") -> "tuple[tuple[int, int], tuple[int, int]]":
-    """``jax.random.split(key)``: the cipher at counters ``(0, 0)`` and
-    ``(0, 1)``; the first half is the next key of a chain."""
-    return threefry2x32(key, 0, 0), threefry2x32(key, 0, 1)
+def threefry_split(key: "tuple[int, int]", num: int = 2) -> "tuple[tuple[int, int], ...]":
+    """``jax.random.split(key, num)``: the cipher at counters ``(0, i)`` for
+    ``i < num``; with ``num=2`` the first half is the next key of a chain."""
+    return tuple(threefry2x32(key, 0, i) for i in range(num))
 
 
 def os_entropy_key() -> "tuple[int, int]":

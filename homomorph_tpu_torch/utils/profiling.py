@@ -216,15 +216,27 @@ def decrypt_sol(batch_bits: int, n_limbs: int, peaks: "dict | None" = None) -> f
 # --------------------------------------------------------------------------
 
 
-def device_records(fn, iters: int = 1, attempts: int = 3) -> "dict[str, float]":
-    """Device time in ms by record name (kernels and copies) over ``iters``
+#: seconds a trace idles after the profiler starts, before the first call:
+#: the first kernels launched right after the start can go unrecorded
+TRACE_LEAD_S = 0.02
+#: traces :func:`device_records` takes of the same calls
+TRACES = 3
+
+
+def device_records(fn, iters: int = 1, traces: int = TRACES) -> "dict[str, float]":
+    """Device time in ms by record name (kernels and copies) of ``iters``
     calls of ``fn``, from ``torch.profiler`` tracing the card only, after
     one warm-up call.
 
     This is the card's own time: it leaves out the host's time to issue a
     call, which for a short kernel is longer than the kernel itself.  A
-    trace that comes back without device records is taken again, up to
-    ``attempts`` times, then this raises; it raises without a card too."""
+    trace can come back without some of its device records, so
+    ``traces`` traces of ``iters`` calls are taken, each after
+    :data:`TRACE_LEAD_S` of idle time.  Every call of ``fn`` launches the
+    same kernels: a name's count a call is the most any trace holds,
+    rounded up to whole calls, and its time is that count times ``iters``
+    times its mean record time.  Raises when no trace holds a device
+    record, and without a card."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -232,18 +244,24 @@ def device_records(fn, iters: int = 1, attempts: int = 3) -> "dict[str, float]":
         raise RuntimeError("device_records needs a CUDA card")
     fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
+    times: dict[str, list[float]] = defaultdict(list)
+    most: dict[str, int] = defaultdict(int)
+    for _ in range(traces):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_LEAD_S)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        per_name: dict[str, float] = {}
+        counts: dict[str, int] = defaultdict(int)
         for ev in prof.events():
             if ev.device_type == DeviceType.CUDA:
-                per_name[ev.name] = per_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
-        if per_name:
-            return per_name
-    raise RuntimeError(f"torch.profiler recorded no device time in {attempts} traces")
+                times[ev.name].append(ev.time_range.elapsed_us() / 1e3)
+                counts[ev.name] += 1
+        for name, c in counts.items():
+            most[name] = max(most[name], c)
+    if not times:
+        raise RuntimeError(f"torch.profiler recorded no device time in {traces} traces")
+    return {name: sum(t) / len(t) * -(-most[name] // iters) * iters for name, t in times.items()}
 
 
 def device_ms(fn, iters: int) -> float:
@@ -254,8 +272,8 @@ def device_ms(fn, iters: int) -> float:
 def device_busy(fn, reps: int = 2) -> "tuple[float, dict[str, float]]":
     """Device-busy time of a no-arg callable: ``(seconds per rep,
     {record name: us per rep})`` from :func:`device_records` over ``reps``
-    calls after a warm-up.  The busy share of a stage is the first over
-    its wall time.  Raises without a card (no CPU number is a device time)."""
+    calls after a warm-up.  The busy share of a stage is the first over its
+    wall time.  Raises without a card (no CPU number is a device time)."""
     records = device_records(fn, reps)
     total_ms = sum(records.values())
     return total_ms / reps / 1e3, {k: v * 1e3 / reps for k, v in records.items()}

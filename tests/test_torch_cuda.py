@@ -396,7 +396,7 @@ def test_compiled_roundtrip_through_k3_replays_equal_eager(monkeypatch):
     import homomorph_tpu_torch as ht
     from homomorph_tpu_torch import rng as hrng
     from homomorph_tpu_torch.models import HomomorphicAddition
-    from homomorph_tpu_torch.models.compiled import _Graphed, compile_roundtrip
+    from homomorph_tpu_torch.models.compiled import Graphed, compile_roundtrip
 
     ctx = card_context(ht.Parameters(64, 16, 1, 16), 13)
     monkeypatch.setenv(enc.ENC_IMPL_ENV, "pallas_v1")
@@ -425,7 +425,7 @@ def test_compiled_roundtrip_through_k3_replays_equal_eager(monkeypatch):
         selw = prng.random_bits_device_key(key, (bits.shape[0], 1))
         return enc.encrypt_bits_fused(selw, pk.limbs, bits, 5, planes=pk.planes)
 
-    graphed = _Graphed(encrypt, "encrypt")
+    graphed = Graphed(encrypt, "encrypt")
     for key in ((0, 1), (7, 8)):
         buf = prng.key_words(key).cuda()
         assert torch.equal(graphed(buf, plain), encrypt(buf, plain))
@@ -561,3 +561,41 @@ def test_example_on_card(name, capsys):
     importlib.import_module(f"homomorph_tpu_torch.examples.{name}").main(device="cuda")
     assert k.clmul_flat.launches + enc.encrypt_words_table.launches > before
     assert capsys.readouterr().out.strip()
+
+
+def test_bench_quick_on_card(capsys):
+    """The port's bench at ``--quick`` on the card: the verify gate, then
+    one JSON line whose device-busy fields are numbers."""
+    import json
+
+    from homomorph_tpu_torch import bench
+
+    on_card((1,), 0)
+    before = (k.clmul_flat.launches, enc.encrypt_words_table.launches, prng.random_bits.launches)
+    assert bench.main(["--quick", "--json-only"]) == 0
+    after = (k.clmul_flat.launches, enc.encrypt_words_table.launches, prng.random_bits.launches)
+    assert all(x > y for x, y in zip(after, before))
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    ex = out["extras"]
+    assert ex["platform"] == "gpu" and out["value"] > 0
+    for key in ("encrypt_device_busy_bits_per_s", "decrypt_device_busy_bits_per_s",
+                "add_u32_device_busy_per_s", "lt_u32_device_busy_per_s",
+                "decrypt_u32_device_latency_us"):
+        assert ex[key] is not None and ex[key] > 0, key
+
+
+def test_entry_on_card():
+    """``entry()``'s step on the card (checked by decrypt inside) gives the
+    CPU step's outputs, and ``dryrun_multichip(2)`` passes on the card."""
+    from homomorph_tpu_torch import entry
+
+    on_card((1,), 0)
+    fn, args = entry.entry("cuda")
+    assert all(a.is_cuda for a in args)
+    before = (k.clmul_flat.launches, enc.encrypt_words_table.launches)
+    out = [o.cpu() for o in fn(*args)]
+    assert k.clmul_flat.launches > before[0] and enc.encrypt_words_table.launches > before[1]
+    cfn, cargs = entry.entry("cpu")
+    for got, want in zip(out, cfn(*cargs)):
+        assert torch.equal(got, want)
+    assert entry.dryrun_multichip(2, "cuda")["places"] == 2

@@ -44,7 +44,11 @@ def test_port_files_exist():
                 "native/__init__.py", "native/gf2_native.cpp", "verify.py",
                 "models/compiled.py", "utils/profiling.py", "utils/cache.py",
                 "parallel/__init__.py", "parallel/mesh.py", "parallel/bulk.py",
-                "parallel/limbmul.py", "parallel/distributed.py", "examples/__init__.py"):
+                "parallel/limbmul.py", "parallel/distributed.py", "examples/__init__.py",
+                "bench.py", "entry.py", "bench_scaling.py", "experiments/common.py",
+                "experiments/exp_mul32.py", "experiments/exp_mul64.py", "experiments/exp_add.py",
+                "experiments/exp_mul.py", "experiments/exp_mul_roofline.py",
+                "experiments/exp_enc_chunked.py", "experiments/exp_scaling_model.py"):
         assert os.path.exists(os.path.join(PKG, rel)), rel
 
 
@@ -62,10 +66,13 @@ def test_import_does_not_load_jax():
         "homomorph_tpu_torch.native, homomorph_tpu_torch.verify, "
         "homomorph_tpu_torch.models.compiled, homomorph_tpu_torch.utils.profiling, "
         "homomorph_tpu_torch.utils.cache, homomorph_tpu_torch.parallel, "
-        "homomorph_tpu_torch.parallel.distributed, homomorph_tpu_torch.examples; "
-        "import importlib, pkgutil, homomorph_tpu_torch.examples as ex; "
-        "[importlib.import_module('homomorph_tpu_torch.examples.' + m.name) "
-        "for m in pkgutil.iter_modules(ex.__path__)]; "
+        "homomorph_tpu_torch.parallel.distributed, homomorph_tpu_torch.examples, "
+        "homomorph_tpu_torch.bench, homomorph_tpu_torch.entry, "
+        "homomorph_tpu_torch.bench_scaling; "
+        "import importlib, pkgutil, homomorph_tpu_torch.examples as ex, "
+        "homomorph_tpu_torch.experiments as xp; "
+        "[importlib.import_module(p.__name__ + '.' + m.name) "
+        "for p in (ex, xp) for m in pkgutil.iter_modules(p.__path__)]; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'homomorph_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

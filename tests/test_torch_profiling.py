@@ -5,6 +5,7 @@ and speed-of-light models (the SM count and clock given by hand), ``trace``
 with ``torch.profiler`` on the CPU, and ``enable_compilation_cache``."""
 
 import json
+import types
 import os
 
 import pytest
@@ -116,6 +117,45 @@ class TestTrace:
             pytest.skip("a card is present")
         with pytest.raises(RuntimeError, match="CUDA"):
             profiling.device_busy(lambda: torch.zeros(4))
+
+    def test_records_lost_in_one_trace_are_counted_from_the_others(self, monkeypatch):
+        """Every call launches the same kernels: a name's count a call is
+        the most any of the three traces holds, rounded up to whole calls,
+        and its time that count times its mean record time.  Three empty
+        traces raise."""
+        import torch.profiler
+        from torch.autograd import DeviceType
+
+        def event(name, us):
+            return types.SimpleNamespace(device_type=DeviceType.CUDA, name=name,
+                                         time_range=types.SimpleNamespace(elapsed_us=lambda: us))
+
+        # two calls a trace, each a k2 of 100 us and a t1 of 10 us; the first
+        # trace lost a t1, the second everything, the third a k2 and a t1
+        traces = [[event("k2", 100.0), event("k2", 100.0), event("t1", 10.0)], [],
+                  [event("k2", 100.0), event("t1", 10.0)]]
+
+        class FakeProfile:
+            def __init__(self, activities):
+                self.trace = traces.pop(0)
+
+            def __enter__(self):
+                return self
+
+            def __exit__(self, *exc):
+                return False
+
+            def events(self):
+                return self.trace
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+        monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+        assert profiling.device_records(lambda: None, 2) == pytest.approx({"k2": 0.2, "t1": 0.02})
+        assert traces == []
+        traces.extend([[]] * 3)
+        with pytest.raises(RuntimeError, match="no device time in 3 traces"):
+            profiling.device_busy(lambda: None)
 
 
 class TestCompilationCache:

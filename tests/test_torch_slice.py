@@ -254,10 +254,9 @@ class TestEntryPoints:
         with pytest.raises(RuntimeError, match="CUDA"):
             ht.Ciphered.trivial(1, ht.U8)
 
-    def test_sharding_is_not_ported_yet(self, small_pair):
-        # The name is older than the sharding it now checks: sharding= no
-        # longer raises, Context takes a grid of places, and a sharded
-        # encrypt gives the dense path's bytes for the same key
+    def test_sharding_gives_the_dense_bytes(self, small_pair):
+        # sharding= does not raise, Context takes a grid of places, and a
+        # sharded encrypt gives the dense path's bytes for the same key
         from homomorph_tpu_torch.parallel import make_mesh
 
         cfg = make_mesh(1, 2, ["cpu"] * 2)
