@@ -60,8 +60,15 @@ Phases, in order; any failure exits non-zero before the result line:
    multiplications: warm wall time, device time by kernel, busy share;
 9. the verify gate (``run_verification()`` in full, scaled round trip
    included), a path of its own;
-10. the native decrypt masks at the 9-, 65-, 8,192- and 98,304-limb classes
-   against the Python-int recurrence, word for word, both timed (host);
+10. the decrypt masks on the card (:func:`phase_masks`) at the 9-, 65-,
+   8,192-, 98,304-, 262,144- and 3,145,728-limb classes: the device route
+   (the power series, M1 and K1) against the native host engine word for
+   word at every class, native against the Python-int recurrence up to
+   98,304 limbs, the widest class's last 64 bits against ``X^i mod S`` by
+   square-and-multiply; the route's cold and warm wall, device time and
+   bound beside native's host time; M1 against ``square_plain`` at the
+   route's last squaring of the two widest classes (timed as in phase 3)
+   and at edge shapes;
 10b. the mesh path (:func:`phase_mesh`), grids of places on the one card
    (one card cannot give NCCL two ranks, so every exchange stays in the
    process): ``sharded_encrypt_bits`` at ``(128, 128, 64, 128)``, 2^21
@@ -83,7 +90,7 @@ Phases, in order; any failure exits non-zero before the result line:
    (``homomorph_tpu_torch.experiments.exp_mul64``), decrypted against
    ``x * y mod 2^64`` under a key with ``S(0) = 1``: keygen, the eager
    tree's wall, device time, K1 launches and peak memory, the decrypt
-   mask's host time; K1's launch with the most rows and its widest held
+   mask's wall and device time; K1's launch with the most rows and its widest held
    against the plain version on their first and last 256 rows
    (:func:`k1_spot_checked`);
 10d. the entry points (``homomorph_tpu_torch.entry``): ``entry()``'s
@@ -92,8 +99,9 @@ Phases, in order; any failure exits non-zero before the result line:
 10e. the port's bench (``homomorph_tpu_torch.bench --with-mul32``) at full
    size, its JSON printed on a line of its own: the verify gate, then every
    section, the u16 and the d = 5888 u32 products decrypted on the card
-   under keys with ``S(0) = 1``, K1's largest and widest launches held
-   against the plain version as in 10c, every device-busy field a number;
+   under keys with ``S(0) = 1`` (the u32 product's mask timed on the card),
+   K1's largest and widest launches held against the plain version as in
+   10c, every device-busy field a number;
 11. the compiled pipelines as CUDA graphs (:func:`phase_compiled`): the u32
    add (2,048 pairs) and the u32 product (8 pairs) against eager limb for
    limb and decrypted, and the u32 add's encrypt -> add -> decrypt round
@@ -104,7 +112,8 @@ Phases, in order; any failure exits non-zero before the result line:
    against the same function run eagerly on its keys; their launches are
    those counted at warm-up and capture (a replay must count none);
 8. one JSON line of kernels (launches counted over the paths: phases 5-6,
-   5b, 6b, 5c, 9, 10b-10e and 11, each counted from 0; each bound the larger of the
+   5b, 6b, 5c, 9, 10b-10e and 11, each counted from 0, where M1 and K1 also
+   run each new decrypt mask; each bound the larger of the
    bytes and the necessary work of the best design in the repo, see
    :func:`set_bounds` and ``homomorph_tpu_torch/utils/profiling.py``, with
    the older operation count's bound beside it);
@@ -127,8 +136,14 @@ SEED = 1234  # keys, plaintexts and selection words all derive from it
 
 # the peaks and the bounds' work counts live in the port (fails outside a checkout)
 sys.path.insert(0, ROOT)
-from homomorph_tpu_torch.experiments.common import leaf_shape, recorded_products  # noqa: E402
+from homomorph_tpu_torch.gf2 import mask_kernel  # noqa: E402
+from homomorph_tpu_torch.experiments.common import (  # noqa: E402
+    leaf_shape,
+    products_sol,
+    recorded_products,
+)
 from homomorph_tpu_torch.utils.profiling import (  # noqa: E402
+    SQUARE_OPS_PER_LIMB,
     THREEFRY_ALU_OPS_PER_WORD,
     bound,
     chip_peaks,
@@ -137,6 +152,7 @@ from homomorph_tpu_torch.utils.profiling import (  # noqa: E402
     clmul_ops,
     device_records,
     encrypt_lookup_bytes,
+    square_bytes,
 )
 
 #: jax.random.bits(jax.random.key(seed), (8,), uint32), computed by the JAX
@@ -808,6 +824,7 @@ def wide_mul(ctx, ht, name, params, n, desc, bits, direct_rows, seed):
 
     torch, dev = ctx["torch"], ctx["dev"]
     from homomorph_tpu_torch.gf2 import kernels as k
+    from homomorph_tpu_torch.gf2 import poly as gf2
     from homomorph_tpu_torch.models import HomomorphicMultiplication as Mul
 
     rng = np.random.default_rng(seed)
@@ -825,6 +842,7 @@ def wide_mul(ctx, ht, name, params, n, desc, bits, direct_rows, seed):
     peak = torch.cuda.max_memory_allocated() / 1e9
     sk = c.get_secret_key()
     _, mask_ms = stage(torch, lambda: sk.decrypt_mask(prod.num_limbs))
+    mask_dev_ms = profiled_ms(lambda: gf2.decrypt_mask(sk.limbs, sk.degree, prod.num_limbs), 1)
     got, dec_ms = stage(torch, lambda: np.array(c.decrypt(prod).tolist(), dtype=np.uint64))
     want = (xs * ys) % (1 << bits)
     check(np.array_equal(got, want), f"{name}: {int((got != want).sum())} of {n} products wrong")
@@ -844,7 +862,8 @@ def wide_mul(ctx, ht, name, params, n, desc, bits, direct_rows, seed):
     leaves = [leaf_shape(*s, kmin) for s in shapes]
     stats = dict(params=[params.d, params.dp, params.delta, params.tau], pairs=n,
                  requirement=req, keygen_ms=keygen_ms, encrypt_ms=enc_ms, mul_ms=mul_ms,
-                 mask_ms=mask_ms, decrypt_ms=dec_ms, product_limbs=list(prod.limbs.shape),
+                 mask_ms=mask_ms, mask_device_ms=mask_dev_ms, decrypt_ms=dec_ms,
+                 product_limbs=list(prod.limbs.shape),
                  bound=prod.bound, noise=prod.noise, peak_gb=peak, k1_launches=launches,
                  products=len(shapes),
                  route_levels=sum(len(k.route_plan(min(s[1:]), max(s[1:]), kmin)) for s in shapes),
@@ -857,7 +876,8 @@ def wide_mul(ctx, ht, name, params, n, desc, bits, direct_rows, seed):
         f"encrypt {enc_ms:.3f} ms, checked mul {mul_ms:.3f} ms ({len(shapes)} products, "
         f"{launches} K1 launches, {stats['route_levels']} route levels; product "
         f"{list(prod.limbs.shape)}, bound {prod.bound}, noise {prod.noise}; peak {peak:.3f} GB), "
-        f"decrypt mask {mask_ms:.3f} ms host, decrypt {dec_ms:.3f} ms; all right; {r} rows with "
+        f"decrypt mask {mask_ms:.3f} ms wall, {ms_text(mask_dev_ms, 3)} ms device (on the card), "
+        f"decrypt {dec_ms:.3f} ms; all right; {r} rows with "
         f"the route off {direct_ms:.3f} ms ({direct_launches} K1 launches), equal limb for limb")
     log(f"[wide] {name}: widest product {stats['widest_product']}, busiest "
         f"{stats['busiest_product']}; K1 launches: widest {stats['widest_leaf']}, busiest "
@@ -1147,19 +1167,119 @@ def phase_verify(ctx):
     return dict(ms=ms, lines=lines)
 
 
-# (label, key's context in ctx, limbs): the decrypt-mask classes of the paths
+# (label, key, limbs): the decrypt-mask classes of the paths, up to the
+# bench's u32 product (d = 5888) and the u64 product (d = 13440); a key is
+# the name of a context in ctx, or a degree whose key comes from CHECK_SEED
 MASK_CLASSES = (("d128-L9", "add_inputs", 9), ("d1024-L65", "u16_inputs", 65),
-                ("d1024-L8192", "u16_inputs", 8192), ("d2432-L98304", "u32_inputs", 98304))
+                ("d1024-L8192", "u16_inputs", 8192), ("d2432-L98304", "u32_inputs", 98304),
+                ("d5888-L262144", 5888, 262144), ("d13440-L3145728", 13440, 3145728))
+#: the widest class whose native mask is also held against the Python-int
+#: recurrence (3.1M big-int steps; the wider classes would take minutes)
+PYTHON_MASK_LIMBS = 98304
+#: bit positions at the end of the widest class held against ``X^i mod S``
+#: by square-and-multiply on Python integers
+MASK_TAIL_BITS = 64
+
+
+def x_pow_mod(e, s_int, d):
+    """``X^e mod S`` on Python integers (``S`` of exact degree ``d``): a
+    square in GF(2)[X] spreads the bits (bit ``j`` to bit ``2j``), then
+    the reduction XORs ``S`` under each bit from ``2d`` down to ``d``."""
+    def reduce(p):
+        while p.bit_length() > d:
+            p ^= s_int << (p.bit_length() - 1 - d)
+        return p
+
+    r = 1
+    for bit in bin(e)[2:]:
+        r = reduce(int("0".join(bin(r)[2:]), 2))
+        if bit == "1":
+            r = reduce(r << 1)
+    return r
+
+
+def mask_tail(sk, n_limbs, bits):
+    """The last ``bits`` mask bits of the class, ``(X^i mod S)(0)`` for the
+    last ``bits`` positions ``i``, from :func:`x_pow_mod` and the monic
+    recurrence after it, packed as ``bits / 32`` limbs."""
+    import numpy as np
+
+    from homomorph_tpu_torch.gf2 import poly as gf2
+
+    s_int = int.from_bytes(gf2.limbs_to_bytes(sk.limbs), "little")
+    d = sk.degree
+    r = x_pow_mod(32 * n_limbs - bits, s_int, d)
+    out = 0
+    for i in range(bits):
+        out |= (r & 1) << i
+        r <<= 1
+        if r >> d & 1:
+            r ^= s_int
+    return np.frombuffer(out.to_bytes(bits // 8, "little"), dtype="<u4").astype(np.uint32)
+
+
+def square_rows(ctx, classes):
+    """M1 against ``square_plain`` at the last (widest) squaring of the
+    series inverse of each ``(label, degree, limbs)`` class, timed as in
+    phase 3, and at edge shapes (one limb, odd tails, rows whose addresses
+    are not 16-byte aligned, a whole square) checked only."""
+    torch = ctx["torch"]
+    from homomorph_tpu_torch.gf2 import mask_kernel as mk
+
+    for B, L, n_bits, offset in ((1, 1, 1, 0), (3, 7, 200, 0), (5, 33, None, 0),
+                                 (2, 9, 288, 0), (1, 1000, 1500, 1), (1, 4096, 262143, 1)):
+        x = random_words(ctx, (B, L + offset))[:, offset:]
+        x = x if B == 1 else x.contiguous()
+        got = mk.square(x, n_bits)
+        torch.cuda.synchronize()
+        bad, _ = compare(torch, got, mk.square_plain(x, n_bits))
+        check(bad == 0, f"square [{B}, {L}] to {n_bits} bits (offset {offset}): {bad} mismatches")
+    log("[masks] M1 equals square_plain at the edge shapes (one limb, odd tails, unaligned rows)")
+    rows = []
+    for label, d, n_limbs in classes:
+        m = 32 * n_limbs - d
+        L = -(-mk.precisions(m)[-2] // 32)
+        Lo = -(-m // 32)
+        x = random_words(ctx, (1, L))
+        got = mk.square(x, m)
+        torch.cuda.synchronize()
+        bad, err = compare(torch, got, mk.square_plain(x, m))
+        check(bad == 0, f"square {label} [1, {L}] -> [1, {Lo}]: {bad} mismatches")
+        rows.append(dict(
+            kernel="square", label=label, shape=f"B=1 L={L} Lo={Lo} bits={m}",
+            mismatches=bad, max_abs_err=err,
+            **timed(torch, lambda: mk.square(x, m), lambda: mk.square_plain(x, m)),
+            work=[(Lo * SQUARE_OPS_PER_LIMB, "int32_ops")], old_ops=Lo * SQUARE_OPS_PER_LIMB,
+            old_rate="int32_ops", bytes=square_bytes(1, L, Lo),
+        ))
+        log(f"[kernels] square {label} [1, {L}] -> [1, {Lo}]: mismatches {bad}, kernel "
+            f"{rows[-1]['ms']} ms by {rows[-1]['ms_by']} (call {rows[-1]['call_ms']} ms), plain "
+            f"{rows[-1]['plain_ms']} ms by {rows[-1]['plain_by']}")
+        del x, got
+    return set_bounds(ctx, rows)
 
 
 def phase_masks(ctx):
-    """The native decrypt mask against the Python-int recurrence at the
-    paths' degree classes, word for word, both timed on the host."""
+    """The decrypt masks of the paths' classes on the card, up to the u64
+    product's 3,145,728 limbs: the device route (:func:`homomorph_tpu_torch.
+    gf2.poly.decrypt_mask`, M1 and K1) against the native host engine word
+    for word at every class, the native engine against the Python-int
+    recurrence up to :data:`PYTHON_MASK_LIMBS`, and the widest class's last
+    :data:`MASK_TAIL_BITS` bits against ``X^i mod S`` by square-and-multiply.
+    The route's synchronised wall time cold (its first call at the class)
+    and warm (median of 3), its device time (``torch.profiler``), its K1
+    products' bound at the route's leaf shapes (K1's comb work, the
+    operands and product moved once) plus M1's bytes, and the native
+    engine's host time.  Returns (stats, M1's kernel rows)."""
     import numpy as np
 
+    import homomorph_tpu_torch as ht
     from homomorph_tpu_torch import native
+    from homomorph_tpu_torch.experiments.common import CHECK_SEED
+    from homomorph_tpu_torch.gf2 import mask_kernel as mk
     from homomorph_tpu_torch.gf2 import poly as gf2
 
+    torch = ctx["torch"]
     native.library()  # built and loaded before the clock starts
     out = []
     def median_ms(fn, reps):
@@ -1170,25 +1290,70 @@ def phase_masks(ctx):
             walls.append((time.perf_counter() - t0) * 1e3)
         return res, sorted(walls)[reps // 2]
 
+    wide = []
     for label, source, n_limbs in MASK_CLASSES:
-        sk = ctx[source][0].get_secret_key()
+        if isinstance(source, str):
+            sk = ctx[source][0].get_secret_key()
+        else:
+            sk = ht.SecretKey.random(source, ht.ThreefrySource(CHECK_SEED), device=ctx["dev"])
+            check(int(sk.limbs[0].item()) & 1, f"mask {label}: the key has S(0) = 0")
+            wide.append((label, source, n_limbs))
         host = gf2.to_numpy(sk.limbs)
+        d, s0 = sk.degree, int(host[0]) & 1
+
+        def route():
+            return gf2.decrypt_mask(sk.limbs, d, n_limbs)
+
+        m1, k1 = mk.square.launches, mk.series_inverse.k1_launches
+        (dev_w, cold_ms), shapes = recorded_products(lambda: stage(torch, route))
+        m1, k1 = mk.square.launches - m1, mk.series_inverse.k1_launches - k1
+        warm_ms = sorted(stage(torch, route)[1] for _ in range(3))[1]
+        device_ms = profiled_ms(route, 1)
+        check(torch.equal(sk.decrypt_mask(n_limbs), dev_w),
+              f"mask {label}: the key's cached mask differs from the route's")
+        got = gf2.to_numpy(dev_w)
         small = n_limbs <= 1024  # a single call is too short for the host clock
-        fast, native_ms = median_ms(lambda: native.decrypt_mask(host, sk.degree, n_limbs),
-                                    21 if small else 3)
-        plain, python_ms = median_ms(lambda: gf2.decrypt_mask_words(host, sk.degree, n_limbs),
-                                     21 if small else 1)
-        check(np.array_equal(fast, plain), f"mask {label}: native differs from the Python-int recurrence")
-        out.append(dict(label=label, degree=sk.degree, limbs=n_limbs, native_ms=native_ms,
-                        python_ms=python_ms))
-        log(f"[masks] {label} (median of {21 if small else 3} and {21 if small else 1} calls): "
-            f"native {native_ms:.4f} ms, Python ints {python_ms:.4f} ms "
-            f"({python_ms / native_ms:.1f}x); equal word for word")
-    return out
+        reps = 21 if small else 3 if n_limbs <= 262144 else 1
+        fast, native_ms = median_ms(lambda: native.decrypt_mask(host, d, n_limbs), reps)
+        check(np.array_equal(got, fast), f"mask {label}: the device route differs from native "
+              f"at {int((got != fast).sum())} of {n_limbs} limbs")
+        row = dict(label=label, degree=d, s0=s0, limbs=n_limbs, native_ms=native_ms,
+                   native_reps=reps, cold_ms=cold_ms, warm_ms=warm_ms, device_ms=device_ms,
+                   m1_launches=m1, k1_launches=k1, products=len(shapes),
+                   leaf_limb_pairs=sum(B * Ls * (Lg + 1)
+                                       for B, Ls, Lg in (leaf_shape(*sh) for sh in shapes)))
+        sq_bytes = sum(square_bytes(1, -(-a // 32), -(-b // 32)) for a, b in
+                       zip([1] + mk.precisions(32 * n_limbs - d)[:-1],
+                           mk.precisions(32 * n_limbs - d))) if 32 * n_limbs > d else 0
+        row["bound_ms"] = (products_sol(shapes, ctx["peaks"])
+                           + sq_bytes / ctx["peaks"]["hbm_bw"]) * 1e3
+        if n_limbs <= PYTHON_MASK_LIMBS:
+            plain, python_ms = median_ms(lambda: gf2.decrypt_mask_words(host, d, n_limbs),
+                                         21 if small else 1)
+            check(np.array_equal(fast, plain),
+                  f"mask {label}: native differs from the Python-int recurrence")
+            row["python_ms"] = python_ms
+        else:
+            tail = mask_tail(sk, n_limbs, MASK_TAIL_BITS)
+            check(np.array_equal(got[-MASK_TAIL_BITS // 32:], tail),
+                  f"mask {label}: the last {MASK_TAIL_BITS} bits differ from X^i mod S")
+        out.append(row)
+        log(f"[masks] {label} (S(0) = {s0}): device route cold {cold_ms:.4f} ms, warm "
+            f"{warm_ms:.4f} ms, device {ms_text(device_ms, 4)} ms ({m1} M1 and {k1} K1 "
+            f"launches, {row['leaf_limb_pairs']:,} leaf limb pairs, bound "
+            f"{row['bound_ms']:.4f} ms); native {native_ms:.4f} ms (median of {reps}), "
+            f"{native_ms / warm_ms:.1f}x the warm route; equal word for word"
+            + (f"; Python ints {row['python_ms']:.4f} ms, equal to native" if "python_ms" in row
+               else f"; the last {MASK_TAIL_BITS} bits equal X^i mod S"))
+        del dev_w, got, fast
+    return out, square_rows(ctx, wide)
 
 
 #: K1's launches on the paths before the mesh phase, as counted before the
-#: limb-mesh hook existed in the clmul dispatcher (PERF.md section 6)
+#: limb-mesh hook existed in the clmul dispatcher (PERF.md section 6), and
+#: before the decrypt masks moved to the card: the mask route's own K1
+#: launches (``mask_kernel.series_inverse.k1_launches``, the ``mask_clmul``
+#: count of each path) are taken off each path's K1 count before the check
 K1_EARLIER_PATHS = {"add": 36, "mul_cmp": 47, "exp_enc": 1, "wide": 429, "verify": 39,
                     "compiled": 378}
 
@@ -1475,7 +1640,7 @@ def k1_spot_checked(ctx, label, fn):
 def phase_u64(ctx):
     """Phase 10c: the u64 product at ``Parameters(13440, 128, 1, 128)``
     (``homomorph_tpu_torch.experiments.exp_mul64``): keygen, the eager tree,
-    its K1 launches and peak memory, the decrypt mask on the host, the
+    its K1 launches and peak memory, the decrypt mask's wall and device time, the
     decrypt against ``x * y mod 2^64`` under a key with ``S(0) = 1`` (inside
     the envelope, so every coefficient of the product counts), and a warm
     call's wall and device time.  K1's largest and widest launches are held
@@ -1541,6 +1706,20 @@ def phase_bench(ctx):
             f"{w['p95_s_per_step']:.9f} s, min {w['min_s_per_step']:.9f} s a step "
             f"({w['windows']} x {w['steps_per_window']})")
     return dict(result, windows=windows, k1_spot_checks=spots)
+
+
+class MaskK1:
+    """K1's launches made by the decrypt masks' series inverse
+    (``mask_kernel.series_inverse.k1_launches``, a share of K1's count),
+    read and reset like a wrapper's ``launches``."""
+
+    @property
+    def launches(self):
+        return mask_kernel.series_inverse.k1_launches
+
+    @launches.setter
+    def launches(self, value):
+        mask_kernel.series_inverse.k1_launches = value
 
 
 def launch_counts(ctx):
@@ -1776,6 +1955,7 @@ def main(argv=None):
     from homomorph_tpu_torch.gf2 import cuda_build
     from homomorph_tpu_torch.gf2 import encrypt_kernel as enc
     from homomorph_tpu_torch.gf2 import kernels as k
+    from homomorph_tpu_torch.gf2 import mask_kernel as mk
 
     dev = torch.device("cuda")
     ctx = dict(torch=torch, dev=dev, seed=SEED,
@@ -1815,7 +1995,8 @@ def main(argv=None):
     ctx["wrappers"] = wrappers = {
         "clmul": k.clmul_flat, "encrypt": enc.encrypt_words_table,
         "encrypt_v1": enc.encrypt_words_mma, "encrypt_v3": enc.encrypt_sel_mma,
-        "threefry": prng.random_bits, "threefry_dkey": prng.random_bits_device_key}
+        "threefry": prng.random_bits, "threefry_dkey": prng.random_bits_device_key,
+        "square": mk.square, "mask_clmul": MaskK1()}
 
     def run_path(fn):
         for w in wrappers.values():
@@ -1860,13 +2041,14 @@ def main(argv=None):
     profile_stats = phase_profile(ctx, main_stats, bulk_stats, mul_stats, wide_stats)
     log(f"[profile] phase done in {time.perf_counter() - t0:.3f} s")
 
-    # 9-11. the verify gate, the native masks and the compiled pipelines (the
+    # 9-11. the verify gate, the decrypt masks and the compiled pipelines (the
     # CUDA graphs last: in one run, a phase 3b trace that ran after them came
     # back with no device records; profiler_after_graphs checks the profiler
     # after them and records what it finds)
     verify_stats, paths["verify"] = run_path(lambda: phase_verify(ctx))
     t0 = time.perf_counter()
-    mask_stats = phase_masks(ctx)
+    mask_stats, square_kernel_rows = phase_masks(ctx)
+    rows += square_kernel_rows
     log(f"[masks] phase done in {time.perf_counter() - t0:.3f} s")
     # 10b. the grids of places, before the graphs
     mesh_stats, paths["mesh"] = run_path(lambda: phase_mesh(ctx))
@@ -1885,25 +2067,27 @@ def main(argv=None):
     for path, counts in paths.items():
         log(f"[paths] launches in {path}: {counts}")
     # which kernels each path must have run, and K2 must not run under pallas_v1
-    needs = {"add": ("clmul", "encrypt", "threefry"),
-             "mul_cmp": ("clmul", "encrypt_v1", "threefry"),
+    needs = {"add": ("clmul", "encrypt", "threefry", "square"),
+             "mul_cmp": ("clmul", "encrypt_v1", "threefry", "square"),
              "exp_enc": ("encrypt", "encrypt_v1", "encrypt_v3", "threefry"),
-             "wide": ("clmul", "encrypt", "threefry"),
-             "verify": ("clmul", "encrypt", "threefry"),
-             "mesh": ("clmul", "encrypt", "encrypt_v3", "threefry"),
-             "u64": ("clmul", "encrypt"),
-             "entry": ("clmul", "encrypt", "encrypt_v3", "threefry"),
-             "bench": ("clmul", "encrypt", "threefry"),
+             "wide": ("clmul", "encrypt", "threefry", "square"),
+             "verify": ("clmul", "encrypt", "threefry", "square"),
+             "mesh": ("clmul", "encrypt", "encrypt_v3", "threefry", "square"),
+             "u64": ("clmul", "encrypt", "square"),
+             "entry": ("clmul", "encrypt", "encrypt_v3", "threefry", "square"),
+             "bench": ("clmul", "encrypt", "threefry", "square"),
              "compiled": ("clmul", "encrypt", "encrypt_v1", "threefry_dkey")}
     for path, names in needs.items():
         for name in names:
             check(paths[path][name] > 0, f"{name} was not launched on the {path} path")
     check(paths["mul_cmp"]["encrypt"] == 0, "K2 ran while pallas_v1 selected K3")
     # the limb-mesh hook is inert without a mesh: K1's launches on the
-    # earlier paths are those of the runs before it existed
+    # earlier paths, less the mask route's, are those of the runs before
+    # either existed
     for path, want in K1_EARLIER_PATHS.items():
-        check(paths[path]["clmul"] == want,
-              f"K1 launched {paths[path]['clmul']} times on the {path} path, not {want}")
+        got = paths[path]["clmul"] - paths[path]["mask_clmul"]
+        check(got == want, f"K1 launched {got} times on the {path} path besides the "
+              f"{paths[path]['mask_clmul']} of its decrypt masks, not {want}")
 
     # 8. kernels line: each kernel at its busiest path shape
     meta = {
@@ -1921,6 +2105,10 @@ def main(argv=None):
         # T1's device-key entry (hm_threefry_bits_dkey): the same stream
         "threefry_dkey": ("homomorph_tpu_torch/csrc/threefry.cu",
                           "homomorph_tpu/cipher.py:360", "words"),
+        # not a Pallas kernel: the lax.scan of the decrypt mask's recurrence
+        # there; M1 squares the series that replaces it (K1 multiplies)
+        "square": ("homomorph_tpu_torch/csrc/mask.cu", "homomorph_tpu/gf2/poly.py:352",
+                   "d13440-L3145728"),
     }
     kernels = []
     for name, (source, replaces, label) in meta.items():

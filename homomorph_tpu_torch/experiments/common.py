@@ -17,7 +17,7 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["Timer", "peaks", "context", "key_s0", "CHECK_SEED", "leaf_shape",
+__all__ = ["Timer", "peaks", "context", "key_s0", "mask_wall_s", "mask_device_s", "CHECK_SEED", "leaf_shape",
            "recorded_products", "products_sol"]
 
 #: SM count and maximum SM clock of the H100 SXM, for bounds computed off the card
@@ -128,6 +128,26 @@ def key_s0(ctx) -> int:
     depth decrypts right; inside the noise envelope a key with ``S(0) = 1``
     decrypts right only if the whole product is right."""
     return int(ctx.get_secret_key().limbs[0].item()) & 1
+
+
+def mask_wall_s(t: Timer, sk, n_limbs: int) -> float:
+    """Wall seconds of the secret key ``sk``'s first decrypt mask of
+    ``n_limbs`` limbs (computed on its device and cached), between two
+    synchronisations."""
+    t.sync()
+    t0 = time.perf_counter()
+    sk.decrypt_mask(n_limbs)
+    t.sync()
+    return time.perf_counter() - t0
+
+
+def mask_device_s(t: Timer, sk, n_limbs: int) -> "float | None":
+    """Device seconds of the decrypt mask's route at ``n_limbs`` limbs under
+    ``sk``, run again uncached; ``None`` off the card.  Its profiler
+    traces come after a stage's timed windows, never before them."""
+    from homomorph_tpu_torch.gf2 import poly as gf2
+
+    return t.device_s(lambda: gf2.decrypt_mask(sk.limbs, sk.degree, n_limbs), reps=1)[0]
 
 
 def leaf_shape(B: int, La: int, Lb: int, kmin: "int | None" = None) -> "tuple[int, int, int]":

@@ -5,13 +5,14 @@ majority-form ripple needs d/delta >= 13,373 for u64 (``models/noise.py``);
 at ``Parameters(13440, 128, 1, 128)`` and one pair the product's degree
 bound is about 90.3M (2,821,493 limbs), held in the degree class of
 3,145,728 limbs a lane, 0.81 GB for its 64 lanes.  The decrypt mask of
-that class is 100.7M rows of the native host engine's recurrence; the
-decrypt itself is the usual masked parity on the card.
+that class covers 100.7M bit positions, a power series computed on the
+card (:func:`homomorph_tpu_torch.gf2.poly.decrypt_mask`); the decrypt
+itself is the usual masked parity on the card.
 
 The tree runs eagerly (op by op), as the JAX experiment runs it.  The
 experiment records keygen time, the tree's first and warm wall time, its
 device time as one CUDA graph replay, its K1 launches, peak device memory,
-the mask's host time and the decrypt, and that the product decrypts to
+the mask's wall and device time and the decrypt, and that the product decrypts to
 ``x * y mod 2^64``.  It refuses parameters below the bound.  The key comes
 from :data:`~homomorph_tpu_torch.experiments.common.CHECK_SEED` (``S(0) =
 1``), so the decrypt reads every coefficient of the product; the JAX
@@ -31,7 +32,14 @@ import time
 import numpy as np
 import torch
 
-from homomorph_tpu_torch.experiments.common import CHECK_SEED, Timer, context, key_s0
+from homomorph_tpu_torch.experiments.common import (
+    CHECK_SEED,
+    Timer,
+    context,
+    key_s0,
+    mask_device_s,
+    mask_wall_s,
+)
 
 #: d >= the exact tree bound 13,373, a multiple of 128
 PARAMS = (13440, 128, 1, 128)
@@ -105,16 +113,14 @@ def run(params=PARAMS, seed: int = CHECK_SEED, device=None, log=print) -> dict:
     log(f"tree: {t_tree:.3f} s, {k1} K1 launches, product {shape} ({gb:.3f} GB), "
         f"peak device memory {peak} GB")
 
-    t0 = time.perf_counter()
-    ctx.get_secret_key().decrypt_mask(shape[-1])
-    t_mask = time.perf_counter() - t0
+    t_mask = mask_wall_s(t, ctx.get_secret_key(), shape[-1])
     t0 = time.perf_counter()
     got = int(ctx.decrypt(prod))
     t_dec = time.perf_counter() - t0
     if got != want:
         raise RuntimeError(f"the u64 product decrypts wrong: {got:#x} != {want:#x}")
-    log(f"u64 product decrypts correctly on {dev}: mask {t_mask:.3f} s on the host "
-        f"({shape[-1] * 32} rows), decrypt {t_dec:.3f} s; {x:#x} * {y:#x} = {got:#x}")
+    log(f"u64 product decrypts correctly on {dev}: mask {t_mask:.6f} s wall "
+        f"({shape[-1] * 32} bit positions), decrypt {t_dec:.3f} s; {x:#x} * {y:#x} = {got:#x}")
     del prod
 
     t.sync()
@@ -125,9 +131,12 @@ def run(params=PARAMS, seed: int = CHECK_SEED, device=None, log=print) -> dict:
     dv = graph_device_s(a, b) if dev.type == "cuda" else None
     log(f"tree warm: wall {warm:.3f} s; as one CUDA graph: device "
         f"{'not measured' if dv is None else f'{dv:.3f} s'}")
+    dev_mask = mask_device_s(t, ctx.get_secret_key(), shape[-1])
+    log(f"decrypt mask: {dev_mask} s device")
     return dict(params=[mp.d, mp.dp, mp.delta, mp.tau], requirement=req, s0=s0, keygen_s=keygen,
                 tree_first_s=t_tree, tree_warm_s=warm, tree_device_s=dv, k1_launches=k1,
-                peak_gb=peak, product_shape=list(shape), product_gb=gb, mask_host_s=t_mask,
+                peak_gb=peak, product_shape=list(shape), product_gb=gb, mask_s=t_mask,
+                mask_device_s=dev_mask,
                 decrypt_s=t_dec, correct=True, device=str(dev))
 
 

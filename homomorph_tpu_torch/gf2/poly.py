@@ -25,9 +25,10 @@ kernel for tensors on the card.
 Remainders: reduction mod a fixed ``S`` is GF(2)-linear in the dividend,
 so decryption uses a mask (:func:`decrypt_mask`) and the full remainder a
 table of ``X^i mod S`` rows (:func:`reduction_rows`, :func:`rem_linear`).
-Both tables come from the native host engine
-(:mod:`homomorph_tpu_torch.native`), which runs the JAX package's monic
-recurrence in C, and move to the tensor's device.
+The mask is a power series computed on the tensor's device
+(:mod:`homomorph_tpu_torch.gf2.mask_kernel`); the table comes from the
+native host engine (:mod:`homomorph_tpu_torch.native`), which runs the JAX
+package's monic recurrence in C, and moves to the tensor's device.
 :func:`rem_iterative`, the fixed-trip masked division, is kept for API
 parity and as a cross-check.
 """
@@ -405,7 +406,7 @@ def decrypt_mask_words(s: np.ndarray, s_degree: int, n_limbs: int) -> np.ndarray
     JAX package (``poly.py:352-380``), run on Python integers: exact, and
     ``32 * n_limbs`` steps of a few big-int operations each.  The plain
     version that the tests and ``chip_smoke.py`` hold the native engine's
-    mask (:func:`decrypt_mask`) against.
+    mask and the device route's (:func:`decrypt_mask`) against.
     """
     s_int = int.from_bytes(np.asarray(s, dtype="<u4").tobytes(), "little")
     top = 1 << s_degree
@@ -421,18 +422,36 @@ def decrypt_mask_words(s: np.ndarray, s_degree: int, n_limbs: int) -> np.ndarray
     return packed.view("<u4").astype(np.uint32)
 
 
-def decrypt_mask(s: torch.Tensor, s_degree: int, n_limbs: int) -> torch.Tensor:
-    """Packed vector ``w`` with ``w_i = (X^i mod S)(0)`` for i < 32*n_limbs.
+def decrypt_mask(
+    s: torch.Tensor, s_degree: int, n_limbs: int, sstar: "torch.Tensor | None" = None
+) -> torch.Tensor:
+    """Packed vector ``w`` with ``w_i = (X^i mod S)(0)`` for i < 32*n_limbs,
+    [n_limbs] limbs on ``s``'s device.
 
     Decryption of a ciphered bit is then one masked parity:
     ``(C mod S)(0) = parity(popcount(C & w))`` (src/cipher.rs:117-123).
-    Computed on the host by the native engine
-    (:func:`homomorph_tpu_torch.native.decrypt_mask`, the recurrence of
-    :func:`decrypt_mask_words` in C) for every degree class, and moved to
-    ``s``'s device.
+    Computed on ``s``'s device as the power series ``w = 1 + S(0) * X^d *
+    (1 / S*) mod X^n`` (:mod:`homomorph_tpu_torch.gf2.mask_kernel`: M1 and
+    K1 on a CUDA tensor, their plain versions on a CPU one), for every
+    degree class.  ``sstar`` is ``S*``
+    (:func:`~homomorph_tpu_torch.gf2.mask_kernel.reversed_key`) where the
+    caller keeps it, else it is built from ``s``.  When ``32 * n_limbs <=
+    s_degree`` or ``S(0) = 0`` the mask is ``monomial(0)``; ``S(0)`` is
+    applied as a bit mask on the device, with no branch on it.
+    :func:`decrypt_mask_words` is the recurrence this is held against.
     """
-    words = _native.decrypt_mask(to_numpy(s), s_degree, n_limbs)
-    return from_numpy(words, s.device)
+    from . import mask_kernel  # lazily: gf2.kernels, which it imports, imports this module
+
+    n_bits = bit_capacity(n_limbs)
+    if n_bits <= s_degree:
+        w = torch.zeros(n_limbs, dtype=LIMB_DTYPE, device=s.device)
+    else:
+        if sstar is None:
+            sstar = mask_kernel.reversed_key(s, s_degree)
+        inv = mask_kernel.series_inverse(sstar, n_bits - s_degree)
+        w = shift_left_static(inv, s_degree, n_limbs) & -(s[..., 0] & 1)
+    w[0] ^= 1  # bit d and up hold the series; bit 0 is X^0 mod S = 1
+    return w
 
 
 def decipher_bits(c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

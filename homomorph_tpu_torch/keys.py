@@ -4,8 +4,9 @@ Counterpart of :mod:`homomorph_tpu.keys` (reference:
 src/context.rs:121-298):
 
 * :class:`SecretKey` - one polynomial of exact degree ``d``, plus lazily
-  built decrypt masks and ``X^i mod S`` tables (computed on the host by the
-  native engine, cached on the device).
+  built decrypt masks (power series computed on the key's device) and
+  ``X^i mod S`` tables (computed on the host by the native engine), both
+  cached on the device.
 * :class:`PublicKey` - ``tau`` polynomials ``T_i = S*Q_i + X*R_i`` stored as
   one device tensor ``[tau, L]`` (which the encrypt kernel K2 reads),
   plus lazily built bit columns packed along tau and the int8 bit planes
@@ -24,11 +25,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import native as _native
 from . import rng as _rng
+from . import device as _device
 from .device import resolve as _resolve
 from .gf2 import encrypt_kernel as _enc
 from .gf2 import kernels as gf2k
+from .gf2 import mask_kernel as _mask
 from .gf2 import poly as gf2
 from .params import Parameters
 from .utils.errors import SecretKeyUnsetError
@@ -75,6 +77,7 @@ class SecretKey:
             )
         self._mask_cache: dict[int, torch.Tensor] = {}
         self._rows_cache: dict[int, torch.Tensor] = {}
+        self._sstar: torch.Tensor | None = None  # S*, the decrypt masks' reversed key
 
     # -- constructors -------------------------------------------------------
 
@@ -115,17 +118,31 @@ class SecretKey:
         """Packed ``w`` with ``w_i = (X^i mod S)(0)`` for ciphertexts of
         ``n_limbs`` limbs; cached on the device per degree class.
 
-        Every class goes through the native host engine
-        (:func:`homomorph_tpu_torch.native.decrypt_mask`, the monic
-        recurrence in C; held against :func:`~homomorph_tpu_torch.gf2.poly.
-        decrypt_mask_words` word for word).  The JAX package sends classes
-        below ``NATIVE_MASK_MIN_LIMBS`` to a device scan; the port has no
-        device scan, so it has no threshold."""
+        Every class is computed on the key's device as a power series
+        (:func:`~homomorph_tpu_torch.gf2.poly.decrypt_mask`: M1 and K1 on
+        the card), from ``S*`` kept on the key.  The JAX package sends
+        classes from ``NATIVE_MASK_MIN_LIMBS`` up to its native host engine
+        because its device path is a scan of ``32 * n_limbs`` dependent
+        steps; the series takes about ``log2`` of that many wide steps.
+        On an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py`` phase 10,
+        ``PERF.md``) it beats the native loop from the 8,192-limb class up,
+        by 21-29x at the u32 product's 98,304 limbs and 759-1,269x at the
+        u64 product's 3,145,728; at 9 and 65 limbs its few milliseconds of
+        small launches lose to the loop's tens of microseconds, once per
+        key and class.  So the port has no such threshold: one route for
+        every class, and nothing falls back to the host.
+
+        Raises while a CUDA graph is capturing: a mask made under capture
+        would live in the graph's pool and be refilled only by replays, so
+        a compiled pipeline computes its masks before capture."""
         self._check_alive()
+        if _device.capturing():
+            raise RuntimeError("decrypt_mask under CUDA graph capture: compute the mask before capture")
         w = self._mask_cache.get(n_limbs)
         if w is None:
-            words = _native.decrypt_mask(self._host, self._degree, n_limbs)
-            w = gf2.from_numpy(words, self.device)
+            if self._sstar is None:
+                self._sstar = _mask.reversed_key(self._limbs, self._degree)
+            w = gf2.decrypt_mask(self._limbs, self._degree, n_limbs, sstar=self._sstar)
             self._mask_cache[n_limbs] = w
         return w
 
@@ -144,16 +161,19 @@ class SecretKey:
 
     def zeroize(self) -> None:
         """Overwrite ALL secret-derived material in place - the host copy,
-        the device copy of ``S``, every cached decrypt mask and every
-        ``X^i mod S`` table (linear images of ``S``) - then poison the
-        object (reference semantics at src/polynomial.rs:367-401,
-        src/context.rs:199-206)."""
+        the device copy of ``S``, the reversed key ``S*`` of the decrypt
+        masks, every cached decrypt mask and every ``X^i mod S`` table
+        (linear images of ``S``) - then poison the object (reference
+        semantics at src/polynomial.rs:367-401, src/context.rs:199-206).
+        The mask route caches nothing else: its series and products are
+        freed when the mask is made."""
         if self._host is not None:
             self._host.fill(0)
         self._host = None
-        if self._limbs is not None:
-            self._limbs.zero_()
-        self._limbs = None
+        for t in (self._limbs, self._sstar):
+            if t is not None:
+                t.zero_()
+        self._limbs = self._sstar = None
         for cache in (self._mask_cache, self._rows_cache):
             for t in cache.values():
                 t.zero_()

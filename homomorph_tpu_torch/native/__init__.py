@@ -16,9 +16,11 @@ processes may build at once.  The flags are portable (no
 
 There is no fallback: where the build fails, the first call raises with
 the compiler's output.  The JAX bindings fall back to numpy or the device
-scan; the port's callers (the decrypt masks of :mod:`homomorph_tpu_torch.
-keys` and :func:`homomorph_tpu_torch.gf2.poly.reduction_rows`) have no
-second path.
+scan; the port's one caller on a path,
+:func:`homomorph_tpu_torch.gf2.poly.reduction_rows`, has no second path.
+The decrypt masks are computed on the key's device
+(:mod:`homomorph_tpu_torch.gf2.mask_kernel`); :func:`decrypt_mask` stays as
+the oracle the tests and ``chip_smoke.py`` hold that route against.
 """
 
 from __future__ import annotations

@@ -43,6 +43,7 @@ __all__ = [
     "clmul_ops",
     "clmul_comb_work",
     "clmul_bytes",
+    "square_bytes",
     "encrypt_lookup_bytes",
     "clmul_sol",
     "encrypt_sol",
@@ -72,6 +73,9 @@ COMB_OPS_PER_PAIR = 8 * 2
 # adds may also issue as IMAD on the FMA pipe, so they set no lower bound of
 # their own (all 73 operations at twice the INT32 rate take less time).
 THREEFRY_ALU_OPS_PER_WORD = 20 + 21
+# M1 (csrc/mask.cu): per output limb the half's shift, the 16-bit mask and
+# four shift-or-and steps of the bit spread
+SQUARE_OPS_PER_LIMB = 2 + 4 * 3
 # decrypt: per limb an AND and an XOR into the fold
 DECRYPT_OPS_PER_LIMB = 2
 
@@ -171,6 +175,12 @@ def clmul_comb_work(B: int, La: int, Lb: int) -> "tuple[int, int]":
 def clmul_bytes(B: int, La: int, Lb: int) -> int:
     """K1's HBM bytes: both operands read once, the product written once."""
     return B * (La + Lb) * 4 * 2
+
+
+def square_bytes(B: int, L: int, Lo: int) -> int:
+    """M1's HBM bytes on [B, L] -> [B, Lo]: the input read once, the
+    output written once."""
+    return B * (L + Lo) * 4
 
 
 def encrypt_lookup_bytes(B: int, tau: int, limbs: int) -> int:

@@ -599,3 +599,62 @@ def test_entry_on_card():
     for got, want in zip(out, cfn(*cargs)):
         assert torch.equal(got, want)
     assert entry.dryrun_multichip(2, "cuda")["places"] == 2
+
+
+@pytest.mark.parametrize(
+    "B,L,n_bits,offset",
+    [(1, 1, 1, 0), (3, 7, 200, 0), (5, 33, None, 0), (2, 9, 288, 0), (1, 1000, 1500, 1),
+     (1, 1572654, 100649856, 0), (1, 1572654, 100649855, 3)],
+)
+def test_square_kernel_matches_plain(B, L, n_bits, offset):
+    """M1 against ``square_plain``: one limb, odd tails, rows whose
+    addresses are not 16-byte aligned (the kernel's limb-by-limb branch),
+    and the u64 class's last squaring."""
+    from homomorph_tpu_torch.gf2 import mask_kernel as mk
+
+    x = on_card((B, L + offset), 41)[:, offset:]
+    x = x if B == 1 else x.contiguous()
+    before = mk.square.launches
+    got = mk.square(x, n_bits)
+    torch.cuda.synchronize()
+    assert mk.square.launches == before + 1
+    assert torch.equal(got, mk.square_plain(x, n_bits))
+
+
+def test_device_mask_equals_native_at_the_u32_class():
+    """The decrypt mask of the d = 2432 u32 product's class (98,304 limbs)
+    through M1 and K1 on the card equals the native engine word for word."""
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch import native
+    from homomorph_tpu_torch.gf2 import mask_kernel as mk
+
+    on_card((1,), 0)
+    sk = ht.SecretKey.random(2432, ht.ThreefrySource(1), device="cuda")
+    assert int(sk.limbs[0].item()) & 1 == 1
+    m1, k1 = mk.square.launches, k.clmul_flat.launches
+    w = sk.decrypt_mask(98304)
+    torch.cuda.synchronize()
+    assert mk.square.launches > m1 and k.clmul_flat.launches > k1
+    host = gf2.to_numpy(sk.limbs)
+    assert np.array_equal(gf2.to_numpy(w), native.decrypt_mask(host, 2432, 98304))
+
+
+def test_u32_product_decrypts_right_with_the_device_mask():
+    """A checked u32 product at ``Parameters(2432, 128, 1, 128)`` under a
+    key with ``S(0) = 1`` (every coefficient of the product counts),
+    decrypted with the mask computed on the card."""
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch.experiments.common import CHECK_SEED, context, key_s0
+    from homomorph_tpu_torch.gf2 import mask_kernel as mk
+    from homomorph_tpu_torch.models import HomomorphicMultiplication
+
+    on_card((1,), 0)
+    ctx = context((2432, 128, 1, 128), CHECK_SEED, "cuda")
+    assert key_s0(ctx) == 1
+    xs, ys = [0xDEADBEEF, 12345, 0xFFFFFFFF], [0x12345678, 67890, 0xFFFFFFFF]
+    prod = ctx.apply2(HomomorphicMultiplication, ctx.encrypt(xs, ht.U32, batch=True),
+                      ctx.encrypt(ys, ht.U32, batch=True))
+    before = mk.square.launches
+    got = [int(v) for v in ctx.decrypt(prod).tolist()]
+    assert mk.square.launches > before  # the product's class was new to the key
+    assert got == [(x * y) & 0xFFFFFFFF for x, y in zip(xs, ys)]
