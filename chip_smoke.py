@@ -60,15 +60,17 @@ Phases, in order; any failure exits non-zero before the result line:
    multiplications: warm wall time, device time by kernel, busy share;
 9. the verify gate (``run_verification()`` in full, scaled round trip
    included), a path of its own;
-10. the decrypt masks on the card (:func:`phase_masks`) at the 9-, 65-,
-   8,192-, 98,304-, 262,144- and 3,145,728-limb classes: the device route
-   (the power series, M1 and K1) against the native host engine word for
-   word at every class, native against the Python-int recurrence up to
-   98,304 limbs, the widest class's last 64 bits against ``X^i mod S`` by
-   square-and-multiply; the route's cold and warm wall, device time and
-   bound beside native's host time; M1 against ``square_plain`` at the
-   route's last squaring of the two widest classes (timed as in phase 3)
-   and at edge shapes;
+10. the decrypt masks on the card (:func:`phase_masks`, a path of its own)
+   at the 9-, 65-, 8,192-, 98,304-, 262,144- and 3,145,728-limb classes,
+   each through the plan (``mask_kernel.mask_plan``: M3 for the small
+   steps, then M2 a step) and through the route forced (M1 and K1 a
+   step): both against the native host engine word for word at every
+   class, native against the Python-int recurrence up to 98,304 limbs, the
+   widest class's last 64 bits against ``X^i mod S`` by square-and-multiply;
+   each route's cold and warm wall, device time, device records a call,
+   kernel launches and bound beside native's host time; then, outside the
+   path's counts, M1, M2 and M3 against their plain versions
+   (:func:`mask_kernel_rows`, timed as in phase 3);
 10b. the mesh path (:func:`phase_mesh`), grids of places on the one card
    (one card cannot give NCCL two ranks, so every exchange stays in the
    process): ``sharded_encrypt_bits`` at ``(128, 128, 64, 128)``, 2^21
@@ -112,8 +114,8 @@ Phases, in order; any failure exits non-zero before the result line:
    against the same function run eagerly on its keys; their launches are
    those counted at warm-up and capture (a replay must count none);
 8. one JSON line of kernels (launches counted over the paths: phases 5-6,
-   5b, 6b, 5c, 9, 10b-10e and 11, each counted from 0, where M1 and K1 also
-   run each new decrypt mask; each bound the larger of the
+   5b, 6b, 5c, 9, 10, 10b-10e and 11, each counted from 0, where M3 and M2
+   run each new decrypt mask and M1 runs in phase 10; each bound the larger of the
    bytes and the necessary work of the best design in the repo, see
    :func:`set_bounds` and ``homomorph_tpu_torch/utils/profiling.py``, with
    the older operation count's bound beside it);
@@ -138,7 +140,9 @@ SEED = 1234  # keys, plaintexts and selection words all derive from it
 sys.path.insert(0, ROOT)
 from homomorph_tpu_torch.gf2 import mask_kernel  # noqa: E402
 from homomorph_tpu_torch.experiments.common import (  # noqa: E402
+    comb_pairs,
     leaf_shape,
+    newton_step_work,
     products_sol,
     recorded_products,
 )
@@ -1218,13 +1222,181 @@ def mask_tail(sk, n_limbs, bits):
     return np.frombuffer(out.to_bytes(bits // 8, "little"), dtype="<u4").astype(np.uint32)
 
 
-def square_rows(ctx, classes):
-    """M1 against ``square_plain`` at the last (widest) squaring of the
-    series inverse of each ``(label, degree, limbs)`` class, timed as in
-    phase 3, and at edge shapes (one limb, odd tails, rows whose addresses
-    are not 16-byte aligned, a whole square) checked only."""
-    torch = ctx["torch"]
+def device_launches(fn, traces=3):
+    """Device records (kernels, copies, fills) one call of ``fn`` makes, from
+    ``torch.profiler``: the most any of ``traces`` traces holds (a trace can
+    lose records), after one warm-up call; None when no trace held any."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    most = 0
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            fn()
+            torch.cuda.synchronize()
+        most = max(most, sum(ev.device_type == DeviceType.CUDA for ev in prof.events()))
+    return most or None
+
+
+def plan_bound_ms(plan, Ls, shapes, peaks):
+    """The least ms of a plan's steps: for an M3 or M2 step the product's
+    work under the best design in the repo for it (``newton_step_work``:
+    M2's comb pairs or the Karatsuba route's leaf pairs, whichever are
+    fewer; over the whole card) against the fused step's HBM bytes, and
+    the route steps' products at their leaf shapes (``products_sol`` of
+    ``shapes``) plus M1's bytes."""
+    secs, prev = products_sol(shapes, peaks), 1
+    for kind, k in plan:
+        Lo = -(-k // 32)
+        Li = -(-prev // 32)
+        if kind == "route":
+            secs += square_bytes(1, Li, Lo) / peaks["hbm_bw"]
+        else:
+            smem, ops = newton_step_work(Lo, Ls)
+            secs += bound((Li + Lo + (Ls if kind == "M2" else 0)) * 4,
+                          [(smem, "smem_bw"), (ops, "int32_ops")], peaks)[0]
+        prev = k
+    return secs * 1e3
+
+
+def mask_class_route(ctx, sk, n_limbs, sstar, plan):
+    """One route of a class's mask (``mask_kernel.series_mask`` by ``plan``
+    from the cached ``S*``): its first call's wall (cold), the kernels'
+    launch counters of that call, the products it sent to the clmul
+    dispatcher, and its bound."""
     from homomorph_tpu_torch.gf2 import mask_kernel as mk
+
+    torch = ctx["torch"]
+
+    def run():
+        return mk.series_mask(sstar, sk.degree, n_limbs, plan)
+
+    before = mk.launch_counts()
+    (w, cold_ms), shapes = recorded_products(lambda: stage(torch, run))
+    counts = {name: n - before[name] for name, n in mk.launch_counts().items()}
+    kinds = {kind: sum(1 for kd, _ in plan if kd == kind) for kind in ("M3", "M2", "route")}
+    return dict(run=run, w=w, cold_ms=cold_ms, counters=counts, steps=kinds,
+                products=len(shapes),
+                leaf_limb_pairs=sum(B * Ls * (Lg + 1) for B, Ls, Lg in
+                                    (leaf_shape(*sh) for sh in shapes)),
+                bound_ms=plan_bound_ms(plan, sstar.shape[0], shapes, ctx["peaks"]))
+
+
+def phase_masks(ctx):
+    """Phase 10, a path of its own: the decrypt masks of the paths' classes
+    on the card, up to the u64 product's 3,145,728 limbs, through the plan
+    (``mask_kernel.mask_plan``: M3, then M2 or the route) and through PR
+    10's route forced (every step M1 and K1), each from the cached ``S*``:
+    both against the native host engine word for word at every class, the
+    native engine against the Python-int recurrence up to
+    :data:`PYTHON_MASK_LIMBS`, and the widest class's last
+    :data:`MASK_TAIL_BITS` bits against ``X^i mod S`` by square-and-multiply.
+    For each route: synchronised wall cold (its first call at the class)
+    and warm (median of 3, the routes in turns), device time, device
+    records a call (:func:`device_launches`), the kernels' counters, and
+    the bound (:func:`plan_bound_ms`); the native engine's host time.
+    Returns (stats, each class's ``(label, key, limbs)``)."""
+    import numpy as np
+
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch import native
+    from homomorph_tpu_torch.experiments.common import CHECK_SEED
+    from homomorph_tpu_torch.gf2 import mask_kernel as mk
+    from homomorph_tpu_torch.gf2 import poly as gf2
+
+    torch = ctx["torch"]
+    native.library()  # built and loaded before the clock starts
+
+    def median_ms(fn, reps):
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            res = fn()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return res, sorted(walls)[reps // 2]
+
+    out, keys = [], []
+    for label, source, n_limbs in MASK_CLASSES:
+        if isinstance(source, str):
+            sk = ctx[source][0].get_secret_key()
+        else:
+            sk = ht.SecretKey.random(source, ht.ThreefrySource(CHECK_SEED), device=ctx["dev"])
+            check(int(sk.limbs[0].item()) & 1, f"mask {label}: the key has S(0) = 0")
+        host = gf2.to_numpy(sk.limbs)
+        d, s0 = sk.degree, int(host[0]) & 1
+        sstar = mk.reversed_key(sk.limbs, d)
+        plan = mk.mask_plan(d, n_limbs)
+        routes = {"plan": mask_class_route(ctx, sk, n_limbs, sstar, plan),
+                  "route": mask_class_route(ctx, sk, n_limbs, sstar,
+                                            [("route", k) for _, k in plan])}
+        warm = {name: [] for name in routes}
+        for _ in range(3):
+            for name, r in routes.items():
+                warm[name].append(stage(torch, r["run"])[1])
+        for name, r in routes.items():
+            r["warm_ms"] = sorted(warm[name])[1]
+            r["device_ms"] = profiled_ms(r["run"], 1)
+            r["device_launches"] = device_launches(r["run"])
+        check(torch.equal(sk.decrypt_mask(n_limbs), routes["plan"]["w"]),
+              f"mask {label}: the key's cached mask differs from the plan's")
+        got = gf2.to_numpy(routes["plan"]["w"])
+        check(np.array_equal(got, gf2.to_numpy(routes["route"]["w"])),
+              f"mask {label}: the plan's mask differs from the route's")
+        small = n_limbs <= 1024  # a single call is too short for the host clock
+        reps = 21 if small else 3 if n_limbs <= 262144 else 1
+        fast, native_ms = median_ms(lambda: native.decrypt_mask(host, d, n_limbs), reps)
+        check(np.array_equal(got, fast), f"mask {label}: the device route differs from native "
+              f"at {int((got != fast).sum())} of {n_limbs} limbs")
+        row = dict(label=label, degree=d, s0=s0, limbs=n_limbs, native_ms=native_ms,
+                   native_reps=reps, kinds=[kind for kind, _ in plan],
+                   **{name: {key: v for key, v in r.items() if key not in ("run", "w")}
+                      for name, r in routes.items()})
+        if n_limbs <= PYTHON_MASK_LIMBS:
+            plain, python_ms = median_ms(lambda: gf2.decrypt_mask_words(host, d, n_limbs),
+                                         21 if small else 1)
+            check(np.array_equal(fast, plain),
+                  f"mask {label}: native differs from the Python-int recurrence")
+            row["python_ms"] = python_ms
+        else:
+            tail = mask_tail(sk, n_limbs, MASK_TAIL_BITS)
+            check(np.array_equal(got[-MASK_TAIL_BITS // 32:], tail),
+                  f"mask {label}: the last {MASK_TAIL_BITS} bits differ from X^i mod S")
+        for name, r in routes.items():
+            log(f"[masks] {label} (S(0) = {s0}) {name}: steps {r['steps']}, cold "
+                f"{r['cold_ms']:.4f} ms, warm {r['warm_ms']:.4f} ms, device "
+                f"{ms_text(r['device_ms'], 4)} ms, {r['device_launches']} device records a call, "
+                f"counters {r['counters']}, {r['leaf_limb_pairs']:,} leaf limb pairs, bound "
+                f"{r['bound_ms']:.4f} ms")
+        log(f"[masks] {label}: native {native_ms:.4f} ms (median of {reps}), "
+            f"{native_ms / routes['plan']['warm_ms']:.1f}x the plan's warm wall, "
+            f"{native_ms / routes['route']['warm_ms']:.1f}x the route's; equal word for word"
+            + (f"; Python ints {row['python_ms']:.4f} ms, equal to native" if "python_ms" in row
+               else f"; the last {MASK_TAIL_BITS} bits equal X^i mod S"))
+        out.append(row)
+        keys.append((label, sk, n_limbs))
+        del routes, got, fast
+    return out, keys
+
+
+def mask_kernel_rows(ctx, keys):
+    """M1, M2 and M3 against their plain versions on the card (launches
+    that do not count on any path).  M1 at the route's last squaring of
+    the same classes (timed as in phase 3) and at edge shapes (one limb, odd
+    tails, rows whose addresses are not 16-byte aligned, a whole square),
+    checked only.  M2 at the last step of each class of a generated key
+    (d = 5888, 13440) on a random
+    series of the step's input width: equal to ``newton_step_plain``, and
+    at the u64 class on its first and last :data:`SPOT_ROWS` limbs (the
+    plain version of the whole step would materialize 10 GB).  M3 at the
+    9- and 65-limb classes (the whole mask) and at the cap of the u64 key."""
+    torch = ctx["torch"]
+    from homomorph_tpu_torch.gf2 import kernels as k
+    from homomorph_tpu_torch.gf2 import mask_kernel as mk
+    from homomorph_tpu_torch.gf2 import poly as gf2
 
     for B, L, n_bits, offset in ((1, 1, 1, 0), (3, 7, 200, 0), (5, 33, None, 0),
                                  (2, 9, 288, 0), (1, 1000, 1500, 1), (1, 4096, 262143, 1)):
@@ -1235,11 +1407,16 @@ def square_rows(ctx, classes):
         bad, _ = compare(torch, got, mk.square_plain(x, n_bits))
         check(bad == 0, f"square [{B}, {L}] to {n_bits} bits (offset {offset}): {bad} mismatches")
     log("[masks] M1 equals square_plain at the edge shapes (one limb, odd tails, unaligned rows)")
-    rows = []
-    for label, d, n_limbs in classes:
+    rows, small_cases = [], []
+    generated = {label for label, source, _ in MASK_CLASSES if not isinstance(source, str)}
+    for label, sk, n_limbs in keys:
+        if label not in generated:
+            continue
+        d = sk.degree
         m = 32 * n_limbs - d
-        L = -(-mk.precisions(m)[-2] // 32)
-        Lo = -(-m // 32)
+        k_prev, k_last = mk.precisions(m)[-2:]
+        L, Lo = -(-k_prev // 32), -(-k_last // 32)
+        Ls = gf2.limbs_for(d)
         x = random_words(ctx, (1, L))
         got = mk.square(x, m)
         torch.cuda.synchronize()
@@ -1252,101 +1429,66 @@ def square_rows(ctx, classes):
             work=[(Lo * SQUARE_OPS_PER_LIMB, "int32_ops")], old_ops=Lo * SQUARE_OPS_PER_LIMB,
             old_rate="int32_ops", bytes=square_bytes(1, L, Lo),
         ))
-        log(f"[kernels] square {label} [1, {L}] -> [1, {Lo}]: mismatches {bad}, kernel "
-            f"{rows[-1]['ms']} ms by {rows[-1]['ms_by']} (call {rows[-1]['call_ms']} ms), plain "
-            f"{rows[-1]['plain_ms']} ms by {rows[-1]['plain_by']}")
-        del x, got
+        sstar = mk.reversed_key(sk.limbs, d)
+        inv = x.view(-1)
+        got = mk.newton_step(inv, sstar, m)
+        torch.cuda.synchronize()
+        if Lo * Ls <= 1 << 28:
+            bad, err = compare(torch, got, mk.newton_step_plain(inv, sstar, m))
+            times = timed(torch, lambda: mk.newton_step(inv, sstar, m),
+                          lambda: mk.newton_step_plain(inv, sstar, m))
+        else:
+            n = SPOT_ROWS
+            j0 = Lo - n - Ls - 1  # output limb j reads the square from limb j - Ls - 1 up
+            sq = mk.square_plain(inv.view(1, -1), m)[:, j0:]
+            tail = k.clmul_plain(sstar.view(1, -1), sq)[0, Lo - n - j0 : Lo - j0]
+            check(m % 32 == 0, f"{label}: the spot check takes a last step of whole limbs")
+            bad0, err0 = compare(torch, got[:n], mk.newton_step_plain(inv[: n // 2], sstar, 32 * n))
+            bad1, err1 = compare(torch, got[-n:], tail)
+            bad, err = bad0 + bad1, max(err0, err1)
+            traced = profiled_ms(lambda: mk.newton_step(inv, sstar, m), 20)
+            calls = call_ms(torch, lambda: mk.newton_step(inv, sstar, m))
+            times = dict(ms=calls if traced is None else traced,
+                         ms_by="events" if traced is None else "profiler", call_ms=calls,
+                         plain_ms=None, plain_by="not measured")
+        check(bad == 0, f"newton_step {label} [{L}] -> [{Lo}] by S* [{Ls}]: {bad} mismatches")
+        smem, ops = newton_step_work(Lo, Ls)
+        rows.append(dict(
+            kernel="newton_step", label=label, shape=f"Li={L} Ls={Ls} Lo={Lo} bits={m}",
+            mismatches=bad, max_abs_err=err, checked="all" if Lo * Ls <= 1 << 28 else
+            f"first and last {SPOT_ROWS} limbs", **times,
+            work=[(smem, "smem_bw"), (ops, "int32_ops")], old_ops=comb_pairs(Lo, Ls) * 64,
+            old_rate="int32_ops", bytes=(L + Ls + Lo) * 4,
+        ))
+        if label == "d13440-L3145728":
+            small_cases.append((f"{label}-cap", sstar, 32 * mk.SMALL_CAP, None))
+        del x, got, inv
+    for label, sk, n_limbs in keys[:2]:
+        small_cases.append((label, mk.reversed_key(sk.limbs, sk.degree),
+                            32 * n_limbs - sk.degree, (sk.degree, n_limbs)))
+    for label, sstar, n_bits, assemble in small_cases:
+        got = mk.series_small(sstar, n_bits, assemble)
+        torch.cuda.synchronize()
+        bad, err = compare(torch, got, mk.series_small_plain(sstar, n_bits, assemble))
+        check(bad == 0, f"series_small {label}: {bad} mismatches")
+        Ls = sstar.shape[0]
+        work = [newton_step_work(-(-kk // 32), Ls) for kk in mk.precisions(n_bits)]
+        pairs = sum(comb_pairs(-(-kk // 32), Ls) for kk in mk.precisions(n_bits))
+        rows.append(dict(
+            kernel="series_small", label=label,
+            shape=f"Ls={Ls} bits={n_bits} steps={len(mk.precisions(n_bits))} "
+                  f"out={got.shape[0]}" + (" (mask)" if assemble else ""),
+            mismatches=bad, max_abs_err=err,
+            **timed(torch, lambda: mk.series_small(sstar, n_bits, assemble),
+                    lambda: mk.series_small_plain(sstar, n_bits, assemble)),
+            work=[(sum(w[0] for w in work), "smem_bw"), (sum(w[1] for w in work), "int32_ops")],
+            old_ops=pairs * 64, old_rate="int32_ops", bytes=(Ls + got.shape[0]) * 4,
+        ))
+    for r in rows:
+        log(f"[kernels] {r['kernel']} {r['label']} {r['shape']}: mismatches {r['mismatches']}, "
+            f"kernel {r['ms']} ms by {r['ms_by']} (call {r['call_ms']} ms), plain "
+            f"{ms_text(r['plain_ms'])} ms by {r['plain_by']}")
     return set_bounds(ctx, rows)
-
-
-def phase_masks(ctx):
-    """The decrypt masks of the paths' classes on the card, up to the u64
-    product's 3,145,728 limbs: the device route (:func:`homomorph_tpu_torch.
-    gf2.poly.decrypt_mask`, M1 and K1) against the native host engine word
-    for word at every class, the native engine against the Python-int
-    recurrence up to :data:`PYTHON_MASK_LIMBS`, and the widest class's last
-    :data:`MASK_TAIL_BITS` bits against ``X^i mod S`` by square-and-multiply.
-    The route's synchronised wall time cold (its first call at the class)
-    and warm (median of 3), its device time (``torch.profiler``), its K1
-    products' bound at the route's leaf shapes (K1's comb work, the
-    operands and product moved once) plus M1's bytes, and the native
-    engine's host time.  Returns (stats, M1's kernel rows)."""
-    import numpy as np
-
-    import homomorph_tpu_torch as ht
-    from homomorph_tpu_torch import native
-    from homomorph_tpu_torch.experiments.common import CHECK_SEED
-    from homomorph_tpu_torch.gf2 import mask_kernel as mk
-    from homomorph_tpu_torch.gf2 import poly as gf2
-
-    torch = ctx["torch"]
-    native.library()  # built and loaded before the clock starts
-    out = []
-    def median_ms(fn, reps):
-        walls = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            res = fn()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        return res, sorted(walls)[reps // 2]
-
-    wide = []
-    for label, source, n_limbs in MASK_CLASSES:
-        if isinstance(source, str):
-            sk = ctx[source][0].get_secret_key()
-        else:
-            sk = ht.SecretKey.random(source, ht.ThreefrySource(CHECK_SEED), device=ctx["dev"])
-            check(int(sk.limbs[0].item()) & 1, f"mask {label}: the key has S(0) = 0")
-            wide.append((label, source, n_limbs))
-        host = gf2.to_numpy(sk.limbs)
-        d, s0 = sk.degree, int(host[0]) & 1
-
-        def route():
-            return gf2.decrypt_mask(sk.limbs, d, n_limbs)
-
-        m1, k1 = mk.square.launches, mk.series_inverse.k1_launches
-        (dev_w, cold_ms), shapes = recorded_products(lambda: stage(torch, route))
-        m1, k1 = mk.square.launches - m1, mk.series_inverse.k1_launches - k1
-        warm_ms = sorted(stage(torch, route)[1] for _ in range(3))[1]
-        device_ms = profiled_ms(route, 1)
-        check(torch.equal(sk.decrypt_mask(n_limbs), dev_w),
-              f"mask {label}: the key's cached mask differs from the route's")
-        got = gf2.to_numpy(dev_w)
-        small = n_limbs <= 1024  # a single call is too short for the host clock
-        reps = 21 if small else 3 if n_limbs <= 262144 else 1
-        fast, native_ms = median_ms(lambda: native.decrypt_mask(host, d, n_limbs), reps)
-        check(np.array_equal(got, fast), f"mask {label}: the device route differs from native "
-              f"at {int((got != fast).sum())} of {n_limbs} limbs")
-        row = dict(label=label, degree=d, s0=s0, limbs=n_limbs, native_ms=native_ms,
-                   native_reps=reps, cold_ms=cold_ms, warm_ms=warm_ms, device_ms=device_ms,
-                   m1_launches=m1, k1_launches=k1, products=len(shapes),
-                   leaf_limb_pairs=sum(B * Ls * (Lg + 1)
-                                       for B, Ls, Lg in (leaf_shape(*sh) for sh in shapes)))
-        sq_bytes = sum(square_bytes(1, -(-a // 32), -(-b // 32)) for a, b in
-                       zip([1] + mk.precisions(32 * n_limbs - d)[:-1],
-                           mk.precisions(32 * n_limbs - d))) if 32 * n_limbs > d else 0
-        row["bound_ms"] = (products_sol(shapes, ctx["peaks"])
-                           + sq_bytes / ctx["peaks"]["hbm_bw"]) * 1e3
-        if n_limbs <= PYTHON_MASK_LIMBS:
-            plain, python_ms = median_ms(lambda: gf2.decrypt_mask_words(host, d, n_limbs),
-                                         21 if small else 1)
-            check(np.array_equal(fast, plain),
-                  f"mask {label}: native differs from the Python-int recurrence")
-            row["python_ms"] = python_ms
-        else:
-            tail = mask_tail(sk, n_limbs, MASK_TAIL_BITS)
-            check(np.array_equal(got[-MASK_TAIL_BITS // 32:], tail),
-                  f"mask {label}: the last {MASK_TAIL_BITS} bits differ from X^i mod S")
-        out.append(row)
-        log(f"[masks] {label} (S(0) = {s0}): device route cold {cold_ms:.4f} ms, warm "
-            f"{warm_ms:.4f} ms, device {ms_text(device_ms, 4)} ms ({m1} M1 and {k1} K1 "
-            f"launches, {row['leaf_limb_pairs']:,} leaf limb pairs, bound "
-            f"{row['bound_ms']:.4f} ms); native {native_ms:.4f} ms (median of {reps}), "
-            f"{native_ms / warm_ms:.1f}x the warm route; equal word for word"
-            + (f"; Python ints {row['python_ms']:.4f} ms, equal to native" if "python_ms" in row
-               else f"; the last {MASK_TAIL_BITS} bits equal X^i mod S"))
-        del dev_w, got, fast
-    return out, square_rows(ctx, wide)
 
 
 #: K1's launches on the paths before the mesh phase, as counted before the
@@ -1996,7 +2138,8 @@ def main(argv=None):
         "clmul": k.clmul_flat, "encrypt": enc.encrypt_words_table,
         "encrypt_v1": enc.encrypt_words_mma, "encrypt_v3": enc.encrypt_sel_mma,
         "threefry": prng.random_bits, "threefry_dkey": prng.random_bits_device_key,
-        "square": mk.square, "mask_clmul": MaskK1()}
+        "square": mk.square, "newton_step": mk.newton_step, "series_small": mk.series_small,
+        "mask_clmul": MaskK1()}
 
     def run_path(fn):
         for w in wrappers.values():
@@ -2047,8 +2190,9 @@ def main(argv=None):
     # after them and records what it finds)
     verify_stats, paths["verify"] = run_path(lambda: phase_verify(ctx))
     t0 = time.perf_counter()
-    mask_stats, square_kernel_rows = phase_masks(ctx)
-    rows += square_kernel_rows
+    (mask_stats, mask_keys), paths["masks"] = run_path(lambda: phase_masks(ctx))
+    rows += mask_kernel_rows(ctx, mask_keys)
+    del mask_keys
     log(f"[masks] phase done in {time.perf_counter() - t0:.3f} s")
     # 10b. the grids of places, before the graphs
     mesh_stats, paths["mesh"] = run_path(lambda: phase_mesh(ctx))
@@ -2067,15 +2211,18 @@ def main(argv=None):
     for path, counts in paths.items():
         log(f"[paths] launches in {path}: {counts}")
     # which kernels each path must have run, and K2 must not run under pallas_v1
-    needs = {"add": ("clmul", "encrypt", "threefry", "square"),
-             "mul_cmp": ("clmul", "encrypt_v1", "threefry", "square"),
+    # (every new mask starts with M3; the wider classes go on with M2, and
+    # phase 10 also runs the route, M1 and K1, at every class)
+    needs = {"add": ("clmul", "encrypt", "threefry", "series_small"),
+             "mul_cmp": ("clmul", "encrypt_v1", "threefry", "series_small"),
              "exp_enc": ("encrypt", "encrypt_v1", "encrypt_v3", "threefry"),
-             "wide": ("clmul", "encrypt", "threefry", "square"),
-             "verify": ("clmul", "encrypt", "threefry", "square"),
-             "mesh": ("clmul", "encrypt", "encrypt_v3", "threefry", "square"),
-             "u64": ("clmul", "encrypt", "square"),
-             "entry": ("clmul", "encrypt", "encrypt_v3", "threefry", "square"),
-             "bench": ("clmul", "encrypt", "threefry", "square"),
+             "wide": ("clmul", "encrypt", "threefry", "series_small", "newton_step"),
+             "verify": ("clmul", "encrypt", "threefry", "series_small"),
+             "masks": ("clmul", "square", "newton_step", "series_small", "mask_clmul"),
+             "mesh": ("clmul", "encrypt", "encrypt_v3", "threefry", "series_small"),
+             "u64": ("clmul", "encrypt", "series_small", "newton_step"),
+             "entry": ("clmul", "encrypt", "encrypt_v3", "threefry", "series_small"),
+             "bench": ("clmul", "encrypt", "threefry", "series_small", "newton_step"),
              "compiled": ("clmul", "encrypt", "encrypt_v1", "threefry_dkey")}
     for path, names in needs.items():
         for name in names:
@@ -2105,10 +2252,15 @@ def main(argv=None):
         # T1's device-key entry (hm_threefry_bits_dkey): the same stream
         "threefry_dkey": ("homomorph_tpu_torch/csrc/threefry.cu",
                           "homomorph_tpu/cipher.py:360", "words"),
-        # not a Pallas kernel: the lax.scan of the decrypt mask's recurrence
-        # there; M1 squares the series that replaces it (K1 multiplies)
+        # not Pallas kernels: the lax.scan of the decrypt mask's recurrence
+        # there; M1 squares the series that replaces it on the route's
+        # steps (K1 multiplies), M2 fuses a step, M3 runs the small ones
         "square": ("homomorph_tpu_torch/csrc/mask.cu", "homomorph_tpu/gf2/poly.py:352",
                    "d13440-L3145728"),
+        "newton_step": ("homomorph_tpu_torch/csrc/mask.cu", "homomorph_tpu/gf2/poly.py:352",
+                        "d5888-L262144"),
+        "series_small": ("homomorph_tpu_torch/csrc/mask.cu", "homomorph_tpu/gf2/poly.py:352",
+                         "d1024-L65"),
     }
     kernels = []
     for name, (source, replaces, label) in meta.items():
@@ -2133,7 +2285,8 @@ def main(argv=None):
             json.dump(dict(card=card, rows=rows, main=main_stats, bulk=bulk_stats,
                            mulcmp=mul_stats, exp_enc=exp_stats, launches=paths,
                            route_sweep=sweep, wide=wide_stats, u32_widest=widest,
-                           verify=verify_stats, masks=mask_stats, mesh=mesh_stats,
+                           verify=verify_stats, masks=mask_stats,
+                           mesh=mesh_stats,
                            u64=u64_stats, entry=entry_stats, bench=bench_stats,
                            compiled=compiled_stats,
                            profiler_after_graphs=profiler_probe,

@@ -188,6 +188,7 @@ def assemble(m: dict, windows_file: str) -> dict:
         extras["mul_u32_k1_launches"] = m["mul32_k1"]
         extras["mul_u32_peak_gb"] = m["mul32_peak_gb"]
         extras["mul_u32_mask_s"] = m["mul32_mask_s"]
+        extras["mul_u32_mask_launches"] = m["mul32_mask_launches"]
         extras["mul_u32_mask_device_s"] = m["mul32_mask_device_s"]
     if "s_enc_per_s" in m:
         extras["scaled_1024_encrypt_bits_per_s"] = m["s_enc_per_s"]
@@ -390,13 +391,15 @@ def _mul32(t: Timer, m: dict, log, dev) -> None:
     m["mul32_peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
                           if dev.type == "cuda" else None)
     m["mul32_limbs"] = int(prod.shape[-1])
-    m["mul32_mask_s"] = mask_wall_s(t, ctx.get_secret_key(), prod.shape[-1])
+    m["mul32_mask_s"], m["mul32_mask_launches"] = mask_wall_s(t, ctx.get_secret_key(),
+                                                              prod.shape[-1])
     got = [int(v) for v in ctx.decrypt(ht.Ciphered(prod, int(prod.shape[-1]) * 32 - 1, ht.U32))]
     if got != [(x * y) & 0xFFFFFFFF for x, y in zip(xs, ys)]:
         _fatal(f"the u32 product decrypted incorrectly on {dev}")
     log(f"u32 product decrypts correctly on {dev} (key with S(0) = 1; first eval {m['mul32_first_s']:.3f} s, "
         f"{m['mul32_k1']} K1 launches, peak {m['mul32_peak_gb']} GB, product "
-        f"{m['mul32_limbs']} limbs a lane, mask {m['mul32_mask_s']:.6f} s wall)")
+        f"{m['mul32_limbs']} limbs a lane, mask {m['mul32_mask_s']:.6f} s wall, launches "
+        f"{m['mul32_mask_launches']})")
     limbs = prod.shape[-1]
     del prod
     tm = t.throughput(step, 2, warmup=0, label="mul_u32")

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 __all__ = ["Timer", "peaks", "context", "key_s0", "mask_wall_s", "mask_device_s", "CHECK_SEED", "leaf_shape",
-           "recorded_products", "products_sol"]
+           "recorded_products", "products_sol", "comb_pairs", "newton_step_work"]
 
 #: SM count and maximum SM clock of the H100 SXM, for bounds computed off the card
 H100_SMS, H100_MHZ = 132, 1980.0
@@ -130,15 +130,21 @@ def key_s0(ctx) -> int:
     return int(ctx.get_secret_key().limbs[0].item()) & 1
 
 
-def mask_wall_s(t: Timer, sk, n_limbs: int) -> float:
+def mask_wall_s(t: Timer, sk, n_limbs: int) -> "tuple[float, dict[str, int]]":
     """Wall seconds of the secret key ``sk``'s first decrypt mask of
     ``n_limbs`` limbs (computed on its device and cached), between two
-    synchronisations."""
+    synchronisations, and the launches of each mask kernel it made
+    (:func:`~homomorph_tpu_torch.gf2.mask_kernel.launch_counts`: M1, the
+    route steps' K1, M2, M3; all 0 off the card)."""
+    from homomorph_tpu_torch.gf2 import mask_kernel
+
+    before = mask_kernel.launch_counts()
     t.sync()
     t0 = time.perf_counter()
     sk.decrypt_mask(n_limbs)
     t.sync()
-    return time.perf_counter() - t0
+    secs = time.perf_counter() - t0
+    return secs, {k: v - before[k] for k, v in mask_kernel.launch_counts().items()}
 
 
 def mask_device_s(t: Timer, sk, n_limbs: int) -> "float | None":
@@ -195,3 +201,25 @@ def products_sol(shapes, pk: dict) -> float:
         smem, ops = clmul_comb_work(*leaf_shape(B, La, Lb))
         total += bound(clmul_bytes(B, La, Lb), [(smem, "smem_bw"), (ops, "int32_ops")], pk)[0]
     return total
+
+
+def comb_pairs(Lo: int, Ls: int) -> int:
+    """(output limb, ``S*`` limb) pairs of M2's and M3's comb on a Newton
+    step of ``Lo`` output limbs: limb m reads ``S*`` limbs 0 .. min(m, Ls - 1)."""
+    full = max(0, Lo - Ls)
+    ramp = min(Lo, Ls)
+    return full * Ls + ramp * (ramp + 1) // 2
+
+
+def newton_step_work(Lo: int, Ls: int) -> "tuple[int, int]":
+    """The necessary work of a Newton step's product by ``S*`` (``Ls``
+    limbs) to ``Lo`` output limbs under the best design in the repo for it:
+    the lesser of M2's comb pairs (:func:`comb_pairs`) and K1's at the
+    Karatsuba route's leaf shape of ``[1, min(Ls, Lo)] x [1, Lo]``
+    (:func:`leaf_shape`), each pair 15 shared-memory loads and 16 INT32
+    operations.  Returns (shared memory bytes, INT32 operations)."""
+    from homomorph_tpu_torch.utils.profiling import COMB_LOADS_PER_PAIR, COMB_OPS_PER_PAIR
+
+    B, La, Lb = leaf_shape(1, min(Ls, Lo), Lo)
+    pairs = min(comb_pairs(Lo, Ls), B * La * (Lb + 1))
+    return pairs * COMB_LOADS_PER_PAIR * 4, pairs * COMB_OPS_PER_PAIR

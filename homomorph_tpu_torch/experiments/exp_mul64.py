@@ -113,14 +113,14 @@ def run(params=PARAMS, seed: int = CHECK_SEED, device=None, log=print) -> dict:
     log(f"tree: {t_tree:.3f} s, {k1} K1 launches, product {shape} ({gb:.3f} GB), "
         f"peak device memory {peak} GB")
 
-    t_mask = mask_wall_s(t, ctx.get_secret_key(), shape[-1])
+    t_mask, mask_launches = mask_wall_s(t, ctx.get_secret_key(), shape[-1])
     t0 = time.perf_counter()
     got = int(ctx.decrypt(prod))
     t_dec = time.perf_counter() - t0
     if got != want:
         raise RuntimeError(f"the u64 product decrypts wrong: {got:#x} != {want:#x}")
     log(f"u64 product decrypts correctly on {dev}: mask {t_mask:.6f} s wall "
-        f"({shape[-1] * 32} bit positions), decrypt {t_dec:.3f} s; {x:#x} * {y:#x} = {got:#x}")
+        f"({shape[-1] * 32} bit positions; launches {mask_launches}), decrypt {t_dec:.3f} s; {x:#x} * {y:#x} = {got:#x}")
     del prod
 
     t.sync()
@@ -136,6 +136,7 @@ def run(params=PARAMS, seed: int = CHECK_SEED, device=None, log=print) -> dict:
     return dict(params=[mp.d, mp.dp, mp.delta, mp.tau], requirement=req, s0=s0, keygen_s=keygen,
                 tree_first_s=t_tree, tree_warm_s=warm, tree_device_s=dv, k1_launches=k1,
                 peak_gb=peak, product_shape=list(shape), product_gb=gb, mask_s=t_mask,
+                mask_launches=mask_launches,
                 mask_device_s=dev_mask,
                 decrypt_s=t_dec, correct=True, device=str(dev))
 

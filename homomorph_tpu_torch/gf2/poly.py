@@ -431,9 +431,12 @@ def decrypt_mask(
     Decryption of a ciphered bit is then one masked parity:
     ``(C mod S)(0) = parity(popcount(C & w))`` (src/cipher.rs:117-123).
     Computed on ``s``'s device as the power series ``w = 1 + S(0) * X^d *
-    (1 / S*) mod X^n`` (:mod:`homomorph_tpu_torch.gf2.mask_kernel`: M1 and
-    K1 on a CUDA tensor, their plain versions on a CPU one), for every
-    degree class.  ``sstar`` is ``S*``
+    (1 / S*) mod X^n`` (:mod:`homomorph_tpu_torch.gf2.mask_kernel`), for
+    every degree class, by the steps of
+    :func:`~homomorph_tpu_torch.gf2.mask_kernel.mask_plan` (the kernels M3,
+    M2, and M1 with K1 on a CUDA tensor, their plain versions on a CPU
+    one; :func:`~homomorph_tpu_torch.gf2.mask_kernel.series_mask`).
+    ``sstar`` is ``S*``
     (:func:`~homomorph_tpu_torch.gf2.mask_kernel.reversed_key`) where the
     caller keeps it, else it is built from ``s``.  When ``32 * n_limbs <=
     s_degree`` or ``S(0) = 0`` the mask is ``monomial(0)``; ``S(0)`` is
@@ -445,13 +448,11 @@ def decrypt_mask(
     n_bits = bit_capacity(n_limbs)
     if n_bits <= s_degree:
         w = torch.zeros(n_limbs, dtype=LIMB_DTYPE, device=s.device)
-    else:
-        if sstar is None:
-            sstar = mask_kernel.reversed_key(s, s_degree)
-        inv = mask_kernel.series_inverse(sstar, n_bits - s_degree)
-        w = shift_left_static(inv, s_degree, n_limbs) & -(s[..., 0] & 1)
-    w[0] ^= 1  # bit d and up hold the series; bit 0 is X^0 mod S = 1
-    return w
+        w[0] = 1
+        return w
+    if sstar is None:
+        sstar = mask_kernel.reversed_key(s, s_degree)
+    return mask_kernel.series_mask(sstar, s_degree, n_limbs)
 
 
 def decipher_bits(c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -119,18 +119,18 @@ class SecretKey:
         ``n_limbs`` limbs; cached on the device per degree class.
 
         Every class is computed on the key's device as a power series
-        (:func:`~homomorph_tpu_torch.gf2.poly.decrypt_mask`: M1 and K1 on
-        the card), from ``S*`` kept on the key.  The JAX package sends
-        classes from ``NATIVE_MASK_MIN_LIMBS`` up to its native host engine
-        because its device path is a scan of ``32 * n_limbs`` dependent
-        steps; the series takes about ``log2`` of that many wide steps.
-        On an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py`` phase 10,
-        ``PERF.md``) it beats the native loop from the 8,192-limb class up,
-        by 21-29x at the u32 product's 98,304 limbs and 759-1,269x at the
-        u64 product's 3,145,728; at 9 and 65 limbs its few milliseconds of
-        small launches lose to the loop's tens of microseconds, once per
-        key and class.  So the port has no such threshold: one route for
-        every class, and nothing falls back to the host.
+        (:func:`~homomorph_tpu_torch.gf2.poly.decrypt_mask`, by the steps of
+        :func:`~homomorph_tpu_torch.gf2.mask_kernel.mask_plan`), from ``S*``
+        kept on the key.  The JAX package sends classes from
+        ``NATIVE_MASK_MIN_LIMBS`` up to its native host engine because its
+        device path is a scan of ``32 * n_limbs`` dependent steps; the
+        series takes about ``log2`` of that many wide steps, and the plan
+        runs its narrow ones in one launch (M3): the 9- and 65-limb classes
+        are that one launch, the wider ones one more launch a step (M2; M1
+        and K1 only under a key too wide for M2's table).  ``PERF.md``
+        section 6 holds each class's times beside the native loop's
+        (``chip_smoke.py`` phase 10).  So the port has no threshold: one
+        route for every class, and nothing falls back to the host.
 
         Raises while a CUDA graph is capturing: a mask made under capture
         would live in the graph's pool and be refilled only by replays, so
@@ -165,8 +165,9 @@ class SecretKey:
         masks, every cached decrypt mask and every ``X^i mod S`` table
         (linear images of ``S``) - then poison the object (reference
         semantics at src/polynomial.rs:367-401, src/context.rs:199-206).
-        The mask route caches nothing else: its series and products are
-        freed when the mask is made."""
+        The mask route caches nothing else: its series, squares and
+        products (M1, M2, M3 and the route's K1 outputs) are freed when the
+        mask is made."""
         if self._host is not None:
             self._host.fill(0)
         self._host = None

@@ -207,7 +207,7 @@ FULL_MEASUREMENTS = dict(
     dab_per_s=1.0, lt_per_s=1.0, dev_lt_per_s=1.0, device="d", platform="gpu",
     device_count=1, mul_per_s=1.0, dev_mul_per_s=1.0, dm_per_s=1.0, mul16_per_s=1.0,
     dev_mul16_per_s=1.0, mul32_per_s=1.0, mul32_first_s=1.0, mul32_limbs=1, mul32_k1=1,
-    mul32_peak_gb=1.0, mul32_mask_s=1.0, mul32_mask_device_s=1.0, s_enc_per_s=1.0,
+    mul32_peak_gb=1.0, mul32_mask_s=1.0, mul32_mask_launches={}, mul32_mask_device_s=1.0, s_enc_per_s=1.0,
     s_dec_per_s=1.0, l_enc_per_s=1.0,
     l_dec_per_s=1.0, dev_senc_per_s=1.0, dev_sdec_per_s=1.0,
 )

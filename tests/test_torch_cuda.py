@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (K1, K2, K3, X1, T1) against their plain torch
-versions (and K1 and K2 against the torch mirrors of their designs), on the
-card.
+"""The port's CUDA kernels (K1, K2, K3, X1, T1, M1, M2, M3) against their
+plain torch versions (and K1 and K2 against the torch mirrors of their
+designs), on the card.
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 False.  The file imports neither jax nor the JAX package and uses no
@@ -623,7 +623,8 @@ def test_square_kernel_matches_plain(B, L, n_bits, offset):
 
 def test_device_mask_equals_native_at_the_u32_class():
     """The decrypt mask of the d = 2432 u32 product's class (98,304 limbs)
-    through M1 and K1 on the card equals the native engine word for word."""
+    on the card equals the native engine word for word, through the plan
+    (M3, then M2) and through the route (M1 and K1) forced."""
     import homomorph_tpu_torch as ht
     from homomorph_tpu_torch import native
     from homomorph_tpu_torch.gf2 import mask_kernel as mk
@@ -631,12 +632,20 @@ def test_device_mask_equals_native_at_the_u32_class():
     on_card((1,), 0)
     sk = ht.SecretKey.random(2432, ht.ThreefrySource(1), device="cuda")
     assert int(sk.limbs[0].item()) & 1 == 1
-    m1, k1 = mk.square.launches, k.clmul_flat.launches
+    before = mk.launch_counts()
     w = sk.decrypt_mask(98304)
     torch.cuda.synchronize()
-    assert mk.square.launches > m1 and k.clmul_flat.launches > k1
+    made = {name: n - before[name] for name, n in mk.launch_counts().items()}
+    assert made["M3"] == 1 and made["M2"] > 0
     host = gf2.to_numpy(sk.limbs)
-    assert np.array_equal(gf2.to_numpy(w), native.decrypt_mask(host, 2432, 98304))
+    want = native.decrypt_mask(host, 2432, 98304)
+    assert np.array_equal(gf2.to_numpy(w), want)
+    route = [("route", kk) for _, kk in mk.mask_plan(2432, 98304)]
+    m1, k1 = mk.square.launches, k.clmul_flat.launches
+    w_route = mk.series_mask(mk.reversed_key(sk.limbs, 2432), 2432, 98304, route)
+    torch.cuda.synchronize()
+    assert mk.square.launches > m1 and k.clmul_flat.launches > k1
+    assert np.array_equal(gf2.to_numpy(w_route), want)
 
 
 def test_u32_product_decrypts_right_with_the_device_mask():
@@ -654,7 +663,107 @@ def test_u32_product_decrypts_right_with_the_device_mask():
     xs, ys = [0xDEADBEEF, 12345, 0xFFFFFFFF], [0x12345678, 67890, 0xFFFFFFFF]
     prod = ctx.apply2(HomomorphicMultiplication, ctx.encrypt(xs, ht.U32, batch=True),
                       ctx.encrypt(ys, ht.U32, batch=True))
-    before = mk.square.launches
+    before = mk.newton_step.launches
     got = [int(v) for v in ctx.decrypt(prod).tolist()]
-    assert mk.square.launches > before  # the product's class was new to the key
+    assert mk.newton_step.launches > before  # the product's class was new to the key
     assert got == [(x * y) & 0xFFFFFFFF for x, y in zip(xs, ys)]
+
+
+def step_operands(Li, Ls, seed):
+    """A series row of ``Li`` limbs and ``S*`` of ``Ls`` limbs (bit 0 set)
+    on the card."""
+    inv = on_card((Li,), seed)
+    sstar = on_card((Ls,), seed + 1)
+    sstar[0] |= 1
+    return inv, sstar
+
+
+@pytest.mark.parametrize("Li,Ls,k", [
+    (1, 1, 2), (1, 5, 33), (3, 5, 190), (9, 33, 500), (40, 77, 2500), (300, 40, 19000),
+    (600, 2, 38000), (4100, 185, 262000), (5000, 421, 320000), (2000, 2048, 128000),
+    (50, 421, 3200),
+])
+def test_newton_step_kernel_matches_plain(Li, Ls, k):
+    """M2 against ``newton_step_plain``: one limb, ragged ``k``, ``Lo <
+    Ls`` and ``Lo >> Ls``, tiles split 1 to 8 ways over ``S*``'s limbs, and
+    the widest ``S*`` its table holds (131 KB of shared memory)."""
+    from homomorph_tpu_torch.gf2 import mask_kernel as mk
+
+    inv, sstar = step_operands(Li, Ls, Li + Ls + k)
+    before = mk.newton_step.launches
+    got = mk.newton_step(inv, sstar, k)
+    torch.cuda.synchronize()
+    assert mk.newton_step.launches == before + 1
+    assert torch.equal(got, mk.newton_step_plain(inv, sstar, k))
+
+
+def test_newton_step_kernel_at_the_u64_class_last_step():
+    """M2 at the u64 class's last step ([1,572,654] limbs to [3,145,308],
+    ``S*`` of 421 limbs): its first and last 256 limbs against the plain
+    version on the inputs they depend on."""
+    from homomorph_tpu_torch.gf2 import mask_kernel as mk
+
+    k_prev, k_last = mk.precisions(32 * 3145728 - 13440)[-2:]
+    inv, sstar = step_operands(-(-k_prev // 32), 421, 77)
+    got = mk.newton_step(inv, sstar, k_last)
+    torch.cuda.synchronize()
+    Lo, n = got.shape[0], 256
+    assert Lo == 3145308
+    assert torch.equal(got[:n], mk.newton_step_plain(inv[: n // 2], sstar, 32 * n))
+    j0 = Lo - n - 421 - 1  # output limb m reads the square from limb m - Ls - 1 up
+    assert k_last % 32 == 0  # so the last limb is not truncated
+    sq = mk.square_plain(inv.view(1, -1), k_last)[:, j0:]
+    want = k.clmul_plain(sstar.view(1, -1), sq)[0, Lo - n - j0 : Lo - j0]
+    assert torch.equal(got[-n:], want)
+
+
+@pytest.mark.parametrize("d,n_limbs,s0", [
+    (1, 1, 1), (31, 9, 1), (32, 9, 1), (128, 9, 1), (128, 9, 0), (1024, 65, 1), (1024, 65, 0),
+    (100, 40, 1), (13440, 421, 1), (2432, 106, 1), (5, 1024, 1), (64, 1026, 1),
+])
+def test_series_small_kernel_matches_plain(d, n_limbs, s0):
+    """M3 against ``series_small_plain``, the series alone and the mask it
+    assembles: ``d % 32 == 0``, ``S(0) = 0``, one step's class, the u64
+    key's ``S*`` and series of the kernel's widest 1,024 limbs."""
+    from homomorph_tpu_torch.gf2 import mask_kernel as mk
+
+    on_card((1,), 0)
+    rng = np.random.default_rng(d + n_limbs)
+    s_int = int.from_bytes(rng.bytes(d // 8 + 1), "little")
+    s_int = (s_int & ((1 << d) - 1) & ~1) | (1 << d) | s0
+    s = gf2.from_numpy(np.frombuffer(s_int.to_bytes(4 * gf2.limbs_for(d), "little"),
+                                     dtype="<u4").astype(np.uint32), "cuda")
+    sstar = mk.reversed_key(s, d)
+    n_bits = 32 * n_limbs - d
+    for assemble in (None, (d, n_limbs)):
+        before = mk.series_small.launches
+        got = mk.series_small(sstar, n_bits, assemble)
+        torch.cuda.synchronize()
+        assert mk.series_small.launches == before + 1
+        assert torch.equal(got, mk.series_small_plain(sstar, n_bits, assemble))
+    with pytest.raises(ValueError):
+        mk.series_small(sstar, 32 * 1025)
+
+
+def test_masks_through_every_plan_on_the_card():
+    """The plan's masks on the card equal native's at the small classes
+    (one M3 launch each) and at wider ones, with the plan forced to all
+    M2, all route, and split at other caps."""
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch import native
+    from homomorph_tpu_torch.gf2 import mask_kernel as mk
+
+    on_card((1,), 0)
+    for d, n_limbs in ((128, 9), (1024, 65), (1024, 8192), (5888, 300)):
+        sk = ht.SecretKey.random(d, ht.ThreefrySource(d), device="cuda")
+        want = native.decrypt_mask(gf2.to_numpy(sk.limbs), d, n_limbs)
+        sstar = mk.reversed_key(sk.limbs, d)
+        route = [("route", k) for _, k in mk.mask_plan(d, n_limbs)]
+        for plan in (mk.mask_plan(d, n_limbs), mk.mask_plan(d, n_limbs, 0), route,
+                     mk.mask_plan(d, n_limbs, 64)[:-1] + route[-1:], mk.mask_plan(d, n_limbs, 1024)):
+            before = mk.series_small.launches
+            w = mk.series_mask(sstar, d, n_limbs, plan)
+            torch.cuda.synchronize()
+            assert np.array_equal(gf2.to_numpy(w), want), (d, n_limbs, plan)
+            if all(kind == "M3" for kind, _ in plan):
+                assert mk.series_small.launches == before + 1

@@ -26,6 +26,7 @@ from homomorph_tpu_torch.gf2 import poly as tpoly
 from homomorph_tpu_torch.experiments import (
     common,
     exp_add,
+    exp_mask_steps,
     exp_mul,
     exp_mul32,
     exp_mul64,
@@ -191,3 +192,37 @@ def test_scaling_model_reads_the_bench_and_the_link():
         m.model({"extras": {"encrypt_device_busy_bits_per_s": None}}, 1e9, "x")
     with pytest.raises(SystemExit):
         m.main(["--bench", "b.json"])  # the link's figure and source are required
+
+
+def test_mask_step_sweeps_agree_on_the_cpu():
+    """The mask experiment's cap and step sweeps at small classes: every
+    cap's mask equal to the default plan's, every step by M2 equal to the
+    route's (it raises otherwise); off the card no device time."""
+    from homomorph_tpu_torch.gf2 import mask_kernel as mk
+
+    out = exp_mask_steps.run(classes=((40, 300), (100, 600)), caps=(1, 2, 64), device="cpu",
+                             log=quiet)
+    for c in out["classes"]:
+        n_steps = len(mk.precisions(32 * c["limbs"] - c["degree"]))
+        assert [r["m3_steps"] + r["m2_steps"] for r in c["caps"]] == [n_steps] * 3
+        assert all(r["device_s"] is None and r["m3_device_s"] is None for r in c["caps"])
+        assert c["steps"] and all(r["m2_device_s"] is None and r["bound_s"] > 0
+                                  for r in c["steps"])
+        assert len(c["steps"]) == sum(kind == "M2" for kind, _ in
+                                      mk.mask_plan(c["degree"], c["limbs"]))
+
+
+@pytest.mark.parametrize("Lo,Ls,leaf", [(3145308, 421, True), (261960, 185, True),
+                                        (128, 421, False), (5, 3, False)])
+def test_newton_step_work_takes_the_fewer_pairs(Lo, Ls, leaf):
+    """A step's bound counts the fewer of M2's comb pairs and the Karatsuba
+    route's leaf pairs: the route's at the wide last steps (5.8e8 against
+    1.3e9 pairs at the u64 class), the comb's at narrow ones."""
+    from homomorph_tpu_torch.utils.profiling import COMB_LOADS_PER_PAIR
+
+    B, La, Lb = common.leaf_shape(1, min(Ls, Lo), Lo)
+    leaf_pairs = B * La * (Lb + 1)
+    comb = common.comb_pairs(Lo, Ls)
+    smem, ops = common.newton_step_work(Lo, Ls)
+    assert smem == min(comb, leaf_pairs) * COMB_LOADS_PER_PAIR * 4 and ops == smem * 16 // 60
+    assert (leaf_pairs < comb) == leaf
