@@ -38,10 +38,11 @@ Phases, in order; any failure exits non-zero before the result line:
 6b. the encrypt experiment's entry (``homomorph_tpu_torch.experiments.
    exp_enc``): K2, K3 and X1 on 2^21 bits, K3 and X1 held to K2;
 3c. the clmul route sweep (:func:`phase_route_sweep`): one Karatsuba level
-   (split, the leaf launch, unwind) against one direct K1 launch on
+   (R1, the leaf launch, R2) against one direct K1 launch on
    balanced operands of 32-4,096 limbs, and the chunk route at ``Lg = 4 Ls``,
-   by device time; every routed product equal to the direct one, limb for
-   limb; the crossover it measures printed beside the threshold in the code;
+   by device time (K1, R1 and R2 apart); every routed product equal to the
+   direct one, limb for limb; the crossover it measures printed beside the
+   threshold in the code;
 5c. the wide path (:func:`phase_wide`): checked u16 multiplication of 512
    pairs at ``Parameters(1024, 128, 1, 128)`` and u32 of 8 pairs at
    ``(2432, 128, 1, 128)``, decrypted and asserted, 2 and 1 of their rows
@@ -55,9 +56,16 @@ Phases, in order; any failure exits non-zero before the result line:
    launch of the u16 product and the widest of the u32 product (phase 5c),
    with the u32 product's widest operands timed direct and routed, and the
    u16 product end to end at thresholds from 48 limbs to the route off;
+   R1 and R2 (``csrc/route.cu``) against their plain versions (the torch
+   glue, level by level) at the u16 product's busiest route and the u32
+   product's widest, timed as in phase 3, R2 also one launch a level
+   (:func:`route_kernel_rows`);
 7. ``torch.profiler`` traces of the checked add, the first bulk round trip,
    the u8 multiplication, the u32 ``lt`` and the u16 and u32
-   multiplications: warm wall time, device time by kernel, busy share;
+   multiplications: warm wall time, device time by kernel, busy share; the
+   two products' device time split into K1, R1, R2 and the rest, with
+   their device records a call, and both once more with the route's glue
+   as torch ops (:func:`torch_glue_rows`, the port before R1 and R2);
 9. the verify gate (``run_verification()`` in full, scaled round trip
    included), a path of its own;
 10. the decrypt masks on the card (:func:`phase_masks`, a path of its own)
@@ -759,7 +767,7 @@ ROUTE_PAIRS = 1 << 27
 def route_case(ctx, Ls, Lg):
     """One Karatsuba level (or the chunk route and one level under it) of
     [B, Ls] x [B, Lg] against one direct K1 launch: device time of all
-    records (K1 and the torch glue), K1's share, and the time per call."""
+    records (K1, R1 and R2), each one's share, and the time per call."""
     torch = ctx["torch"]
     from homomorph_tpu_torch.gf2 import kernels as k
 
@@ -779,19 +787,27 @@ def route_case(ctx, Ls, Lg):
     del got, want
     iters = 5
     rec_d, rec_r = profiled(direct, iters), profiled(routed, iters)
-    k1 = None if rec_r is None else sum(v for name, v in rec_r.items() if "clmul" in name) / iters
+    k1, r1, r2 = (None, None, None) if rec_r is None else (
+        by_name(rec_r, key) / iters for key in ("clmul", "route_split", "route_join"))
     row = dict(Ls=Ls, Lg=Lg, B=B, pairs=B * Ls * (Lg + 1),
                steps=[s[0] for s in k.route_plan(Ls, Lg, Ls)],
                direct_ms=None if rec_d is None else sum(rec_d.values()) / iters,
                routed_ms=None if rec_r is None else sum(rec_r.values()) / iters,
-               routed_k1_ms=k1, direct_call_ms=call_ms(torch, direct, 10),
+               routed_k1_ms=k1, routed_r1_ms=r1, routed_r2_ms=r2,
+               direct_call_ms=call_ms(torch, direct, 10),
                routed_call_ms=call_ms(torch, routed, 10))
     row["routed_glue_ms"] = None if rec_r is None else row["routed_ms"] - k1
     log(f"[route] {Ls}x{Lg} B={B} {'+'.join(row['steps'])}: direct {ms_text(row['direct_ms'])} "
         f"ms, routed {ms_text(row['routed_ms'])} ms (K1 {ms_text(k1)} + glue "
-        f"{ms_text(row['routed_glue_ms'])}); per call {row['direct_call_ms']:.5f} / "
+        f"{ms_text(row['routed_glue_ms'])}: R1 {ms_text(r1)}, R2 {ms_text(r2)}); per call {row['direct_call_ms']:.5f} / "
         f"{row['routed_call_ms']:.5f} ms; equal")
     return row
+
+
+def by_name(records, key):
+    """Device ms of the records whose name holds ``key``: "clmul" (K1),
+    "route_split" (R1), "route_join" (R2)."""
+    return sum(v for name, v in records.items() if key in name)
 
 
 def crossover(rows):
@@ -889,9 +905,9 @@ def wide_mul(ctx, ht, name, params, n, desc, bits, direct_rows, seed):
     return stats, (c, ea, eb, prod), shapes
 
 
-# Phase 5c: thresholds at which the u16 product is timed end to end (the last
+# Phase 3b: thresholds at which the u16 product is timed end to end (the last
 # one turns the route off)
-U16_THRESHOLDS = (48, 64, 96, 128, 256, 1 << 30)
+U16_THRESHOLDS = (32, 48, 64, 96, 128, 256, 1 << 30)
 
 
 def threshold_scan(ctx, c, ea, eb, prod):
@@ -1104,6 +1120,117 @@ def widest_product(ctx):
     return out
 
 
+def route_bytes(B, Ls, Lg, steps):
+    """HBM bytes of R1 (each operand row read once, each leaf row written
+    once), of R2 as a function (the leaves' products read once, the product
+    written once) and of R2's launches (each its own input and output)."""
+    from homomorph_tpu_torch.gf2 import kernels as k
+
+    rows, w = k.leaf_rows(B, steps)
+    n, h, lo = k._levels(steps)
+    rows0 = B * max(n, 1)
+    launches = 0
+    for top, bottom in k.join_launches(steps):
+        if top < 0:
+            launches += 4 * (rows0 * 2 * Ls + B * (Ls + Lg))
+        else:
+            launches += 4 * (rows0 * 3 ** (bottom + 1) * 2 * h[bottom] + rows0 * 3 ** top * lo[top])
+    return 4 * B * (Ls + Lg) + 8 * rows * w, 4 * (rows * 2 * w + B * (Ls + Lg)), launches
+
+
+def route_kernel_rows(ctx):
+    """Phase 3b: R1 and R2 against their plain versions (the level-by-level
+    torch glue, on the card) at the u16 product's busiest route and the u32
+    product's widest, each timed as in phase 3 (R2: the whole ascent, its
+    launches fused as ``join_launches`` plans them, and once more one launch
+    a level); bounds by bytes, R2's as a function with its launches' sum
+    beside it."""
+    torch = ctx["torch"]
+    from homomorph_tpu_torch.gf2 import kernels as k
+
+    picks = (("u16-busiest", max(ctx["u16_shapes"], key=lambda s: clmul_ops(*s))),
+             ("u32-widest", max(ctx["u32_shapes"], key=lambda s: (s[1] + s[2], s[0]))))
+    rows = []
+    for label, (B, La, Lb) in picks:
+        Ls, Lg = min(La, Lb), max(La, Lb)
+        steps = k.route_plan(Ls, Lg, k.karatsuba_min())
+        check(steps, f"the {label} product {B}x{La}x{Lb} takes no route level")
+        small, big = random_words(ctx, (B, Ls)), random_words(ctx, (B, Lg))
+        leaf_s, leaf_g = k.route_split(small, big, steps)
+        torch.cuda.synchronize()
+        want_s, want_g = k._split_levels(small, big, steps)
+        bad_s, err_s = compare(torch, leaf_s, want_s)
+        bad_g, err_g = compare(torch, leaf_g, want_g)
+        del want_s, want_g
+        p = k.clmul_flat(leaf_s, leaf_g)
+        got = k.route_join(p, B, steps)
+        per_level = k.route_join(p, B, steps, 1)
+        torch.cuda.synchronize()
+        want = k._join_levels(p, B, steps)
+        bad_j, err_j = compare(torch, got, want)
+        bad_l, _ = compare(torch, per_level, want)
+        del got, per_level, want
+        check(bad_s + bad_g + bad_j + bad_l == 0,
+              f"route kernels at {label} {B}x{Ls}x{Lg}: R1 {bad_s + bad_g}, R2 {bad_j} "
+              f"(one launch a level {bad_l}) mismatches")
+        r1_bytes, r2_bytes, r2_launch_bytes = route_bytes(B, Ls, Lg, steps)
+        leaf = k.leaf_rows(B, steps)
+        shape = f"B={B} Ls={Ls} Lg={Lg} -> leaves [{leaf[0]}, {leaf[1]}] x2"
+        rows.append(dict(
+            kernel="route_split", label=label, shape=shape, mismatches=bad_s + bad_g,
+            max_abs_err=max(err_s, err_g), steps=[list(st) for st in steps],
+            **timed(torch, lambda: k.route_split(small, big, steps),
+                    lambda: k._split_levels(small, big, steps)),
+            work=[], old_ops=0, old_rate="int32_ops", bytes=r1_bytes))
+        join_launches = k.join_launches(steps)
+        rows.append(dict(
+            kernel="route_join", label=label, shape=shape.replace("leaves", "products of"),
+            mismatches=bad_j + bad_l, max_abs_err=err_j, steps=[list(st) for st in steps],
+            launches_per_product=len(join_launches), launch_plan=join_launches,
+            **timed(torch, lambda: k.route_join(p, B, steps),
+                    lambda: k._join_levels(p, B, steps)),
+            per_level_ms=profiled_ms(lambda: k.route_join(p, B, steps, 1), 20),
+            per_level_launches=len(k.join_launches(steps, 1)),
+            launch_bound_ms=r2_launch_bytes / ctx["peaks"]["hbm_bw"] * 1e3,
+            work=[], old_ops=0, old_rate="int32_ops", bytes=r2_bytes))
+        for r in rows[-2:]:
+            log(f"[kernels] {r['kernel']} {label} {r['shape']}: mismatches {r['mismatches']}, "
+                f"kernel {r['ms']} ms by {r['ms_by']} (call {r['call_ms']} ms), plain "
+                f"{r['plain_ms']} ms by {r['plain_by']}" + (
+                    f"; {r['launches_per_product']} launches {join_launches}, one launch a level "
+                    f"({r['per_level_launches']}) {ms_text(r['per_level_ms'])} ms"
+                    if r["kernel"] == "route_join" else ""))
+        del small, big, leaf_s, leaf_g, p
+        torch.cuda.synchronize()
+    return set_bounds(ctx, rows)
+
+
+def torch_glue_rows(af, bf):
+    """The clmul dispatcher as the port ran it before R1 and R2: the same
+    route, with the level-by-level torch glue on the card around K1 (the
+    "before" of phase 7's product stages)."""
+    from homomorph_tpu_torch.gf2 import kernels as k
+
+    small, big = (af, bf) if af.shape[1] <= bf.shape[1] else (bf, af)
+    steps = k.route_plan(small.shape[1], big.shape[1], k.karatsuba_min())
+    if not steps or af.shape[0] == 0:
+        return k.clmul_flat(af, bf)
+    leaf_s, leaf_g = k._split_levels(small, big, steps)
+    return k._join_levels(k.clmul_flat(leaf_s, leaf_g), small.shape[0], steps)
+
+
+def with_torch_glue(fn):
+    """``fn()`` with the dispatcher's route glue as torch ops (:func:`torch_glue_rows`)."""
+    from homomorph_tpu_torch.gf2 import kernels as k
+
+    rows = k.clmul_rows
+    k.clmul_rows = torch_glue_rows
+    try:
+        return fn()
+    finally:
+        k.clmul_rows = rows
+
+
 def phase_profile(ctx, main_stats, bulk_stats, mul_stats, wide_stats):
     """Warm wall time, device time by kernel and the device's busy share of
     the checked add, the first bulk round trip, the u8 multiplication, the
@@ -1127,8 +1254,12 @@ def phase_profile(ctx, main_stats, bulk_stats, mul_stats, wide_stats):
     stages = {
         "mul_u16": (lambda: wc.apply2(HomomorphicMultiplication, w16a, w16b),
                     wide_stats["u16"]["mul_ms"]),
+        "mul_u16_torch_glue": (lambda: with_torch_glue(
+            lambda: wc.apply2(HomomorphicMultiplication, w16a, w16b)), None),
         "mul_u32": (lambda: xc.apply2(HomomorphicMultiplication, w32a, w32b),
                     wide_stats["u32"]["mul_ms"]),
+        "mul_u32_torch_glue": (lambda: with_torch_glue(
+            lambda: xc.apply2(HomomorphicMultiplication, w32a, w32b)), None),
         "mul_u8": (lambda: mc.apply2(HomomorphicMultiplication, e8a, e8b), mul_stats["mul_ms"]),
         "lt_u32": (lambda: mc.apply2(HomomorphicLessThan, e32a, e32b), mul_stats["lt_ms"]),
         "add": (lambda: c.apply2(HomomorphicAddition, ca, cb), main_stats["add_ms"]),
@@ -1149,7 +1280,19 @@ def phase_profile(ctx, main_stats, bulk_stats, mul_stats, wide_stats):
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
         out[name] = dict(cold_ms=cold_ms, warm_ms=warm_ms, device_ms=dev_ms,
                          busy_share=busy, top=top)
-        log(f"[profile] {name}: cold {cold_ms:.3f} ms, warm {warm_ms:.3f} ms wall, device "
+        if name.startswith("mul_u16") or name.startswith("mul_u32"):
+            # the product stages' device time by kernel: K1, R1, R2 and the
+            # rest (the circuit's own ops, and the torch glue where it runs)
+            split = {key: by_name(per_kernel, key) for key in ("clmul", "route_split", "route_join")}
+            split["other"] = (dev_ms or 0.0) - sum(split.values())
+            out[name].update(device_by_kernel=split if per_kernel else None,
+                             device_records=device_launches(fn))
+            log(f"[profile] {name}: device by kernel {ms_text(dev_ms and split['clmul'], 3)} K1, "
+                f"{ms_text(dev_ms and split['route_split'], 3)} R1, "
+                f"{ms_text(dev_ms and split['route_join'], 3)} R2, "
+                f"{ms_text(dev_ms and split['other'], 3)} other ms; "
+                f"{out[name]['device_records']} device records a call")
+        log(f"[profile] {name}: cold {ms_text(cold_ms, 3)} ms, warm {warm_ms:.3f} ms wall, device "
             f"{ms_text(dev_ms, 3)} ms (busy {'not measured' if busy is None else f'{busy:.1%}'}); "
             "top: " + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
     return out
@@ -2139,7 +2282,7 @@ def main(argv=None):
         "encrypt_v1": enc.encrypt_words_mma, "encrypt_v3": enc.encrypt_sel_mma,
         "threefry": prng.random_bits, "threefry_dkey": prng.random_bits_device_key,
         "square": mk.square, "newton_step": mk.newton_step, "series_small": mk.series_small,
-        "mask_clmul": MaskK1()}
+        "mask_clmul": MaskK1(), "route_split": k.route_split, "route_join": k.route_join}
 
     def run_path(fn):
         for w in wrappers.values():
@@ -2167,6 +2310,7 @@ def main(argv=None):
     # 3b. K1 at the multiplications' and lt's busiest shapes
     t0 = time.perf_counter()
     rows += mul_shape_rows(ctx)
+    rows += route_kernel_rows(ctx)
     widest = widest_product(ctx)
     wide_stats["u16_thresholds"] = threshold_scan(ctx, *ctx["u16_inputs"])
     log(f"[kernels] phase 3b done in {time.perf_counter() - t0:.3f} s")
@@ -2216,14 +2360,18 @@ def main(argv=None):
     needs = {"add": ("clmul", "encrypt", "threefry", "series_small"),
              "mul_cmp": ("clmul", "encrypt_v1", "threefry", "series_small"),
              "exp_enc": ("encrypt", "encrypt_v1", "encrypt_v3", "threefry"),
-             "wide": ("clmul", "encrypt", "threefry", "series_small", "newton_step"),
+             "wide": ("clmul", "encrypt", "threefry", "series_small", "newton_step",
+                      "route_split", "route_join"),
              "verify": ("clmul", "encrypt", "threefry", "series_small"),
              "masks": ("clmul", "square", "newton_step", "series_small", "mask_clmul"),
              "mesh": ("clmul", "encrypt", "encrypt_v3", "threefry", "series_small"),
-             "u64": ("clmul", "encrypt", "series_small", "newton_step"),
+             "u64": ("clmul", "encrypt", "series_small", "newton_step", "route_split",
+                     "route_join"),
              "entry": ("clmul", "encrypt", "encrypt_v3", "threefry", "series_small"),
-             "bench": ("clmul", "encrypt", "threefry", "series_small", "newton_step"),
-             "compiled": ("clmul", "encrypt", "encrypt_v1", "threefry_dkey")}
+             "bench": ("clmul", "encrypt", "threefry", "series_small", "newton_step",
+                       "route_split", "route_join"),
+             "compiled": ("clmul", "encrypt", "encrypt_v1", "threefry_dkey", "route_split",
+                          "route_join")}
     for path, names in needs.items():
         for name in names:
             check(paths[path][name] > 0, f"{name} was not launched on the {path} path")
@@ -2261,6 +2409,12 @@ def main(argv=None):
                         "d5888-L262144"),
         "series_small": ("homomorph_tpu_torch/csrc/mask.cu", "homomorph_tpu/gf2/poly.py:352",
                          "d1024-L65"),
+        # not Pallas kernels: the XLA pads, slices and XORs of the route's
+        # levels there (_karatsuba_flat, and _clmul_flat's chunk branch)
+        "route_split": ("homomorph_tpu_torch/csrc/route.cu", "homomorph_tpu/gf2/kernels.py:356",
+                        "u16-busiest"),
+        "route_join": ("homomorph_tpu_torch/csrc/route.cu", "homomorph_tpu/gf2/kernels.py:356",
+                       "u16-busiest"),
     }
     kernels = []
     for name, (source, replaces, label) in meta.items():

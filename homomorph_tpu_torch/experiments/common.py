@@ -164,9 +164,11 @@ def leaf_shape(B: int, La: int, Lb: int, kmin: "int | None" = None) -> "tuple[in
 
     kmin = k.karatsuba_min() if kmin is None else kmin
     Ls, Lg = min(La, Lb), max(La, Lb)
-    for kind, _, _, n in k.route_plan(Ls, Lg, kmin):
-        B, Ls, Lg = (B * n, Ls, Ls) if kind == "chunk" else (B * 3, n, n)
-    return B, Ls, Lg
+    steps = k.route_plan(Ls, Lg, kmin)
+    if not steps:
+        return B, Ls, Lg
+    rows, w = k.leaf_rows(B, steps)
+    return rows, w, w
 
 
 def recorded_products(fn):

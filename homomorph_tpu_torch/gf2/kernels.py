@@ -1,4 +1,4 @@
-"""The clmul dispatcher, its Karatsuba route and its CUDA kernel (K1).
+"""The clmul dispatcher, its Karatsuba route and its CUDA kernels (K1, R1, R2).
 
 Counterpart of :mod:`homomorph_tpu.gf2.kernels`.  :func:`clmul` broadcasts
 the leading dimensions as the JAX dispatcher does (``kernels.py:179-185``),
@@ -29,12 +29,22 @@ to ``L``) into ``a0*b0``, ``a1*b1`` and ``(a0^a1)*(b0^b1)``, with
 package recurses product by product; here each level is one step on all
 rows at once (:func:`route_plan`): the pieces, and the three half-products
 (``a1``, ``b1`` padded to ``h``), are stacked on the row axis, so every row
-of a level has one width and the split needs no clmul.  Below the
-threshold, ONE K1 launch takes all ``3^k * B`` rows (times the pieces),
-and the levels unwind with XORs at static offsets: a routed product costs
-one launch and ``O(k)`` torch ops, where recursing call by call would cost
-``3^k`` launches.  Padding (odd ``L``, a last piece narrower than ``Ls``)
-only adds zero limbs, so every route gives the same bits.
+of a level has one width.  Below the threshold, ONE K1 launch takes all
+``3^k * B`` rows (times the pieces).  Padding (odd ``L``, a last piece
+narrower than ``Ls``) only adds zero limbs, so every route gives the same
+bits.
+
+The route's glue has kernels of its own (``csrc/route.cu``): on a CUDA
+tensor a routed product is ONE launch of R1 (:func:`route_split`, the whole
+descent for both operands), one of K1, and the launches of R2
+(:func:`route_join`, the bottom levels fused as far as shared memory holds
+a subtree, then one launch a level and one for the chunk step:
+:func:`join_launches`), with no torch op between them.  On a CPU tensor
+the same wrappers compute their plain versions, the level-by-level torch
+steps :func:`_split_levels` and :func:`_join_levels`.
+:func:`route_split_plain` (R1's one-shot index map) and
+:func:`route_join_plain` (R2's formulas in its launch order) mirror the
+kernels in torch for the CPU tests; no path calls them.
 
 The route runs on CUDA tensors from the threshold up.  On a CPU tensor the
 plain version runs unrouted, as the JAX package gates Karatsuba to TPU
@@ -67,7 +77,8 @@ from . import poly as gf2
 
 __all__ = [
     "clmul", "clmul_rows", "clmul_flat", "clmul_plain", "clmul_comb_plain",
-    "karatsuba_min", "route_plan",
+    "karatsuba_min", "route_plan", "route_split", "route_join", "join_launches", "leaf_rows",
+    "route_split_plain", "route_join_plain", "join_pieces_plain",
 ]
 
 # cap on the [batch, La, Lb] planes the plain sweep materializes at once
@@ -77,8 +88,10 @@ KARATSUBA_MIN_ENV = "HOMOMORPH_TPU_TORCH_KARATSUBA_MIN"
 FORCE_KARATSUBA_ENV = "HOMOMORPH_TPU_TORCH_FORCE_KARATSUBA"
 # Smallest width (limbs) of the smaller operand from which the route takes a
 # level: the crossover of chip_smoke.py's route sweep (phase 3c) on an NVIDIA
-# H100 80GB HBM3 at 700 W, where one level first beats a direct K1 launch at
-# 64 limbs and keeps winning above (PERF.md section 6, the route sweep).
+# H100 80GB HBM3 at 700 W, where one level (R1, K1, R2) first beats a direct
+# K1 launch at 64 limbs and keeps winning above; at 48 it loses (K1 on
+# 24-limb leaves), and the u16 product end to end is fastest at 64 too
+# (PERF.md section 6, the route sweep).
 _KARATSUBA_MIN = 64
 
 _fn = None
@@ -159,23 +172,14 @@ def _routed(device: torch.device) -> bool:
 
 def clmul_rows(af: torch.Tensor, bf: torch.Tensor) -> torch.Tensor:
     """The dispatcher on flat rows: [B, La] x [B, Lb] -> [B, La+Lb] through
-    the Karatsuba route (:func:`route_plan`) and ONE :func:`clmul_flat`."""
+    the Karatsuba route (:func:`route_plan`): :func:`route_split`, ONE
+    :func:`clmul_flat` and :func:`route_join`."""
     small, big = (af, bf) if af.shape[1] <= bf.shape[1] else (bf, af)
     steps = route_plan(small.shape[1], big.shape[1], karatsuba_min())
     if not steps or af.shape[0] == 0 or not _routed(af.device):
         return clmul_flat(af, bf)
-    rows = []
-    for kind, Ls, Lg, n in steps:
-        rows.append(small.shape[0])
-        if kind == "chunk":
-            big = F.pad(big, (0, n * Ls - Lg)).reshape(-1, Ls)
-            small = small.repeat_interleave(n, dim=0)
-        else:
-            small, big = _halves(small, n), _halves(big, n)
-    p = clmul_flat(small, big)
-    for (kind, Ls, Lg, n), B in zip(reversed(steps), reversed(rows)):
-        p = _join_pieces(p, B, Ls, Lg, n) if kind == "chunk" else _join_halves(p, B, Ls, Lg, n)
-    return p
+    leaf_s, leaf_g = route_split(small, big, steps)
+    return route_join(clmul_flat(leaf_s, leaf_g), small.shape[0], steps)
 
 
 def _halves(x: torch.Tensor, h: int) -> torch.Tensor:
@@ -192,8 +196,7 @@ def _join_halves(p: torch.Tensor, B: int, Ls: int, Lg: int, h: int) -> torch.Ten
     ``Ls + Lg`` are zero, so each is truncated on its own."""
     Lo = Ls + Lg
     p0, p2, pm = p.view(3, B, 2 * h).unbind(0)
-    pm ^= p0
-    pm ^= p2
+    pm = pm ^ p0 ^ p2
     out = p.new_empty((B, Lo))
     out[:, : 2 * h] = p0
     out[:, 2 * h :] = p2[:, : Lo - 2 * h]
@@ -212,6 +215,281 @@ def _join_pieces(p: torch.Tensor, B: int, Ls: int, Lg: int, n: int) -> torch.Ten
         odd = p[:, 1::2].reshape(B, -1)
         out[:, Ls : Ls + odd.shape[1]] ^= odd
     return out[:, : Ls + Lg].contiguous()
+
+
+def _split_levels(small: torch.Tensor, big: torch.Tensor, steps) -> "tuple[torch.Tensor, torch.Tensor]":
+    """R1's plain version: the route's levels one torch step at a time (the
+    chunk's pieces, then :func:`_halves` of each split)."""
+    for kind, Ls, Lg, n in steps:
+        if kind == "chunk":
+            big = F.pad(big, (0, n * Ls - Lg)).reshape(-1, Ls)
+            small = small.repeat_interleave(n, dim=0)
+        else:
+            small, big = _halves(small, n), _halves(big, n)
+    return small, big
+
+
+def _join_levels(p: torch.Tensor, B: int, steps) -> torch.Tensor:
+    """R2's plain version: :func:`_join_halves` and :func:`_join_pieces`
+    level by level, from the leaves' products up."""
+    rows = []
+    for kind, _, _, n in steps:
+        rows.append(B)
+        B *= n if kind == "chunk" else 3
+    for (kind, Ls, Lg, n), R in zip(reversed(steps), reversed(rows)):
+        p = _join_pieces(p, R, Ls, Lg, n) if kind == "chunk" else _join_halves(p, R, Ls, Lg, n)
+    return p
+
+
+# --------------------------------------------------------------------------
+# R1 and R2: the route's split and join as CUDA kernels (csrc/route.cu)
+# --------------------------------------------------------------------------
+
+#: words of shared memory R2's fused launch may take (``JOIN_SMEM_WORDS`` of
+#: ``csrc/route.cu``, which refuses a launch past it)
+ROUTE_SMEM_WORDS = 16384
+
+_PLAN = ctypes.POINTER(ctypes.c_longlong)
+# small, big, leaf_s, leaf_g, plan, stream / in, out, plan, top, bottom, stream
+_ROUTE_ARGS = {
+    "hm_route_split": [ctypes.c_void_p] * 4 + [_PLAN, ctypes.c_void_p],
+    "hm_route_join": [ctypes.c_void_p] * 2 + [_PLAN, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+}
+_route_fns: dict = {}
+
+
+def _route_kernel(name: str):
+    fn = _route_fns.get(name)
+    if fn is None:
+        from .cuda_build import library
+
+        fn = getattr(library("route"), name)
+        fn.argtypes = _ROUTE_ARGS[name]
+        fn.restype = ctypes.c_int
+        _route_fns[name] = fn
+    return fn
+
+
+def _levels(steps) -> "tuple[int, list[int], list[int]]":
+    """(pieces of the chunk step or 0, each split level's ``h``, each split
+    level's product width ``Ls + Lg``)."""
+    n = steps[0][3] if steps[0][0] == "chunk" else 0
+    splits = [s for s in steps if s[0] == "split"]
+    return n, [s[3] for s in splits], [s[1] + s[2] for s in splits]
+
+
+def leaf_rows(B: int, steps) -> "tuple[int, int]":
+    """(rows, width) of each operand's leaves: what the K1 launch takes."""
+    n, h, _ = _levels(steps)
+    return B * max(n, 1) * 3 ** len(h), h[-1]
+
+
+def _plan_words(B: int, steps):
+    """The route's table as ``csrc/route.cu``'s ``read_route`` takes it: B,
+    Ls, Lg, n (0 without a chunk), k, h[0..k-1], Ls+Lg of each level; passed
+    by value at each launch, never through device memory."""
+    n, h, lo = _levels(steps)
+    words = [B, steps[0][1], steps[0][2], n, len(h), *h, *lo]
+    return (ctypes.c_longlong * len(words))(*words)
+
+
+def join_launches(steps, fuse: "int | None" = None) -> "list[tuple[int, int]]":
+    """R2's launches for a route, in order: ``(top, bottom)`` joins split
+    levels ``top..bottom`` (0-based) in one launch, ``(-1, -1)`` the chunk
+    step's pieces.  The bottom levels are fused as far as a block's shared
+    memory (:data:`ROUTE_SMEM_WORDS`) holds the subtree, 3^m products of
+    ``2 h`` limbs and the level's 3^(m-1) outputs, and at most ``fuse``
+    levels if given (``fuse=1``: one launch a level)."""
+    _, h, lo = _levels(steps)
+    k, m = len(h), 1
+    while (m < k and (fuse is None or m < fuse)
+           and 3 ** (m + 1) * 2 * h[-1] + 3 ** m * lo[-1] <= ROUTE_SMEM_WORDS):
+        m += 1
+    launches = [(k - m, k - 1)] + [(i, i) for i in range(k - m - 1, -1, -1)]
+    if steps[0][0] == "chunk":
+        launches.append((-1, -1))
+    return launches
+
+
+def _check_route(small: torch.Tensor, big: torch.Tensor, steps) -> None:
+    if small.dtype != gf2.LIMB_DTYPE or big.dtype != gf2.LIMB_DTYPE:
+        raise TypeError(f"route_split takes int32 limbs, got {small.dtype} and {big.dtype}")
+    if not steps or steps[-1][0] != "split":
+        raise ValueError(f"route_split takes a route that ends in a split, got {steps}")
+    want = (steps[0][1], steps[0][2])
+    if (small.ndim != 2 or big.ndim != 2 or small.shape[0] != big.shape[0]
+            or (small.shape[1], big.shape[1]) != want):
+        raise ValueError(f"route_split takes [B, {want[0]}] and [B, {want[1]}], got "
+                         f"{tuple(small.shape)} and {tuple(big.shape)}")
+    if small.device != big.device:
+        raise ValueError(f"route_split operands on {small.device} and {big.device}")
+    if not (small.is_contiguous() and big.is_contiguous()):
+        raise ValueError("route_split takes contiguous operands")
+
+
+def route_split(small: torch.Tensor, big: torch.Tensor, steps) -> "tuple[torch.Tensor, torch.Tensor]":
+    """R1's wrapper: the route's descent, ``[B, Ls]`` and ``[B, Lg]`` (the
+    first step's widths) -> each operand's leaves, :func:`leaf_rows`.
+
+    A CPU tensor gets the plain version (:func:`_split_levels`); a CUDA
+    tensor launches ``hm_route_split`` once on the current stream (and
+    counts the launch) or raises."""
+    _check_route(small, big, steps)
+    if small.device.type == "cpu":
+        return _split_levels(small, big, steps)
+    if small.device.type != "cuda":
+        raise ValueError(f"route_split runs on cpu or cuda, not {small.device}")
+    shape = leaf_rows(small.shape[0], steps)
+    leaf_s = torch.empty(shape, dtype=gf2.LIMB_DTYPE, device=small.device)
+    leaf_g = torch.empty(shape, dtype=gf2.LIMB_DTYPE, device=small.device)
+    if small.shape[0] == 0:
+        return leaf_s, leaf_g
+    with torch.cuda.device(small.device):
+        err = _route_kernel("hm_route_split")(
+            small.data_ptr(), big.data_ptr(), leaf_s.data_ptr(), leaf_g.data_ptr(),
+            _plan_words(small.shape[0], steps), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"route split kernel launch failed: cudaError {err}")
+    route_split.launches += 1
+    return leaf_s, leaf_g
+
+
+def route_join(p: torch.Tensor, B: int, steps, fuse: "int | None" = None) -> torch.Tensor:
+    """R2's wrapper: the leaves' products ``[rows, 2w]`` (:func:`leaf_rows`)
+    -> the product ``[B, Ls+Lg]`` of the route's first step.
+
+    A CPU tensor gets the plain version (:func:`_join_levels`); a CUDA
+    tensor launches ``hm_route_join`` once for each of
+    :func:`join_launches` on the current stream (and counts each launch)
+    or raises."""
+    if p.dtype != gf2.LIMB_DTYPE:
+        raise TypeError(f"route_join takes int32 limbs, got {p.dtype}")
+    n, h, lo = _levels(steps)
+    rows, w = leaf_rows(B, steps)
+    if p.ndim != 2 or tuple(p.shape) != (rows, 2 * w):
+        raise ValueError(f"route_join takes [{rows}, {2 * w}] products, got {tuple(p.shape)}")
+    if not p.is_contiguous():
+        raise ValueError("route_join takes contiguous products")
+    if p.device.type == "cpu":
+        return _join_levels(p, B, steps)
+    if p.device.type != "cuda":
+        raise ValueError(f"route_join runs on cpu or cuda, not {p.device}")
+    if B == 0:
+        return p.new_empty((0, steps[0][1] + steps[0][2]))
+    words = _plan_words(B, steps)
+    rows0 = B * max(n, 1)
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for top, bottom in join_launches(steps, fuse):
+            shape = (B, steps[0][1] + steps[0][2]) if top < 0 else (rows0 * 3 ** top, lo[top])
+            out = torch.empty(shape, dtype=gf2.LIMB_DTYPE, device=p.device)
+            err = _route_kernel("hm_route_join")(p.data_ptr(), out.data_ptr(), words, top, bottom,
+                                                 stream)
+            if err:
+                raise RuntimeError(f"route join kernel launch failed: cudaError {err}")
+            route_join.launches += 1
+            p = out
+    return p
+
+
+#: launches of each kernel since the last reset (plain integers)
+route_split.launches = 0
+route_join.launches = 0
+
+
+def route_split_plain(small: torch.Tensor, big: torch.Tensor, steps) -> "tuple[torch.Tensor, torch.Tensor]":
+    """R1's index map in torch, all levels at once: leaf limb ``u`` of leaf
+    row ``r0 + rows0 * (t_1 + 3 t_2 + ...)`` is the XOR, over the levels'
+    choices ``c_i`` (0 for digit 0, 1 for digit 1, either for digit 2), of
+    the original row's limb at ``u + sum c_i h_i`` (past the piece's start),
+    each term read only if its position is below the real width of the node
+    at every level on the path (``W' = min(W, h)`` for digits 0 and 2,
+    ``clamp(W - h, 0, h)`` for 1).  The same leaves as :func:`_split_levels`,
+    limb for limb; no path calls it."""
+    n, h, _ = _levels(steps)
+    B, Ls = small.shape
+    Lg = big.shape[1]
+    rows0, k, w = B * max(n, 1), len(h), h[-1]
+    dev = small.device
+    leaf = torch.arange(rows0 * 3 ** k, device=dev)
+    r0, v = leaf % rows0, leaf // rows0
+    b, j = r0 // max(n, 1), r0 % max(n, 1)
+    digits = []
+    for _ in range(k):
+        digits.append(v % 3)
+        v = v // 3
+    u = torch.arange(w, device=dev)
+    out = []
+    for x, chunked in ((small, False), (big, n > 0)):
+        L = x.shape[1]
+        base = j * Ls if chunked else torch.zeros_like(j)
+        widths = [(Lg - j * Ls).clamp(max=Ls) if chunked else torch.full_like(j, L)]
+        for t, hh in zip(digits, h):
+            W = widths[-1]
+            widths.append(torch.where(t == 1, (W - hh).clamp(0, hh), W.clamp(max=hh)))
+        acc = torch.zeros((leaf.numel(), w), dtype=x.dtype, device=dev)
+        flat = x.reshape(-1)
+        for choice in range(2 ** k):
+            c = [(choice >> i) & 1 for i in range(k)]
+            ok = torch.ones((leaf.numel(), w), dtype=torch.bool, device=dev)
+            pos = u.clone()
+            for i in reversed(range(k)):
+                ok &= ((digits[i] == 2) | (digits[i] == c[i]))[:, None]
+                pos = pos + c[i] * h[i]
+                ok &= pos[None, :] < widths[i][:, None]
+            idx = (b * L + base)[:, None] + pos[None, :]
+            vals = flat[idx.clamp(0, flat.numel() - 1)]
+            acc ^= torch.where(ok, vals, torch.zeros_like(vals))
+        out.append(acc)
+    return out[0], out[1]
+
+
+def _join_terms(p0: torch.Tensor, p2: torch.Tensor, pm: torch.Tensor, h: int, lo: int) -> torch.Tensor:
+    """R2's formula on products of ``2h`` limbs (last axis): ``out[t] =
+    p0[t] ^ p0[t-h] ^ pm[t-h] ^ p2[t-h] ^ p2[t-2h]`` for ``t < lo``, each
+    term zero outside its row."""
+    t = torch.arange(lo, device=p0.device)
+
+    def at(x, shift):
+        i = t - shift
+        ok = (i >= 0) & (i < 2 * h)
+        vals = x[..., i.clamp(0, 2 * h - 1)]
+        return torch.where(ok, vals, torch.zeros_like(vals))
+
+    return at(p0, 0) ^ at(p0, h) ^ at(pm, h) ^ at(p2, h) ^ at(p2, 2 * h)
+
+
+def join_pieces_plain(p: torch.Tensor, B: int, Ls: int, Lg: int, n: int) -> torch.Tensor:
+    """R2's chunk formula: ``out[t] = piece[t/Ls][t%Ls] ^ piece[t/Ls -
+    1][Ls + t%Ls]`` (terms outside the pieces zero), [B*n, 2Ls] -> [B, Ls+Lg]."""
+    pieces = p.view(B, n, 2 * Ls)
+    t = torch.arange(Ls + Lg, device=p.device)
+    j, q = t // Ls, t % Ls
+    a = pieces[:, j.clamp(max=n - 1), q]
+    c = pieces[:, (j - 1).clamp(0, n - 1), Ls + q]
+    zero = torch.zeros_like(a)
+    return torch.where(j < n, a, zero) ^ torch.where(j >= 1, c, zero)
+
+
+def route_join_plain(p: torch.Tensor, B: int, steps, fuse: "int | None" = None) -> torch.Tensor:
+    """R2's launches (:func:`join_launches`) in torch, each by its formula:
+    a fused launch gathers each node's subtree (rows ``r + R s``) and joins
+    its levels in that local order, as the kernel's blocks do in shared
+    memory; a level alone and the chunk step join whole rows.  The same
+    product as :func:`_join_levels`; no path calls it."""
+    n, h, lo = _levels(steps)
+    rows0 = B * max(n, 1)
+    for top, bottom in join_launches(steps, fuse):
+        if top < 0:
+            p = join_pieces_plain(p, B, steps[0][1], steps[0][2], n)
+            continue
+        R = rows0 * 3 ** top
+        cur = p.view(3 ** (bottom - top + 1), R, 2 * h[bottom]).transpose(0, 1)
+        for lvl in range(bottom, top - 1, -1):
+            M = cur.shape[1] // 3
+            cur = _join_terms(cur[:, :M], cur[:, M : 2 * M], cur[:, 2 * M :], h[lvl], lo[lvl])
+        p = cur.reshape(R, lo[top])
+    return p
 
 
 def clmul_plain(af: torch.Tensor, bf: torch.Tensor) -> torch.Tensor:

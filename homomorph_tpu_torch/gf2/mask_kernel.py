@@ -34,8 +34,9 @@ from the shapes alone (``csrc/mask.cu`` holds the three kernels):
   product by ``S*`` and the truncation fused, nothing of them in device
   memory;
 * ``"route"``: M1 (:func:`square`) and a product by ``S*`` through
-  :func:`homomorph_tpu_torch.gf2.kernels.clmul` and its Karatsuba route (K1),
-  about 15 launches a step with the route's glue; taken past M3's cap only
+  :func:`homomorph_tpu_torch.gf2.kernels.clmul` and its Karatsuba route (K1,
+  with the route's glue R1 and R2 where ``S*`` takes a level), a few
+  launches a step; taken past M3's cap only
   where ``S*`` is wider than :data:`TABLE_MAX_LIMBS`, which M2's and M3's
   tables cannot hold.  Only these products pass the clmul dispatcher and
   its limb-mesh hook: M2 and M3 steps do not (the JAX scan never reached

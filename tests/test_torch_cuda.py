@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1, K2, K3, X1, T1, M1, M2, M3) against their
+"""The port's CUDA kernels (K1, R1, R2, K2, K3, X1, T1, M1, M2, M3) against their
 plain torch versions (and K1 and K2 against the torch mirrors of their
 designs), on the card.
 
@@ -83,6 +83,119 @@ def test_route_matches_the_direct_launch(monkeypatch, B, La, Lb, kmin):
     assert k.route_plan(min(La, Lb), max(La, Lb), kmin)
     assert torch.equal(got, k.clmul_flat(a, b))
     assert torch.equal(got, k.clmul_plain(a, b))
+
+
+ROUTE_SHAPES = [(64, 64, 64, 64), (9, 130, 129, 33), (2, 257, 256, 2), (4, 1000, 1000, 100),
+                (5, 100, 400, 50), (3, 48, 1000, 16), (7, 400, 100, 64)]
+
+
+@pytest.mark.parametrize("B,La,Lb,kmin", ROUTE_SHAPES)
+def test_route_kernels_match_plain(B, La, Lb, kmin):
+    """R1 against the level-by-level split and its one-shot index map; R2,
+    fused as far as shared memory allows and one launch a level, against
+    the level-by-level join and its formula mirror; on the card."""
+    a, b = on_card((B, La), 41), on_card((B, Lb), 42)
+    small, big = (a, b) if La <= Lb else (b, a)
+    steps = k.route_plan(small.shape[1], big.shape[1], kmin)
+    before = k.route_split.launches
+    leaf_s, leaf_g = k.route_split(small, big, steps)
+    torch.cuda.synchronize()
+    assert k.route_split.launches == before + 1
+    want_s, want_g = k._split_levels(small, big, steps)
+    assert torch.equal(leaf_s, want_s) and torch.equal(leaf_g, want_g)
+    mirror_s, mirror_g = k.route_split_plain(small, big, steps)
+    assert torch.equal(leaf_s, mirror_s) and torch.equal(leaf_g, mirror_g)
+    p = k.clmul_flat(leaf_s, leaf_g)
+    want = k._join_levels(p.clone(), B, steps)
+    for fuse in (None, 1, 2):
+        before = k.route_join.launches
+        got = k.route_join(p, B, steps, fuse)
+        torch.cuda.synchronize()
+        assert k.route_join.launches == before + len(k.join_launches(steps, fuse))
+        assert torch.equal(got, want)
+        assert torch.equal(got, k.route_join_plain(p, B, steps, fuse))
+    assert torch.equal(want, k.clmul_plain(a, b))
+
+
+@pytest.mark.parametrize("B,La,Lb,kmin", ROUTE_SHAPES)
+def test_routed_product_launches_r1_k1_and_r2_only(monkeypatch, B, La, Lb, kmin):
+    """A routed product is one R1 launch, one K1 launch and the R2 launches
+    of join_launches, and no other device work: the device records of a
+    call, each name counted as the most any of three traces holds (a trace
+    can lose records), are exactly those kernels."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    a, b = on_card((B, La), 43), on_card((B, Lb), 44)
+    monkeypatch.setenv(k.KARATSUBA_MIN_ENV, str(kmin))
+    steps = k.route_plan(min(La, Lb), max(La, Lb), kmin)
+    J = len(k.join_launches(steps))
+    k.clmul(a, b)
+    torch.cuda.synchronize()
+    most = Counter()
+    for _ in range(3):
+        counts = (k.route_split.launches, k.clmul_flat.launches, k.route_join.launches)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = k.clmul(a, b)
+            torch.cuda.synchronize()
+        assert (k.route_split.launches - counts[0], k.clmul_flat.launches - counts[1],
+                k.route_join.launches - counts[2]) == (1, 1, J)
+        seen = Counter(ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA)
+        most = Counter({name: max(most[name], seen[name]) for name in most.keys() | seen.keys()})
+    assert torch.equal(got, k.clmul_plain(a, b))
+    if most:  # all three traces can come back without device records
+        assert all(("route_" in n) or ("clmul" in n) for n in most), dict(most)
+        assert sum(most.values()) == 2 + J, dict(most)
+
+
+def test_routed_product_replays_in_a_cuda_graph(monkeypatch):
+    """R1, K1 and R2 captured in one CUDA graph: each replay on new operands
+    copied into the captured inputs equals the eager product, and a replay
+    counts no launch."""
+    monkeypatch.setenv(k.KARATSUBA_MIN_ENV, "33")
+    a, b = on_card((6, 300), 45), on_card((6, 130), 46)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k.clmul(a, b)  # warm-up: builds and loads the kernels
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k.clmul(a, b)
+    J = len(k.join_launches(k.route_plan(130, 300, 33)))
+    before = (k.route_split.launches, k.clmul_flat.launches, k.route_join.launches)
+    for seed in (47, 48, 49):
+        a.copy_(on_card(a.shape, seed))
+        b.copy_(on_card(b.shape, seed + 100))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, k.clmul_plain(a, b))
+        assert torch.equal(out, k.clmul(a, b))  # eager: counts 1, 1 and J
+    after = (k.route_split.launches, k.clmul_flat.launches, k.route_join.launches)
+    assert after == (before[0] + 3, before[1] + 3, before[2] + 3 * J)
+
+
+def test_route_wrappers_raise_on_unsupported_input():
+    a, b = on_card((4, 100), 50), on_card((4, 130), 51)
+    steps = k.route_plan(100, 130, 33)
+    with pytest.raises(TypeError):
+        k.route_split(a.to(torch.int64), b, steps)
+    with pytest.raises(ValueError):
+        k.route_split(on_card((100, 4), 52).T, b, steps)
+    with pytest.raises(ValueError):
+        k.route_split(a, b.cpu(), steps)
+    with pytest.raises(ValueError):
+        k.route_split(b, a, steps)  # widths not the plan's
+    leaf_s, leaf_g = k.route_split(a, b, steps)
+    p = k.clmul_flat(leaf_s, leaf_g)
+    with pytest.raises(TypeError):
+        k.route_join(p.to(torch.int64), 4, steps)
+    with pytest.raises(ValueError):
+        k.route_join(p.T.contiguous().T, 4, steps)
+    with pytest.raises(ValueError):
+        k.route_join(p[:-1], 4, steps)
 
 
 def test_u16_product_row_routed_on_the_card(monkeypatch):
