@@ -57,8 +57,10 @@ Phases, in order; any failure exits non-zero before the result line:
    with the u32 product's widest operands timed direct and routed, and the
    u16 product end to end at thresholds from 48 limbs to the route off;
    R1 and R2 (``csrc/route.cu``) against their plain versions (the torch
-   glue, level by level) at the u16 product's busiest route and the u32
-   product's widest, timed as in phase 3, R2 also one launch a level
+   glue, level by level) at the u16 product's busiest route, the u32
+   product's widest, and the widest of the d = 5888 u32 product and of the
+   u64 product (``experiments/exp_route.py``'s ``ROUTES``; phases 10e and
+   10c hold their paths' widest products to them), each timed as in phase 3
    (:func:`route_kernel_rows`);
 7. ``torch.profiler`` traces of the checked add, the first bulk round trip,
    the u8 multiplication, the u32 ``lt`` and the u16 and u32
@@ -99,7 +101,8 @@ Phases, in order; any failure exits non-zero before the result line:
 10c. the u64 product at ``Parameters(13440, 128, 1, 128)``
    (``homomorph_tpu_torch.experiments.exp_mul64``), decrypted against
    ``x * y mod 2^64`` under a key with ``S(0) = 1``: keygen, the eager
-   tree's wall, device time, K1 launches and peak memory, the decrypt
+   tree's wall, device time (as a CUDA graph, and by kernel: K1, R1, R2
+   and the rest of an eager call), K1 launches and peak memory, the decrypt
    mask's wall and device time; K1's launch with the most rows and its widest held
    against the plain version on their first and last 256 rows
    (:func:`k1_spot_checked`);
@@ -217,6 +220,8 @@ def call_ms(torch, fn, iters=50):
 
 def compare(torch, got, want):
     check(got.shape == want.shape, f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if torch.equal(got, want):
+        return 0, 0
     g = got.to(torch.int64) & 0xFFFFFFFF
     w = want.to(torch.int64) & 0xFFFFFFFF
     diff = (g - w).abs()
@@ -1121,88 +1126,92 @@ def widest_product(ctx):
 
 
 def route_bytes(B, Ls, Lg, steps):
-    """HBM bytes of R1 (each operand row read once, each leaf row written
-    once), of R2 as a function (the leaves' products read once, the product
-    written once) and of R2's launches (each its own input and output)."""
+    """HBM bytes of R1 and of R2 as functions (``exp_route.function_bytes``)
+    and of R2's launches (``join_launches``: the ascent reads the leaves'
+    products and writes its nodes' products, a level alone and the chunk
+    step each read their input and write their output)."""
+    from homomorph_tpu_torch.experiments.exp_route import function_bytes
     from homomorph_tpu_torch.gf2 import kernels as k
 
     rows, w = k.leaf_rows(B, steps)
     n, h, lo = k._levels(steps)
     rows0 = B * max(n, 1)
     launches = 0
-    for top, bottom in k.join_launches(steps):
+    for top, tile, _ in k.join_launches(B, steps):
         if top < 0:
             launches += 4 * (rows0 * 2 * Ls + B * (Ls + Lg))
         else:
-            launches += 4 * (rows0 * 3 ** (bottom + 1) * 2 * h[bottom] + rows0 * 3 ** top * lo[top])
-    return 4 * B * (Ls + Lg) + 8 * rows * w, 4 * (rows * 2 * w + B * (Ls + Lg)), launches
+            read = rows * 2 * w if tile else rows0 * 3 ** (top + 1) * 2 * h[top]
+            launches += 4 * (read + rows0 * 3 ** top * lo[top])
+    return (*function_bytes(B, Ls, Lg, steps), launches)
 
 
 def route_kernel_rows(ctx):
     """Phase 3b: R1 and R2 against their plain versions (the level-by-level
     torch glue, on the card) at the u16 product's busiest route and the u32
-    product's widest, each timed as in phase 3 (R2: the whole ascent, its
-    launches fused as ``join_launches`` plans them, and once more one launch
-    a level); bounds by bytes, R2's as a function with its launches' sum
-    beside it."""
-    torch = ctx["torch"]
+    product's widest, as phase 5c recorded them, and at the widest of the
+    d = 5888 u32 product and of the u64 product (``exp_route.ROUTES``, held
+    to the shapes phases 10e and 10c record), each checked, timed and
+    bounded by ``exp_route.route_kernels`` (R2: its whole launch plan), with
+    R1's plan and R2's launches and their bytes beside."""
+    from homomorph_tpu_torch.experiments.exp_route import ROUTES, route_kernels
     from homomorph_tpu_torch.gf2 import kernels as k
 
-    picks = (("u16-busiest", max(ctx["u16_shapes"], key=lambda s: clmul_ops(*s))),
-             ("u32-widest", max(ctx["u32_shapes"], key=lambda s: (s[1] + s[2], s[0]))))
+    u16 = max(ctx["u16_shapes"], key=lambda s: clmul_ops(*s))
+    u32 = max(ctx["u32_shapes"], key=lambda s: (s[1] + s[2], s[0]))
+    picks = [("u16-busiest", u16), ("u32-widest", u32)] + [
+        (label, (B, Ls, Lg)) for label, B, Ls, Lg in ROUTES if label in WIDEST_ROUTES]
     rows = []
     for label, (B, La, Lb) in picks:
         Ls, Lg = min(La, Lb), max(La, Lb)
         steps = k.route_plan(Ls, Lg, k.karatsuba_min())
         check(steps, f"the {label} product {B}x{La}x{Lb} takes no route level")
-        small, big = random_words(ctx, (B, Ls)), random_words(ctx, (B, Lg))
-        leaf_s, leaf_g = k.route_split(small, big, steps)
-        torch.cuda.synchronize()
-        want_s, want_g = k._split_levels(small, big, steps)
-        bad_s, err_s = compare(torch, leaf_s, want_s)
-        bad_g, err_g = compare(torch, leaf_g, want_g)
-        del want_s, want_g
-        p = k.clmul_flat(leaf_s, leaf_g)
-        got = k.route_join(p, B, steps)
-        per_level = k.route_join(p, B, steps, 1)
-        torch.cuda.synchronize()
-        want = k._join_levels(p, B, steps)
-        bad_j, err_j = compare(torch, got, want)
-        bad_l, _ = compare(torch, per_level, want)
-        del got, per_level, want
-        check(bad_s + bad_g + bad_j + bad_l == 0,
-              f"route kernels at {label} {B}x{Ls}x{Lg}: R1 {bad_s + bad_g}, R2 {bad_j} "
-              f"(one launch a level {bad_l}) mismatches")
-        r1_bytes, r2_bytes, r2_launch_bytes = route_bytes(B, Ls, Lg, steps)
-        leaf = k.leaf_rows(B, steps)
+        got = route_kernels(label, B, Ls, Lg, ctx["peaks"]["hbm_bw"])
+        check(got["R1"]["mismatches"] + got["R2"]["mismatches"] == 0,
+              f"route kernels at {label} {B}x{Ls}x{Lg}: R1 {got['R1']['mismatches']}, "
+              f"R2 {got['R2']['mismatches']} mismatches")
+        launch_bytes = route_bytes(B, Ls, Lg, steps)[2]
+        leaf = got["leaves"]
         shape = f"B={B} Ls={Ls} Lg={Lg} -> leaves [{leaf[0]}, {leaf[1]}] x2"
-        rows.append(dict(
-            kernel="route_split", label=label, shape=shape, mismatches=bad_s + bad_g,
-            max_abs_err=max(err_s, err_g), steps=[list(st) for st in steps],
-            **timed(torch, lambda: k.route_split(small, big, steps),
-                    lambda: k._split_levels(small, big, steps)),
-            work=[], old_ops=0, old_rate="int32_ops", bytes=r1_bytes))
-        join_launches = k.join_launches(steps)
-        rows.append(dict(
-            kernel="route_join", label=label, shape=shape.replace("leaves", "products of"),
-            mismatches=bad_j + bad_l, max_abs_err=err_j, steps=[list(st) for st in steps],
-            launches_per_product=len(join_launches), launch_plan=join_launches,
-            **timed(torch, lambda: k.route_join(p, B, steps),
-                    lambda: k._join_levels(p, B, steps)),
-            per_level_ms=profiled_ms(lambda: k.route_join(p, B, steps, 1), 20),
-            per_level_launches=len(k.join_launches(steps, 1)),
-            launch_bound_ms=r2_launch_bytes / ctx["peaks"]["hbm_bw"] * 1e3,
-            work=[], old_ops=0, old_rate="int32_ops", bytes=r2_bytes))
+        plan = k.join_launches(B, steps)
+        for name, kernel, extra in (
+                ("R1", "route_split", dict(shape=shape, split_plan=list(k.split_plan(B, steps)))),
+                ("R2", "route_join", dict(
+                    shape=shape.replace("leaves", "products of"),
+                    launches_per_product=got["R2"]["launches"], launch_plan=plan,
+                    launch_bytes=launch_bytes,
+                    launch_bound_ms=launch_bytes / ctx["peaks"]["hbm_bw"] * 1e3))):
+            m = got[name]
+            rows.append(dict(
+                kernel=kernel, label=label, mismatches=m["mismatches"],
+                max_abs_err=m["max_abs_err"], steps=got["steps"],
+                **{key: m[key] for key in ("ms", "ms_by", "call_ms", "plain_ms", "plain_by")},
+                work=[], old_ops=0, old_rate="int32_ops", bytes=m["bytes"], **extra))
         for r in rows[-2:]:
             log(f"[kernels] {r['kernel']} {label} {r['shape']}: mismatches {r['mismatches']}, "
                 f"kernel {r['ms']} ms by {r['ms_by']} (call {r['call_ms']} ms), plain "
                 f"{r['plain_ms']} ms by {r['plain_by']}" + (
-                    f"; {r['launches_per_product']} launches {join_launches}, one launch a level "
-                    f"({r['per_level_launches']}) {ms_text(r['per_level_ms'])} ms"
-                    if r["kernel"] == "route_join" else ""))
-        del small, big, leaf_s, leaf_g, p
-        torch.cuda.synchronize()
+                    f"; {r['launches_per_product']} launches {plan}, their own bytes' bound "
+                    f"{r['launch_bound_ms']:.5f} ms" if r["kernel"] == "route_join"
+                    else f"; depth and group {r['split_plan']}"))
     return set_bounds(ctx, rows)
+
+
+#: the labels of ``exp_route.ROUTES`` phase 3b adds to the recorded routes,
+#: and the path whose widest product each is
+WIDEST_ROUTES = {"d5888-widest": "bench", "u64-widest": "u64"}
+
+
+def widest_route_checked(label, shapes):
+    """Hold a path's widest recorded product to its ``exp_route.ROUTES``
+    entry (phase 3b timed R1 and R2 there)."""
+    from homomorph_tpu_torch.experiments.exp_route import ROUTES
+
+    B, La, Lb = max(shapes, key=lambda s: (s[1] + s[2], s[0]))
+    want = [r[1:] for r in ROUTES if r[0] == label][0]
+    check((B, min(La, Lb), max(La, Lb)) == want,
+          f"{label}: the path's widest product is {B}x{La}x{Lb}, not {want} as phase 3b took it")
+    return [B, La, Lb]
 
 
 def torch_glue_rows(af, bf):
@@ -1928,18 +1937,22 @@ def phase_u64(ctx):
     its K1 launches and peak memory, the decrypt mask's wall and device time, the
     decrypt against ``x * y mod 2^64`` under a key with ``S(0) = 1`` (inside
     the envelope, so every coefficient of the product counts), and a warm
-    call's wall and device time.  K1's largest and widest launches are held
-    against the plain version (:func:`k1_spot_checked`)."""
+    call's wall and device time, also by kernel.  K1's largest and widest
+    launches are held against the plain version (:func:`k1_spot_checked`),
+    and the widest product to the route phase 3b timed."""
     from homomorph_tpu_torch.experiments import exp_mul64
 
     torch = ctx["torch"]
     torch.cuda.empty_cache()
-    out, spots = k1_spot_checked(ctx, "u64", lambda: exp_mul64.run(
-        device=ctx["dev"], log=lambda m: log(f"[u64] {m.strip()}")))
+    (out, spots), shapes = recorded_products(lambda: k1_spot_checked(ctx, "u64", lambda: exp_mul64.run(
+        device=ctx["dev"], log=lambda m: log(f"[u64] {m.strip()}"))))
     check(out["correct"], "the u64 product decrypts wrong")
     check(out["s0"] == 1, "the u64 key has S(0) = 0: its decrypt reads only the constant term")
+    split = out["tree_device_by_kernel"]
+    log(f"[u64] eager device time by kernel: K1 {split['K1']:.3f}, R1 {split['R1']:.3f}, "
+        f"R2 {split['R2']:.3f}, other {split['other']:.3f} ms")
     torch.cuda.empty_cache()
-    return dict(out, k1_spot_checks=spots)
+    return dict(out, k1_spot_checks=spots, widest_product=widest_route_checked("u64-widest", shapes))
 
 
 def phase_entry(ctx):
@@ -1974,10 +1987,11 @@ def phase_bench(ctx):
         log("[bench] " + " ".join(str(x) for x in a))
 
     try:
-        result, spots = k1_spot_checked(ctx, "bench", lambda: bench.run(
-            bench.parse_args(["--with-mul32"]), bench_log))
+        (result, spots), shapes = recorded_products(lambda: k1_spot_checked(
+            ctx, "bench", lambda: bench.run(bench.parse_args(["--with-mul32"]), bench_log)))
     except SystemExit as err:
         raise SmokeFailure(f"the bench exited with {err.code}") from err
+    widest = widest_route_checked("d5888-widest", shapes)
     print(json.dumps(result), flush=True)
     busy = {k: v for part in (result["extras"], result["headline"]) for k, v in part.items()
             if "device_busy" in k or k == "decrypt_u32_device_latency_us"}
@@ -1990,7 +2004,7 @@ def phase_bench(ctx):
         log(f"[bench] window {label}: p50 {w['p50_s_per_step']:.9f} s, p95 "
             f"{w['p95_s_per_step']:.9f} s, min {w['min_s_per_step']:.9f} s a step "
             f"({w['windows']} x {w['steps_per_window']})")
-    return dict(result, windows=windows, k1_spot_checks=spots)
+    return dict(result, windows=windows, k1_spot_checks=spots, widest_product=widest)
 
 
 class MaskK1:

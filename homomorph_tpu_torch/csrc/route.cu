@@ -5,70 +5,85 @@
 // Replaces the route's glue of the JAX package: the pads, slices and XORs of
 // homomorph_tpu/gf2/kernels.py::_karatsuba_flat (:356-387) and of the chunk
 // branch of _clmul_flat (:212-225).  Those are XLA ops that jax.jit fuses;
-// there is no Pallas kernel.  Run eagerly, the same glue was about eleven
-// torch launches and three or four passes over device memory per level.
+// there is no Pallas kernel.
 //
 // The route (kernels.py::route_plan): at most one chunk step, which cuts the
 // wider operand into n pieces of Ls limbs (the smaller operand repeats for
-// each), then k split steps; split level i halves every row at h[i], the
-// rows of x0, of x1 (padded to h[i]) and of x0 ^ x1 stacked in that order.
-// Leaf row index, the order the torch glue has always had:
+// each), then k split steps; split level i halves every row at h[i] into its
+// x0, its x1 (padded to h[i]) and x0 ^ x1.  The leaves are node-major, the
+// order in which _karatsuba_flat recurses:
 //
-//   r0 + rows0 * (t_1 + 3 t_2 + ... + 3^(k-1) t_k),   r0 = b * n + j,
+//   leaf = r0 3^k + t_1 3^(k-1) + ... + t_k,   r0 = b * n + j,
 //
-// rows0 = B * n, t_i in {0: x0, 1: x1, 2: x0 ^ x1} the digit of split level
-// i.  The K1 launch takes the leaves of both operands, [rows0 3^k, w] each
-// (w = h[k-1]), and gives their products, [rows0 3^k, 2w].
+// t_i in {0: x0, 1: x1, 2: x0 ^ x1} the digit of split level i, so the
+// leaves under any node (r0 and its first D digits) are one run of 3^(k-D)
+// rows.  The K1 launch takes the leaves of both operands, [rows0 3^k, w]
+// each (rows0 = B n, w = h[k-1]), and gives their products, [rows0 3^k, 2w].
+//
+// The launch plans and their shared-memory layouts are made by the wrapper
+// (kernels.py::split_plan, split_layout, join_launches, ascent_layout) and
+// passed by value; the entries here check only that every region of a
+// layout lies inside the block's shared memory and that the whole fits the
+// card.  The route's table (B, widths, n, h[], lo[]) reaches the kernels as
+// a struct argument too, never through device memory: a CUDA graph captures
+// a routed product.
 //
 // R1 (hm_route_split): the whole descent in one launch, both operands.  A
-// block takes G nodes at depth D at once (a node: a row r0 and the first D
-// digits; G > 1 only at D = 0, where nodes are small): it stages each node
-// in shared memory, splits it level by level inside shared memory (two
-// buffers), and at the last level writes the three children of each limb
-// straight to their leaf rows.  A thread takes one limb of a parent and
-// writes its x0, x1 and x0 ^ x1 limbs.  Staging at D > 0 reads the original
-// row: limb p of the node is the XOR of at most 2^(number of 2 digits)
-// limbs of the row, at p plus the h of every level whose half the path (or
-// one subset of its 2 digits) takes.  The hazard is padding: x1 padded to
-// h, an odd width, the smaller operand padded to the wider at the first
-// split, a last chunk piece narrower than Ls.  A limb past its node's real
-// width is zero, but p + h can land on a real limb of the neighbouring half
-// or row, so the real width W of every node on the path is tracked (W' =
-// min(W, h) for x0 and x0 ^ x1, clamp(W - h, 0, h) for x1) and a term is
-// read only if its position is below W at every level.  Inside shared
-// memory the zeros are stored, so the levels below D need no widths.  D is
-// the least depth whose subtree's inner levels fit SPLIT_SMEM_WORDS,
-// deepened until the grid has two nodes an SM; D = k writes each leaf
-// straight from the row.
+// block takes G nodes of depth D at once (G > 1 only at D = 0), stages them
+// in shared memory, splits them level by level there, and
+// writes the last level's children straight to the leaves: the nodes'
+// leaves are one run, written with 16-byte stores where w % 4 == 0.  A
+// thread takes one limb (or four) of a parent and writes its x0, x1 and
+// x0 ^ x1.  Threads walk fixed stripes of (parent, limb) with 32-bit offsets
+// inside a block's run and one 64-bit base a run; no loop divides.  Staging
+// at D > 0 reads the original row: limb p of the node is the XOR of at most
+// 2^(number of 2 digits) terms row[p + off] read for p < lim, one term a
+// choice of halves for the 2 digits.  lim is the padding hazard: x1 padded
+// to h, an odd width, the smaller operand padded to the wider at the first
+// split, a last chunk piece narrower than Ls.  A limb past a node's real
+// width is zero, but p + off can land on a real limb of the neighbouring
+// half or row, so lim is the least, over the levels above the node, of the
+// real width there (W' = min(W, h) for x0 and x0 ^ x1, clamp(W - h, 0, h)
+// for x1) less the offset still to add below it.  Inside shared memory the
+// zeros are stored, so the levels below D need no widths.  The layout holds
+// each level's input (the staged nodes, then the children of each level),
+// the nodes' row starts and the terms' (off, lim).
 //
-// R2 (hm_route_join): the ascent, one launch per level or fewer.  Split
-// level i turns the three products of each node's children, p0 (t = 0), p2
-// (t = 1) and pm (t = 2), each 2 h[i] limbs, into the node's product:
+// R2 (hm_route_join): the ascent.  Split level i turns the products of a
+// node's three children, p0 (t = 0), p2 (t = 1) and pm (t = 2), each 2 h[i]
+// limbs, into the node's product:
 //
 //   out[t] = p0[t] ^ p0[t-h] ^ pm[t-h] ^ p2[t-h] ^ p2[t-2h],  t < lo[i],
 //
 // each term zero outside its row (lo[i] = Ls + Lg of that level, <= 4h).  A
-// thread takes s < h and writes t = s, s+h, s+2h, s+3h from six loads:
-// p0[s], p0[s+h], p2[s], p2[s+h], pm[s], pm[s+h].  The chunk step adds piece
-// j at limb j Ls:
+// thread takes s < h and writes t = s, s+h, s+2h, s+3h from six loads.  The
+// chunk step adds piece j at limb j Ls:
 //
 //   out[t] = piece[t/Ls][t%Ls] ^ piece[t/Ls - 1][Ls + t%Ls].
 //
-// The bottom levels run as one launch where a block's shared memory holds a
-// whole subtree of them (3^m leaf products of 2w limbs): the block gathers
-// the subtree's rows, joins m levels in shared memory, and writes the
-// subtree root's product.  Every level above is one element-wise launch, and
-// the chunk step one more.  The wrapper (kernels.py::join_launches) picks m
-// with the same budget as JOIN_SMEM_WORDS here; this side refuses a launch
-// that does not fit it.
-//
+// The ascent is one launch: a block takes a node of depth `top` and streams
+// its leaf products, one run, in tiles of 3^tile products: TMA bulk copies
+// (cp.async.bulk) into a ring of RING slots under mbarriers, the next tile's
+// copy in flight while a tile is joined.  The tile's levels are joined in
+// shared memory, then its product goes up: each level from the tile's root
+// up to `top` keeps one product in shared memory, to which each child adds
+// its terms as it comes (p0 at shifts 0 and h, p2 at h and 2h, pm at h;
+// child 0 starts it), and a product whose third child is in goes up in
+// turn; the node's product, once complete, is stored to its row.  Where a
+// tile is a node's whole subtree, a block takes up to a tile's worth of
+// nodes at once, one run too.  No level between the leaves and `top`
+// passes through device memory.  The levels above `top` are one
+// element-wise launch each, and the chunk step one more.  The layout holds
+// the ring's slots, each tile level's output and each level's product above
+// the tile.  A tile's join is a block barrier a level, so the ascent's time
+// goes to those barriers more than to its bytes.
+
 // Bound on the H100: bytes.  R1 reads each original row once and writes each
-// leaf row once; the staging's re-reads of a row (2^D of them at most) come
-// from L2.  R2 reads each launch's products once and writes its output once.
-// The route's table (B, widths, n, h[], lo[]) reaches the kernels by value
-// as a struct argument, never as a device tensor, so a CUDA graph captures a
-// routed product.  Offsets are 64-bit: the u64 product's leaves are
-// [12,754,584, 32] per operand and its leaf products pass 2^31 bytes.
+// leaf row once; the staging's re-reads of a row (2^D terms at most) come
+// from L2.  R2 reads the leaves' products once and writes the product once,
+// plus, above `top`, each level's products once more.  Offsets are 64-bit
+// where rows pass 2^31 words: the u64 product's leaves are [12,754,584, 32]
+// per operand and its leaf products pass 2^31 bytes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -77,16 +92,11 @@ namespace {
 
 constexpr int MAX_LEVELS = 32;
 constexpr int THREADS = 256;
-// words of shared memory a block of R1 may take for its two buffers (32 KB:
-// seven blocks share an SM), and R2's fused launch (64 KB: every fused level
-// saves a pass over device memory)
-constexpr long long SPLIT_SMEM_WORDS = 8192;
-constexpr long long JOIN_SMEM_WORDS = 16384;
-constexpr int MAX_GROUP = 64;   // nodes a block takes at once
-constexpr int GROUP_WORK = 4096;  // limbs of work a block takes at once, at least
+// R2's ascent: slots of its ring (kernels.py::ascent_layout allots them);
+// a deeper ring measured no faster (PERF.md, section 6)
+constexpr int RING = 2;
 constexpr int H100_SMS = 132;  // the grid's target; any card is correct
-constexpr int BLOCKS_PER_SM = 8;
-constexpr int TILE = 2048;  // output limbs a block takes at once in R2's element-wise launches
+constexpr int TILE = 2048;     // units a block takes at once in R2's element-wise launches
 
 struct Route {
     long long B;      // rows of the operands
@@ -95,8 +105,6 @@ struct Route {
     int n;            // pieces of the chunk step (1 without one)
     int chunked;      // 1 if the route starts with a chunk step
     int k;            // split levels, 1 <= k <= MAX_LEVELS
-    int depth;        // R1: depth D of the nodes a block stages
-    int group;        // R1: nodes a block takes at once (1 unless D = 0)
     int h[MAX_LEVELS];   // split point of each split level
     int lo[MAX_LEVELS];  // product width each split level's join writes
 };
@@ -111,8 +119,6 @@ int read_route(const long long* w, Route* r) {
     r->n = r->chunked ? (int)w[3] : 1;
     r->k = (int)w[4];
     r->rows0 = r->B * r->n;
-    r->depth = 0;
-    r->group = 1;
     if (r->B < 1 || r->Ls < 1 || r->Lg < r->Ls || r->k < 1 || r->k > MAX_LEVELS)
         return (int)cudaErrorInvalidValue;
     if (r->chunked && (long long)r->n * r->Ls < r->Lg) return (int)cudaErrorInvalidValue;
@@ -121,7 +127,7 @@ int read_route(const long long* w, Route* r) {
         r->lo[i] = (int)w[5 + r->k + i];
         const long long parent = i == 0 ? (r->chunked ? r->Ls : r->Lg) : r->h[i - 1];
         if (r->h[i] < 1 || 2LL * r->h[i] < parent || r->lo[i] > 4LL * r->h[i] ||
-            r->lo[i] < 2LL * r->h[i])
+            r->lo[i] < 2LL * r->h[i] || (i > 0 && r->lo[i] != 2LL * r->h[i - 1]))
             return (int)cudaErrorInvalidValue;
     }
     return 0;
@@ -133,40 +139,140 @@ __host__ __device__ long long pow3(int e) {
     return p;
 }
 
-// words of each of R1's two buffers for one node at depth D < k: the node
-// (2 h[0] limbs at the root), and each inner level's 3^(i+1-D) children of
-// h[i] limbs (the last level writes the leaves to device memory)
-long long split_buffer_words(const Route& r, int D) {
-    long long m = 1, words = D == 0 ? 2LL * r.h[0] : r.h[D - 1];
-    for (int i = D; i < r.k - 1; ++i) {
-        m *= 3;
-        if (m * r.h[i] > words) words = m * r.h[i];
+// q = a / b and r = a % b for 0 <= a < 2^22 and b >= 1: a float reciprocal
+// is off by at most one, which one step corrects (an integer division
+// costs tens of instructions, more than a level's work for most threads)
+__device__ __forceinline__ void divmod(int a, int b, int& q, int& r) {
+    q = (int)((float)a * __frcp_rn((float)b));
+    r = a - q * b;
+    if (r < 0) {
+        --q;
+        r += b;
+    } else if (r >= b) {
+        ++q;
+        r -= b;
     }
-    return words;
+}
+
+// A thread's walk over the units (q, p), p < P, of a block: unit q P + p
+// for first, first + step, ... (first, step < 2^22)
+struct Stripe {
+    int q, p, dq, dp;
+    const int P;
+    __device__ Stripe(int P_, int first, int step) : P(P_) {
+        divmod(first, P_, q, p);
+        divmod(step, P_, dq, dp);
+    }
+    __device__ void next() {
+        q += dq;
+        p += dp;
+        if (p >= P) {
+            p -= P;
+            ++q;
+        }
+    }
+};
+
+// 1 or 4 limbs as one value: uint32_t or uint4
+template <int V> struct Vec;
+template <> struct Vec<1> {
+    using T = uint32_t;
+    __device__ static T zero() { return 0u; }
+};
+template <> struct Vec<4> {
+    using T = uint4;
+    __device__ static T zero() { return make_uint4(0u, 0u, 0u, 0u); }
+};
+__device__ __forceinline__ uint4 operator^(uint4 a, uint4 b) {
+    return make_uint4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
+}
+template <int V> __device__ __forceinline__ typename Vec<V>::T ld(const uint32_t* p) {
+    return *reinterpret_cast<const typename Vec<V>::T*>(p);
+}
+template <int V> __device__ __forceinline__ void st(uint32_t* p, typename Vec<V>::T v) {
+    *reinterpret_cast<typename Vec<V>::T*>(p) = v;
+}
+
+// row[p .. p+V-1], each limb at or past lim read as zero
+template <int V>
+__device__ __forceinline__ typename Vec<V>::T ld_below(const uint32_t* row, int p, int lim) {
+    if (p + V <= lim) return ld<V>(row + p);
+    typename Vec<V>::T v = Vec<V>::zero();
+    uint32_t* e = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+        if (p + i < lim) e[i] = row[p + i];
+    return v;
 }
 
 // ---------------------------------------------------------------- R1 --------
 
+struct Split {
+    int depth, group;    // the wrapper's split_plan
+    int in[MAX_LEVELS];  // offset (words) of the input of split level i >= depth
+    int base;            // the nodes' row starts: `group` long longs
+    int off, lim, cap;   // the staging terms' offsets and limits: `cap` ints each
+    int words;           // all of it
+    int vec_rows;        // stage with 16-byte loads
+    int vec_leaves;      // write the leaves with 16-byte stores
+};
+
+// one split level: P parents of 2 hh limbs (cur) -> 3P children of cs
+// limbs (nxt, a block's run), child 3q + t of parent q; a child's limbs
+// past hh (cs = hh + 1 for an odd hh) are zero
+template <int V>
+__device__ __forceinline__ void split_level(const uint32_t* cur, uint32_t* nxt, int P, int hh,
+                                            int cs) {
+    using T = typename Vec<V>::T;
+    for (Stripe s(cs / V, threadIdx.x, blockDim.x); s.q < P; s.next()) {
+        const int p = s.p * V;
+        const uint32_t* par = cur + s.q * 2 * hh;
+        T x0 = Vec<V>::zero(), x1 = Vec<V>::zero();
+        if (p < hh) {
+            x0 = ld<V>(par + p);
+            x1 = ld<V>(par + hh + p);
+        }
+        uint32_t* o = nxt + 3 * s.q * cs + p;
+        st<V>(o, x0);
+        st<V>(o + cs, x1);
+        st<V>(o + 2 * cs, x0 ^ x1);
+    }
+}
+
+// stage ng nodes of len limbs into dst (node g at g len): node g's limbs
+// are the XOR of its terms, term e the row base[g or 0] from off[e], its
+// limbs p < lim[e]; term g alone at depth 0, all nterms of the one node else
+template <int V>
+__device__ __forceinline__ void stage_nodes(const uint32_t* src, uint32_t* dst, int ng, int len,
+                                            const long long* base, const int* off, const int* lim,
+                                            int nterms, bool depth0) {
+    using T = typename Vec<V>::T;
+    for (Stripe s(len / V, threadIdx.x, blockDim.x); s.q < ng; s.next()) {
+        const int g = s.q, p = s.p * V;
+        const uint32_t* row = src + base[depth0 ? g : 0];
+        T acc = Vec<V>::zero();
+        for (int e = depth0 ? g : 0, end = depth0 ? g + 1 : nterms; e < end; ++e)
+            acc = acc ^ ld_below<V>(row + off[e], p, lim[e]);
+        st<V>(dst + g * len + p, acc);
+    }
+}
+
 __global__ void __launch_bounds__(THREADS)
 route_split_kernel(const uint32_t* __restrict__ small, const uint32_t* __restrict__ big,
-                   uint32_t* __restrict__ leaf_s, uint32_t* __restrict__ leaf_g,
-                   const Route r, int buf_words) {
+                   uint32_t* __restrict__ leaf_s, uint32_t* __restrict__ leaf_g, const Route r,
+                   const Split sp) {
     extern __shared__ __align__(16) uint32_t sh[];
-    __shared__ int digit[MAX_LEVELS];
-    __shared__ int width[MAX_LEVELS + 1];
-    __shared__ long long base[MAX_GROUP];  // each node's first limb in its operand
-    __shared__ int wid0[MAX_GROUP];        // each node's real width at D = 0
-    __shared__ long long node_r0, node_pv;  // D > 0: the node's row and first D digits
+    __shared__ int nterms;
+    long long* const base = reinterpret_cast<long long*>(sh + sp.base);  // node rows' starts
+    int* const off = reinterpret_cast<int*>(sh + sp.off);
+    int* const lim = reinterpret_cast<int*>(sh + sp.lim);
     const int op = blockIdx.y;  // 0: the smaller operand, 1: the wider
     const uint32_t* src = op ? big : small;
     uint32_t* dst = op ? leaf_g : leaf_s;
-    const int D = r.depth, k = r.k, w = r.h[k - 1], G = r.group;
-    const long long p3D = pow3(D);
-    const long long nodes = r.rows0 * p3D;
-    const long long groups = (nodes + G - 1) / G;
-    const int node_len = D == 0 ? 2 * r.h[0] : r.h[D - 1];
-    uint32_t* const bufA = sh;
-    uint32_t* const bufB = sh + (long long)G * buf_words;
+    const int D = sp.depth, k = r.k, w = r.h[k - 1], G = sp.group;
+    const long long p3D = pow3(D), nodes = r.rows0 * p3D, groups = (nodes + G - 1) / G;
+    const long long leaves = pow3(k - D);  // a node's leaves
+    const int len = D < k ? 2 * r.h[D] : w;  // a staged node's limbs
 
     for (long long gi = blockIdx.x; gi < groups; gi += gridDim.x) {
         const long long n0 = gi * G;
@@ -177,115 +283,256 @@ route_split_kernel(const uint32_t* __restrict__ small, const uint32_t* __restric
                 const long long r0 = n0 + g, b = r0 / r.n;
                 const int j = (int)(r0 - b * r.n);
                 base[g] = op == 0 ? b * r.Ls : b * r.Lg + (r.chunked ? (long long)j * r.Ls : 0);
-                wid0[g] = op == 0 ? r.Ls : (r.chunked ? min(r.Ls, r.Lg - j * r.Ls) : r.Lg);
+                off[g] = 0;
+                lim[g] = op == 0 ? r.Ls : (r.chunked ? min(r.Ls, r.Lg - j * r.Ls) : r.Lg);
             }
         } else if (threadIdx.x == 0) {
-            const long long r0 = n0 % r.rows0, pv = n0 / r.rows0, b = r0 / r.n;
+            const long long r0 = n0 / p3D, b = r0 / r.n;
             const int j = (int)(r0 - b * r.n);
-            node_r0 = r0;
-            node_pv = pv;
+            long long v = n0 - r0 * p3D;
+            int digit[MAX_LEVELS], width[MAX_LEVELS + 1];
+            for (int i = D - 1; i >= 0; --i) {
+                digit[i] = (int)(v % 3);
+                v /= 3;
+            }
             base[0] = op == 0 ? b * r.Ls : b * r.Lg + (r.chunked ? (long long)j * r.Ls : 0);
             width[0] = op == 0 ? r.Ls : (r.chunked ? min(r.Ls, r.Lg - j * r.Ls) : r.Lg);
-            long long v = pv;
-            for (int i = 0; i < D; ++i) {
-                const int t = (int)(v % 3), hh = r.h[i], W = width[i];
-                v /= 3;
-                digit[i] = t;
-                width[i + 1] = t == 1 ? max(0, min(W - hh, hh)) : min(W, hh);
-            }
-        }
-        __syncthreads();
-        // stage each node: at D = 0 its row (zeros past the real width), else
-        // each limb the XOR of the row's limbs its path reaches
-        if (D == 0) {
-#pragma unroll 4
-            for (int idx = threadIdx.x; idx < ng * node_len; idx += blockDim.x) {
-                const int g = idx / node_len, p = idx - g * node_len;
-                bufA[g * buf_words + p] = p < wid0[g] ? __ldg(src + base[g] + p) : 0u;
-            }
-        } else {
             unsigned twos = 0, ones = 0;
             for (int i = 0; i < D; ++i) {
+                const int hh = r.h[i], W = width[i];
+                width[i + 1] = digit[i] == 1 ? max(0, min(W - hh, hh)) : min(W, hh);
                 twos |= (unsigned)(digit[i] == 2) << i;
                 ones |= (unsigned)(digit[i] == 1) << i;
             }
-            const uint32_t* row = src + base[0];
-            uint32_t* node_out = D < k ? bufA : dst + (node_r0 + r.rows0 * node_pv) * w;
-            for (int p = threadIdx.x; p < node_len; p += blockDim.x) {
-                uint32_t acc = 0u;
-                for (unsigned s = twos;; s = (s - 1) & twos) {
-                    const unsigned take = ones | s;  // levels whose x1 half the term reads
-                    long long pos = p;
-                    bool real = true;
-                    for (int i = D - 1; i >= 0; --i) {
-                        if ((take >> i) & 1u) pos += r.h[i];
-                        if (pos >= width[i]) {
-                            real = false;
-                            break;
-                        }
-                    }
-                    if (real) acc ^= __ldg(row + pos);
-                    if (s == 0) break;
+            int count = 0;
+            for (unsigned s = twos;; s = (s - 1) & twos) {
+                const unsigned take = ones | s;  // levels whose x1 half the term reads
+                int o = 0, l = width[D];
+                for (int i = D - 1; i >= 0; --i) {
+                    if ((take >> i) & 1u) o += r.h[i];
+                    l = min(l, width[i] - o);
                 }
-                node_out[p] = acc;
+                off[count] = o;
+                lim[count] = l;
+                ++count;
+                if (s == 0) break;
             }
-            if (D == k) continue;
+            nterms = count;
         }
         __syncthreads();
-        // split level by level: cur holds, for each node, M parents of len limbs
-        uint32_t* cur = bufA;
-        uint32_t* nxt = bufB;
-        int M = 1, len = node_len;
-        for (int i = D; i < k; ++i) {
-            const int hh = r.h[i], per = M * hh;  // parent limbs (q, p) a node
-            if (i < k - 1) {
-                for (int idx = threadIdx.x; idx < ng * per; idx += blockDim.x) {
-                    const int g = idx / per, rem = idx - g * per;
-                    const int q = rem / hh, p = rem - q * hh;
-                    const uint32_t* par = cur + g * buf_words + q * len;
-                    const uint32_t x0 = par[p], x1 = hh + p < len ? par[hh + p] : 0u;
-                    uint32_t* o = nxt + g * buf_words + rem;
-                    o[0] = x0;
-                    o[per] = x1;
-                    o[2 * per] = x0 ^ x1;
-                }
-                __syncthreads();
-                uint32_t* tmp = cur;
-                cur = nxt;
-                nxt = tmp;
-                M *= 3;
-                len = hh;
-            } else {
-                // the last level: leaf row r0 + rows0 (pv + 3^D (t M + q))
-                const long long step = r.rows0 * p3D * M;
-                for (int idx = threadIdx.x; idx < ng * per; idx += blockDim.x) {
-                    const int g = idx / per, rem = idx - g * per;
-                    const int q = rem / hh, p = rem - q * hh;
-                    const uint32_t* par = cur + g * buf_words + q * len;
-                    const uint32_t x0 = par[p], x1 = hh + p < len ? par[hh + p] : 0u;
-                    const long long lead = (D == 0 ? n0 + g : node_r0) +
-                                           r.rows0 * ((D == 0 ? 0 : node_pv) + p3D * q);
-                    dst[lead * w + p] = x0;
-                    dst[(lead + step) * w + p] = x1;
-                    dst[(lead + 2 * step) * w + p] = x0 ^ x1;
-                }
-            }
+        // stage each node, or at D = k write each leaf straight from the row
+        uint32_t* staged = D < k ? sh + sp.in[D] : dst + n0 * (long long)w;
+        if (sp.vec_rows)
+            stage_nodes<4>(src, staged, ng, len, base, off, lim, nterms, D == 0);
+        else
+            stage_nodes<1>(src, staged, ng, len, base, off, lim, nterms, D == 0);
+        if (D == k) continue;
+        __syncthreads();
+        // split level by level: level i's input holds P parents of 2 h[i] limbs
+        int P = ng;
+        for (int i = D; i < k; ++i, P *= 3) {
+            const int hh = r.h[i];
+            const bool last = i == k - 1;
+            // the last level writes the nodes' leaves, one run of ng 3^(k-D) rows
+            uint32_t* o = last ? dst + n0 * leaves * w : sh + sp.in[i + 1];
+            const int cs = last ? w : 2 * r.h[i + 1];
+            if (hh % 4 == 0 && (!last || sp.vec_leaves))
+                split_level<4>(sh + sp.in[i], o, P, hh, cs);
+            else
+                split_level<1>(sh + sp.in[i], o, P, hh, cs);
+            if (last) break;
+            __syncthreads();
         }
     }
 }
 
 // ---------------------------------------------------------------- R2 --------
 
-// limbs s, s+h, s+2h and s+3h (those below lo) of a node's product from its
-// children's products p0, p2, pm (2h limbs each), s < h
+// limbs s .. s+V-1, s+h .., s+2h .. and s+3h .. (those below lo) of a node's
+// product from its children's products p0, p2, pm (2h limbs each), s < h
+template <int V>
 __device__ __forceinline__ void join4(const uint32_t* p0, const uint32_t* p2, const uint32_t* pm,
                                       int h, int s, int lo, uint32_t* out) {
-    const uint32_t a0 = p0[s], a1 = p0[s + h], b0 = p2[s], b1 = p2[s + h];
-    const uint32_t m0 = a0 ^ b0 ^ pm[s], m1 = a1 ^ b1 ^ pm[s + h];
-    out[s] = a0;
-    out[s + h] = a1 ^ m0;
-    if (s + 2 * h < lo) out[s + 2 * h] = m1 ^ b0;
-    if (s + 3 * h < lo) out[s + 3 * h] = b1;
+    using T = typename Vec<V>::T;
+    const T a0 = ld<V>(p0 + s), a1 = ld<V>(p0 + s + h), b0 = ld<V>(p2 + s), b1 = ld<V>(p2 + s + h);
+    const T m0 = a0 ^ b0 ^ ld<V>(pm + s), m1 = a1 ^ b1 ^ ld<V>(pm + s + h);
+    st<V>(out + s, a0);
+    st<V>(out + s + h, a1 ^ m0);
+    if (s + 2 * h < lo) st<V>(out + s + 2 * h, m1 ^ b0);
+    if (s + 3 * h < lo) st<V>(out + s + 3 * h, b1);
+}
+
+// M nodes' products (lo limbs each, at o + q lo) from their children's
+// (2h limbs each, child 3q + t at c + (3q + t) 2h)
+template <int V>
+__device__ __forceinline__ void join_nodes(const uint32_t* c, uint32_t* o, int M, int h, int lo) {
+    for (Stripe s(h / V, threadIdx.x, blockDim.x); s.q < M; s.next()) {
+        const uint32_t* p0 = c + 6 * s.q * h;
+        join4<V>(p0, p0 + 2 * h, p0 + 4 * h, h, s.p * V, lo, o + s.q * lo);
+    }
+}
+
+// child t (0: p0, 1: p2, 2: pm; 2h limbs) of a node into the node's product
+// (lo limbs): p0 at shifts 0 and h, p2 at h and 2h, pm at h; child 0 starts
+// it.  A thread owns limbs s, s+h, s+2h and s+3h of the product.
+template <int V>
+__device__ __forceinline__ void accumulate(const uint32_t* c, uint32_t* acc, int t, int h,
+                                           int lo) {
+    using T = typename Vec<V>::T;
+    for (int s = threadIdx.x * V; s < h; s += blockDim.x * V) {
+        const T a = ld<V>(c + s), b = ld<V>(c + s + h);
+        const bool third = s + 2 * h < lo, fourth = s + 3 * h < lo;
+        if (t == 0) {
+            st<V>(acc + s, a);
+            st<V>(acc + s + h, a ^ b);
+            if (third) st<V>(acc + s + 2 * h, b);
+            if (fourth) st<V>(acc + s + 3 * h, Vec<V>::zero());
+        } else if (t == 1) {
+            st<V>(acc + s + h, ld<V>(acc + s + h) ^ a);
+            if (third) st<V>(acc + s + 2 * h, ld<V>(acc + s + 2 * h) ^ a ^ b);
+            if (fourth) st<V>(acc + s + 3 * h, ld<V>(acc + s + 3 * h) ^ b);
+        } else {
+            st<V>(acc + s + h, ld<V>(acc + s + h) ^ a);
+            if (third) st<V>(acc + s + 2 * h, ld<V>(acc + s + 2 * h) ^ b);
+        }
+    }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// one tile's bulk copy into the ring, completing the barrier's phase
+__device__ __forceinline__ void bulk_load(uint32_t* dst, const uint32_t* src, uint32_t bytes,
+                                          uint64_t* bar) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+                 "r"(bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+            "r"(smem_addr(dst)),
+        "l"(src), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    asm volatile(
+        "{\n\t.reg .pred done;\n"
+        "WAIT:\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n\t"
+        "@!done bra WAIT;\n}" ::"r"(smem_addr(bar)),
+        "r"(parity)
+        : "memory");
+}
+
+struct Ascent {
+    int top, tile;          // the wrapper's join_launches
+    int group;              // nodes a block takes at once (1 unless a tile is a node)
+    long long tiles;        // tiles a node: 3^(k - top - tile)
+    int tile_words, slot;   // a node's tile's words (3^tile 2w), a ring slot's
+    int lvl[MAX_LEVELS];    // offset (words) of each tile level's output (bottom .. k-1)
+    int acc[MAX_LEVELS];    // offset of each level's product from top to the tile
+    int words;              // all of it
+    int bulk;               // TMA bulk copies (even w, 16-byte aligned input)
+    int vec_out;            // 16-byte aligned output
+};
+
+// the ascent: a block takes `group` nodes of depth top (out rows g0 ..), tile
+// after tile
+__global__ void __launch_bounds__(THREADS)
+route_join_ascent_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                         const Route r, const Ascent a) {
+    extern __shared__ __align__(16) uint32_t sh[];
+    __shared__ __align__(8) uint64_t full[RING];
+    const int k = r.k, top = a.top, bottom = k - a.tile;  // the tile's root depth
+    const int lo_top = r.lo[top], G = a.group;
+    const long long nodes = r.rows0 * pow3(top), groups = (nodes + G - 1) / G;
+    const bool row_vec = a.vec_out && lo_top % 4 == 0;
+    const int M0 = (int)pow3(a.tile - 1);  // a node's products at the tile's first level
+    // thread 0's next copy: tile n_next of group g_next (one run of its nodes)
+    long long g_next = blockIdx.x;
+    long long n_next = 0;
+    auto issue = [&](int stage) {
+        if (g_next < groups) {
+            const long long g0 = g_next * G, ng = min((long long)G, nodes - g0);
+            bulk_load(sh + stage * a.slot, in + (g0 * a.tiles + n_next) * a.tile_words,
+                      (uint32_t)(ng * a.tile_words * 4), &full[stage]);
+        }
+        if (++n_next == a.tiles) {
+            n_next = 0;
+            g_next += gridDim.x;
+        }
+    };
+    if (a.bulk && threadIdx.x == 0) {
+        for (int s = 0; s < RING; ++s) mbar_init(&full[s]);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        for (int s = 0; s < RING; ++s) issue(s);
+    }
+    __syncthreads();
+    int stage = 0;
+    uint32_t parity = 0;
+    for (long long gg = blockIdx.x; gg < groups; gg += gridDim.x) {
+        const long long g0 = gg * G;
+        const int ng = (int)min((long long)G, nodes - g0);
+        uint32_t* const row = out + g0 * lo_top;
+        for (long long n = 0; n < a.tiles; ++n) {
+            uint32_t* const slot = sh + stage * a.slot;
+            if (a.bulk) {
+                mbar_wait(&full[stage], parity);
+            } else {
+                const uint32_t* src = in + (g0 * a.tiles + n) * a.tile_words;
+                for (int e = threadIdx.x; e < ng * a.tile_words; e += blockDim.x) slot[e] = src[e];
+                __syncthreads();
+            }
+            // the tile's levels, k-1 up to bottom, each into its buffer (into
+            // the rows when bottom is top)
+            const uint32_t* c = slot;
+            int M = ng * M0;
+            for (int j = k - 1; j >= bottom; --j, M /= 3) {
+                const int h = r.h[j], lo = r.lo[j];
+                const bool at_top = j == top;
+                uint32_t* o = at_top ? row : sh + a.lvl[j];
+                if (h % 4 == 0 && lo % 4 == 0 && (!at_top || row_vec))
+                    join_nodes<4>(c, o, M, h, lo);
+                else
+                    join_nodes<1>(c, o, M, h, lo);
+                __syncthreads();
+                if (j == k - 1 && a.bulk && threadIdx.x == 0) issue(stage);
+                c = o;
+            }
+            if (++stage == RING) {
+                stage = 0;
+                parity ^= 1u;
+            }
+            // its product up the levels above it while it is a third child
+            // (one node a block here); the node's own product, complete, to
+            // its row
+            long long v = n;
+            for (int i = bottom - 1; i >= top; --i) {
+                const int t = (int)(v % 3), h = r.h[i], lo = r.lo[i];
+                v /= 3;
+                uint32_t* acc = sh + a.acc[i];
+                if (h % 4 == 0 && lo % 4 == 0)
+                    accumulate<4>(c, acc, t, h, lo);
+                else
+                    accumulate<1>(c, acc, t, h, lo);
+                __syncthreads();
+                if (t != 2) break;
+                c = acc;
+                if (i == top) {
+                    if (row_vec)
+                        for (int e = threadIdx.x * 4; e < lo_top; e += blockDim.x * 4)
+                            st<4>(row + e, ld<4>(acc + e));
+                    else
+                        for (int e = threadIdx.x; e < lo_top; e += blockDim.x) row[e] = acc[e];
+                }
+            }
+        }
+    }
 }
 
 // Element-wise launches walk tiles of at most TILE units: G whole rows of
@@ -305,218 +552,240 @@ Tiles make_tiles(long long rows, int units) {
     return t;
 }
 
-// one split level: in [3R, 2h] (p0 rows, then p2, then pm) -> out [R, lo];
-// a unit is (row, s), s < h
+// one split level alone: in [3R, 2h] (node q's children at rows 3q, 3q+1,
+// 3q+2) -> out [R, lo]; a unit is (node, s), s < h
+template <int V>
 __global__ void __launch_bounds__(THREADS)
 route_join_level_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                         const Tiles tl, int h, int lo) {
-    const long long R = tl.rows, n_tiles = tl.count(), w2 = 2LL * h;
-    for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        const long long rg = tile / tl.per_row;
-        const int c0 = (int)(tile - rg * tl.per_row) * TILE;
-        const long long r_lo = rg * tl.G;
-        const int nr = (int)min((long long)tl.G, R - r_lo), nc = min(TILE, tl.units - c0);
-#pragma unroll 4
-        for (int e = threadIdx.x; e < nr * nc; e += blockDim.x) {
-            const int rr = e / nc, s = c0 + e - rr * nc;
-            const long long row = r_lo + rr;
-            join4(in + row * w2, in + (row + R) * w2, in + (row + 2 * R) * w2, h, s, lo,
-                  out + row * lo);
-        }
-    }
-}
-
-// the chunk step: in [B n, 2 Ls] -> out [B, Ls + Lg]; a unit is one limb
-__global__ void __launch_bounds__(THREADS)
-route_join_pieces_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                         const Tiles tl, int Ls, int n) {
     const long long n_tiles = tl.count();
     for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
         const long long rg = tile / tl.per_row;
         const int c0 = (int)(tile - rg * tl.per_row) * TILE;
         const long long r_lo = rg * tl.G;
-        const int nr = (int)min((long long)tl.G, tl.rows - r_lo), nc = min(TILE, tl.units - c0);
-#pragma unroll 4
-        for (int e = threadIdx.x; e < nr * nc; e += blockDim.x) {
-            const int rr = e / nc, t = c0 + e - rr * nc;
-            const long long b = r_lo + rr;
-            const int j = t / Ls, q = t - j * Ls;
-            const uint32_t* pieces = in + b * n * 2LL * Ls;
-            uint32_t v = j < n ? pieces[(long long)j * 2 * Ls + q] : 0u;
-            if (j >= 1) v ^= pieces[(long long)(j - 1) * 2 * Ls + Ls + q];
-            out[b * tl.units + t] = v;
+        const int nr = (int)min((long long)tl.G, tl.rows - r_lo), nc = min(TILE, h - c0);
+        const uint32_t* c = in + r_lo * 6 * h;
+        uint32_t* o = out + r_lo * lo;
+        for (Stripe s(nc / V, threadIdx.x, blockDim.x); s.q < nr; s.next()) {
+            const uint32_t* p0 = c + 6 * s.q * h;
+            join4<V>(p0, p0 + 2 * h, p0 + 4 * h, h, c0 + s.p * V, lo, o + s.q * lo);
         }
     }
 }
 
-// bufA[g][s][c] <- in[(n0 + g + R s) * w2 + c] for g < ng, s < S, c < w2, in
-// words of V (uint4 where rows are whole 16-byte words): four loads in
-// flight a thread before their stores, so the gather is not latency-bound
-template <typename V>
-__device__ __forceinline__ void gather_subtrees(const uint32_t* __restrict__ in, uint32_t* bufA,
-                                                long long n0, int ng, long long R, int S, int w2,
-                                                int bufA_words) {
-    constexpr int E = sizeof(V) / 4;
-    const int wv = w2 / E, per = S * wv, total = ng * per;
-    const V* src = reinterpret_cast<const V*>(in);
-    for (int i0 = threadIdx.x; i0 < total; i0 += 4 * blockDim.x) {
-        V v[4];
-        int dst[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-            const int idx = i0 + u * blockDim.x;
-            dst[u] = -1;
-            if (idx < total) {
-                const int g = idx / per, rem = idx - g * per;
-                const int s = rem / wv, c = rem - s * wv;
-                v[u] = src[(n0 + g + R * s) * wv + c];
-                dst[u] = g * (bufA_words / E) + rem;
-            }
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-            if (dst[u] >= 0) reinterpret_cast<V*>(bufA)[dst[u]] = v[u];
-    }
-}
-
-// split levels top..bottom in one launch: a block takes G nodes of depth
-// top at once; for each it gathers the 3^m products below it (rows r + R s,
-// s = t_top + 3 t_(top+1) + ..., each 2 h[bottom] limbs), joins m levels in
-// shared memory (A then B then A ...) and writes its product, lo[top] limbs
+// the chunk step: in [B n, 2 Ls] -> out [B, Ls + Lg].  The output row is
+// n + 1 slots of Ls limbs (the last one cut at Ls + Lg); a unit is (slot
+// row (b, j), q), q < Ls: out[b][j Ls + q] = piece j [q] ^ piece j-1 [Ls + q]
+template <int V>
 __global__ void __launch_bounds__(THREADS)
-route_join_fused_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                        const Route r, int top, int bottom, int bufA_words, int bufB_words,
-                        int G, int vec) {
-    extern __shared__ __align__(16) uint32_t sh[];
-    const long long R = r.rows0 * pow3(top);  // nodes of depth top
-    const long long groups = (R + G - 1) / G;
-    int S = 1;
-    for (int i = top; i <= bottom; ++i) S *= 3;
-    const int w2 = 2 * r.h[bottom];
-    uint32_t* const bufA = sh;
-    uint32_t* const bufB = sh + (long long)G * bufA_words;
-    for (long long gi = blockIdx.x; gi < groups; gi += gridDim.x) {
-        const long long n0 = gi * G;
-        const int ng = (int)min((long long)G, R - n0);
-        __syncthreads();  // the previous group's buffers are done with
-        if (vec)
-            gather_subtrees<uint4>(in, bufA, n0, ng, R, S, w2, bufA_words);
-        else
-            gather_subtrees<uint32_t>(in, bufA, n0, ng, R, S, w2, bufA_words);
-        __syncthreads();
-        uint32_t* cur = bufA;
-        uint32_t* nxt = bufB;
-        int cur_stride = bufA_words, nxt_stride = bufB_words;
-        int M = S / 3;  // output nodes of the level, per node of depth top
-        for (int lvl = bottom; lvl >= top; --lvl) {
-            const int h = r.h[lvl], wi = 2 * h, lo = r.lo[lvl], units = M * h;
-            for (int idx = threadIdx.x; idx < ng * units; idx += blockDim.x) {
-                const int g = idx / units, rem = idx - g * units;
-                const int q = rem / h, s = rem - q * h;
-                const uint32_t* c = cur + g * cur_stride;
-                uint32_t* o = lvl == top ? out + (n0 + g) * lo : nxt + g * nxt_stride + q * lo;
-                join4(c + q * wi, c + (M + q) * wi, c + (2 * M + q) * wi, h, s, lo, o);
+route_join_pieces_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                         const Tiles tl, int Ls, int Lg, int n) {
+    using T = typename Vec<V>::T;
+    const long long n_tiles = tl.count();
+    const int Lo = Ls + Lg;
+    for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const long long rg = tile / tl.per_row;
+        const int c0 = (int)(tile - rg * tl.per_row) * TILE;
+        const long long r_lo = rg * tl.G, b0 = r_lo / (n + 1);
+        const int j0 = (int)(r_lo - b0 * (n + 1));
+        const int nr = (int)min((long long)tl.G, tl.rows - r_lo), nc = min(TILE, Ls - c0);
+        Stripe s(nc / V, threadIdx.x, blockDim.x);
+        long long b = b0;
+        int j = j0 + s.q;
+        while (j > n) {
+            j -= n + 1;
+            ++b;
+        }
+        while (s.q < nr) {
+            const int q = c0 + s.p * V, t = j * Ls + q;
+            if (t < Lo) {
+                const uint32_t* pieces = in + b * n * 2LL * Ls;
+                T v = j < n ? ld<V>(pieces + (long long)j * 2 * Ls + q) : Vec<V>::zero();
+                if (j >= 1) v = v ^ ld<V>(pieces + (long long)(j - 1) * 2 * Ls + Ls + q);
+                st<V>(out + b * Lo + t, v);
             }
-            if (lvl == top) break;
-            __syncthreads();
-            uint32_t* tmp = cur;
-            cur = nxt;
-            nxt = tmp;
-            const int ts = cur_stride;
-            cur_stride = nxt_stride;
-            nxt_stride = ts;
-            M /= 3;
+            const int q0 = s.q;
+            s.next();
+            j += s.q - q0;
+            while (j > n) {
+                j -= n + 1;
+                ++b;
+            }
         }
     }
 }
 
+// the kernel's dynamic shared memory: above the default 48 KB less its
+// static shared memory only once this is set; refused past the card's
+// opt-in limit
 int set_smem(const void* kernel, long long words) {
-    const long long bytes = words * 4;
-    if (bytes <= 48 * 1024) return 0;
+    if (words == 0) return 0;
+    int dev = 0, optin = 0;
+    cudaFuncAttributes attr;
+    int err = (int)cudaGetDevice(&dev);
+    if (!err) err = (int)cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (!err) err = (int)cudaFuncGetAttributes(&attr, kernel);
+    if (err) return err;
+    if (words * 4 + (long long)attr.sharedSizeBytes > optin) return (int)cudaErrorInvalidValue;
     return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)bytes);
+                                     (int)(words * 4));
 }
 
-unsigned int grid_for(long long work) {
-    const long long cap = (long long)H100_SMS * BLOCKS_PER_SM;
+// blocks for `work` units of a kernel: at most the card's resident blocks
+unsigned int grid_for(const void* kernel, long long work, long long smem_words) {
+    int per_sm = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
+                                                      (size_t)smem_words * 4) != cudaSuccess ||
+        per_sm < 1)
+        per_sm = 1;
+    const long long cap = (long long)H100_SMS * per_sm;
     return (unsigned int)(work < cap ? (work > 0 ? work : 1) : cap);
 }
 
-// nodes a block takes at once: enough for GROUP_WORK limbs of work, within
-// the shared memory and MAX_GROUP, leaving two groups an SM where there are
-long long group_for(long long nodes, long long work, long long words, long long budget) {
-    long long G = (GROUP_WORK + work - 1) / work;
-    if (G > budget / words) G = budget / words;
-    if (G > MAX_GROUP) G = MAX_GROUP;
-    if (G > nodes / (2 * H100_SMS)) G = nodes / (2 * H100_SMS);
-    return G < 1 ? 1 : G;
+bool aligned(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// a layout's region [at, at + len) lies in its `words` and starts on a
+// multiple of `align` words
+bool region(long long at, long long len, long long words, int align) {
+    return at >= 0 && at % align == 0 && at + len <= words;
 }
+
+constexpr long long MAX_WORDS = 1 << 20;  // a layout's words, at most (4 MB: past any card)
 
 }  // namespace
 
 // R1: small [B, Ls], big [B, Lg] -> leaf_s, leaf_g [B n 3^k, h[k-1]] each, in
-// the leaf order above.  plan: see read_route.  Returns a cudaError (0 on
-// success).
+// the leaf order above.  plan: see read_route.  layout (n_layout words, the
+// wrapper's split_plan and split_layout): depth, group, base, off, lim, cap,
+// words, then the input offset of each split level from depth to k-1.
+// Returns a cudaError (0 on success).
 extern "C" int hm_route_split(const void* small, const void* big, void* leaf_s, void* leaf_g,
-                              const long long* plan, void* stream) {
+                              const long long* plan, const long long* layout, int n_layout,
+                              void* stream) {
     Route r;
     int err = read_route(plan, &r);
     if (err) return err;
-    int D = 0;
-    while (D < r.k && 2 * split_buffer_words(r, D) > SPLIT_SMEM_WORDS) ++D;
-    while (D < r.k && r.rows0 * pow3(D) < 2 * H100_SMS) ++D;
-    r.depth = D;
-    const long long buf = D < r.k ? split_buffer_words(r, D) : 0;
-    if (D == 0)
-        r.group = (int)group_for(r.rows0, pow3(r.k) * r.h[r.k - 1], 2 * buf, SPLIT_SMEM_WORDS);
-    const long long smem = 2 * r.group * buf;
-    err = set_smem((const void*)route_split_kernel, smem);
+    if (n_layout < 7) return (int)cudaErrorInvalidValue;
+    const long long depth = layout[0], group = layout[1], words = layout[6];
+    if (depth < 0 || depth > r.k || depth > 30 || group < 1 || (depth > 0 && group > 1) ||
+        n_layout != 7 + r.k - depth || words < 0 || words > MAX_WORDS ||
+        layout[5] < (depth > 0 ? 1LL << depth : group) ||
+        !region(layout[2], 2 * group, words, 2) || !region(layout[3], layout[5], words, 1) ||
+        !region(layout[4], layout[5], words, 1))
+        return (int)cudaErrorInvalidValue;
+    Split sp;
+    sp.depth = (int)depth;
+    sp.group = (int)group;
+    sp.base = (int)layout[2];
+    sp.off = (int)layout[3];
+    sp.lim = (int)layout[4];
+    sp.cap = (int)layout[5];
+    sp.words = (int)words;
+    for (int i = sp.depth; i < r.k; ++i) {
+        const long long at = layout[7 + i - sp.depth];
+        if (!region(at, group * pow3(i - sp.depth) * 2 * r.h[i], words, 4))
+            return (int)cudaErrorInvalidValue;
+        sp.in[i] = (int)at;
+    }
+    const int w = r.h[r.k - 1];
+    bool offsets4 = r.Ls % 4 == 0 && r.Lg % 4 == 0;
+    for (int i = 0; i < sp.depth; ++i) offsets4 = offsets4 && r.h[i] % 4 == 0;
+    const int len = sp.depth < r.k ? 2 * r.h[sp.depth] : w;
+    sp.vec_rows = offsets4 && len % 4 == 0 && aligned(small) && aligned(big) &&
+                  (sp.depth < r.k || (aligned(leaf_s) && aligned(leaf_g)));
+    sp.vec_leaves = w % 4 == 0 && aligned(leaf_s) && aligned(leaf_g);
+    err = set_smem((const void*)route_split_kernel, words);
     if (err) return err;
-    const long long nodes = r.rows0 * pow3(D);
-    const dim3 grid(grid_for((nodes + r.group - 1) / r.group), 2);
-    route_split_kernel<<<grid, THREADS, (size_t)smem * 4, (cudaStream_t)stream>>>(
-        (const uint32_t*)small, (const uint32_t*)big, (uint32_t*)leaf_s, (uint32_t*)leaf_g, r,
-        (int)buf);
+    const long long groups = (r.rows0 * pow3(sp.depth) + group - 1) / group;
+    const unsigned int blocks = grid_for((const void*)route_split_kernel, 2 * groups, words);
+    const dim3 grid((blocks + 1) / 2, 2);
+    route_split_kernel<<<grid, THREADS, (size_t)words * 4, (cudaStream_t)stream>>>(
+        (const uint32_t*)small, (const uint32_t*)big, (uint32_t*)leaf_s, (uint32_t*)leaf_g, r, sp);
     return (int)cudaGetLastError();
 }
 
-// R2, one launch: top < 0 joins the chunk step's pieces (in [B n, 2 Ls] ->
-// out [B, Ls + Lg]); else split levels top..bottom (0-based, top <= bottom):
-// in holds the products of level bottom's children [B n 3^(bottom+1),
-// 2 h[bottom]], out gets level top's [B n 3^top, lo[top]].  More than one
-// level runs fused and must fit JOIN_SMEM_WORDS.  Returns a cudaError.
-extern "C" int hm_route_join(const void* in, void* out, const long long* plan, int top,
-                             int bottom, void* stream) {
+// R2, one launch of the wrapper's join_launches, given as n_launch words:
+// (-1, 0) joins the chunk step's pieces (in [B n, 2 Ls] -> out [B, Ls +
+// Lg]); (top, 0) the split level `top` alone (in [B n 3^(top+1), 2 h[top]]
+// -> out [B n 3^top, lo[top]]); (top, tile, group, slot, words, the output
+// offset of each tile level from k-tile to k-1, the product offset of each
+// level from top to k-tile-1) the ascent from the leaves' products (in
+// [B n 3^k, 2 h[k-1]]) to the nodes of depth top (out [B n 3^top,
+// lo[top]]) in tiles of `tile` levels, `group` nodes a block (more than one
+// only where a tile is a node's whole subtree), with the wrapper's
+// ascent_layout.  Returns a cudaError.
+extern "C" int hm_route_join(const void* in, void* out, const long long* plan,
+                             const long long* launch, int n_launch, void* stream) {
     Route r;
     int err = read_route(plan, &r);
     if (err) return err;
+    if (n_launch < 2) return (int)cudaErrorInvalidValue;
+    const long long top = launch[0], tile = launch[1];
     const cudaStream_t st = (cudaStream_t)stream;
+    const bool vec = aligned(in) && aligned(out);
     if (top < 0) {
-        if (!r.chunked) return (int)cudaErrorInvalidValue;
-        const Tiles tl = make_tiles(r.B, r.Ls + r.Lg);
-        route_join_pieces_kernel<<<grid_for(tl.count()), THREADS, 0, st>>>(
-            (const uint32_t*)in, (uint32_t*)out, tl, r.Ls, r.n);
+        if (!r.chunked || top != -1 || tile != 0 || n_launch != 2) return (int)cudaErrorInvalidValue;
+        const Tiles tl = make_tiles(r.B * (r.n + 1), r.Ls);
+        if (vec && r.Ls % 4 == 0 && r.Lg % 4 == 0) {
+            const void* kern = (const void*)route_join_pieces_kernel<4>;
+            route_join_pieces_kernel<4><<<grid_for(kern, tl.count(), 0), THREADS, 0, st>>>(
+                (const uint32_t*)in, (uint32_t*)out, tl, r.Ls, r.Lg, r.n);
+        } else {
+            const void* kern = (const void*)route_join_pieces_kernel<1>;
+            route_join_pieces_kernel<1><<<grid_for(kern, tl.count(), 0), THREADS, 0, st>>>(
+                (const uint32_t*)in, (uint32_t*)out, tl, r.Ls, r.Lg, r.n);
+        }
         return (int)cudaGetLastError();
     }
-    if (bottom < top || bottom >= r.k) return (int)cudaErrorInvalidValue;
-    if (top == bottom) {
-        const Tiles tl = make_tiles(r.rows0 * pow3(top), r.h[top]);
-        route_join_level_kernel<<<grid_for(tl.count()), THREADS, 0, st>>>(
-            (const uint32_t*)in, (uint32_t*)out, tl, r.h[top], r.lo[top]);
+    if (top >= r.k || tile < 0 || top + tile > r.k) return (int)cudaErrorInvalidValue;
+    if (tile == 0) {
+        if (n_launch != 2) return (int)cudaErrorInvalidValue;
+        const int h = r.h[top], lo = r.lo[top];
+        const Tiles tl = make_tiles(r.rows0 * pow3((int)top), h);
+        if (vec && h % 4 == 0 && lo % 4 == 0) {
+            const void* kern = (const void*)route_join_level_kernel<4>;
+            route_join_level_kernel<4><<<grid_for(kern, tl.count(), 0), THREADS, 0, st>>>(
+                (const uint32_t*)in, (uint32_t*)out, tl, h, lo);
+        } else {
+            const void* kern = (const void*)route_join_level_kernel<1>;
+            route_join_level_kernel<1><<<grid_for(kern, tl.count(), 0), THREADS, 0, st>>>(
+                (const uint32_t*)in, (uint32_t*)out, tl, h, lo);
+        }
         return (int)cudaGetLastError();
     }
-    const int m = bottom - top + 1;
-    const long long bufA = pow3(m) * 2 * r.h[bottom];
-    const long long bufB = pow3(m - 1) * r.lo[bottom];
-    if (bufA + bufB > JOIN_SMEM_WORDS) return (int)cudaErrorInvalidValue;
-    const long long R = r.rows0 * pow3(top);
-    const long long G = group_for(R, bufA, bufA + bufB, JOIN_SMEM_WORDS);
-    const long long smem = G * (bufA + bufB);
-    err = set_smem((const void*)route_join_fused_kernel, smem);
+    const int k = r.k, w = r.h[k - 1], bottom = k - (int)tile;
+    if (n_launch != 5 + k - top) return (int)cudaErrorInvalidValue;
+    const long long group = launch[2], slot = launch[3], words = launch[4];
+    const long long tile_words = pow3((int)tile) * 2 * w;
+    if (group < 1 || (group > 1 && bottom > top) || words < 0 || words > MAX_WORDS ||
+        slot % 4 != 0 || slot < group * tile_words || RING * slot > words)
+        return (int)cudaErrorInvalidValue;
+    Ascent a;
+    a.top = (int)top;
+    a.tile = (int)tile;
+    a.group = (int)group;
+    a.tiles = pow3(bottom - a.top);
+    a.tile_words = (int)tile_words;
+    a.slot = (int)slot;
+    a.words = (int)words;
+    for (int j = bottom; j < k; ++j) {
+        const long long at = launch[5 + j - bottom];
+        if (j != top && !region(at, group * pow3(j - bottom) * r.lo[j], words, 4))
+            return (int)cudaErrorInvalidValue;
+        a.lvl[j] = (int)at;
+    }
+    for (int i = a.top; i < bottom; ++i) {
+        const long long at = launch[5 + a.tile + i - a.top];
+        if (!region(at, r.lo[i], words, 4)) return (int)cudaErrorInvalidValue;
+        a.acc[i] = (int)at;
+    }
+    a.bulk = w % 2 == 0 && aligned(in);
+    a.vec_out = aligned(out);
+    const void* kern = (const void*)route_join_ascent_kernel;
+    err = set_smem(kern, words);
     if (err) return err;
-    // rows of whole 16-byte words from a 16-byte aligned start: uint4 loads
-    const int vec = r.h[bottom] % 2 == 0 && ((uintptr_t)in & 15) == 0;
-    route_join_fused_kernel<<<grid_for((R + G - 1) / G), THREADS, (size_t)smem * 4, st>>>(
-        (const uint32_t*)in, (uint32_t*)out, r, top, bottom, (int)bufA, (int)bufB, (int)G, vec);
+    const long long groups = (r.rows0 * pow3(a.top) + group - 1) / group;
+    route_join_ascent_kernel<<<grid_for(kern, groups, words), THREADS, (size_t)words * 4, st>>>(
+        (const uint32_t*)in, (uint32_t*)out, r, a);
     return (int)cudaGetLastError();
 }

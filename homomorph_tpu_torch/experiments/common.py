@@ -90,12 +90,20 @@ class Timer:
     def device_s(self, fn, reps=2) -> "tuple[float | None, dict]":
         """(device seconds a call, {record name: us a call}) from the
         profiler over ``reps`` calls after a warm-up; ``(None, {})`` off the
-        card.  On the card a trace with no device records raises."""
+        card.  On the card, traces that hold no device record are taken
+        once more (late in a long process ``torch.profiler`` sometimes
+        loses every record of a few traces in a row), and raise if they
+        hold none again."""
         if self.dev.type != "cuda":
             return None, {}
         from homomorph_tpu_torch.utils.profiling import device_busy
 
-        return device_busy(fn, reps=reps)
+        try:
+            return device_busy(fn, reps=reps)
+        except RuntimeError as err:
+            if "no device time" not in str(err):
+                raise
+            return device_busy(fn, reps=reps)
 
     def device_rate(self, fn, n_items, reps=4) -> "float | None":
         """Items a second of device-busy time, ``None`` off the card."""

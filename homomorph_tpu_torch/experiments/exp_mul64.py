@@ -11,7 +11,8 @@ itself is the usual masked parity on the card.
 
 The tree runs eagerly (op by op), as the JAX experiment runs it.  The
 experiment records keygen time, the tree's first and warm wall time, its
-device time as one CUDA graph replay, its K1 launches, peak device memory,
+device time as one CUDA graph replay and, from a profiled eager call, by
+kernel (K1, R1, R2 and the rest), its K1 launches, peak device memory,
 the mask's wall and device time and the decrypt, and that the product decrypts to
 ``x * y mod 2^64``.  It refuses parameters below the bound.  The key comes
 from :data:`~homomorph_tpu_torch.experiments.common.CHECK_SEED` (``S(0) =
@@ -129,12 +130,19 @@ def run(params=PARAMS, seed: int = CHECK_SEED, device=None, log=print) -> dict:
     t.sync()
     warm = time.perf_counter() - t0
     dv = graph_device_s(a, b) if dev.type == "cuda" else None
+    split = None
+    if dev.type == "cuda":
+        from homomorph_tpu_torch.experiments.exp_route import by_kernel
+        from homomorph_tpu_torch.utils.profiling import device_records
+
+        split = by_kernel(device_records(lambda: circuits.mul_unsigned(a, b), 1, traces=1))
     log(f"tree warm: wall {warm:.3f} s; as one CUDA graph: device "
-        f"{'not measured' if dv is None else f'{dv:.3f} s'}")
+        f"{'not measured' if dv is None else f'{dv:.3f} s'}; eager device ms by kernel {split}")
     dev_mask = mask_device_s(t, ctx.get_secret_key(), shape[-1])
     log(f"decrypt mask: {dev_mask} s device")
     return dict(params=[mp.d, mp.dp, mp.delta, mp.tau], requirement=req, s0=s0, keygen_s=keygen,
-                tree_first_s=t_tree, tree_warm_s=warm, tree_device_s=dv, k1_launches=k1,
+                tree_first_s=t_tree, tree_warm_s=warm, tree_device_s=dv,
+                tree_device_by_kernel=split, k1_launches=k1,
                 peak_gb=peak, product_shape=list(shape), product_gb=gb, mask_s=t_mask,
                 mask_launches=mask_launches,
                 mask_device_s=dev_mask,

@@ -28,22 +28,25 @@ to ``L``) into ``a0*b0``, ``a1*b1`` and ``(a0^a1)*(b0^b1)``, with
 ``mid = pm ^ p0 ^ p2`` and the output truncated to ``Ls + Lg``.  The JAX
 package recurses product by product; here each level is one step on all
 rows at once (:func:`route_plan`): the pieces, and the three half-products
-(``a1``, ``b1`` padded to ``h``), are stacked on the row axis, so every row
-of a level has one width.  Below the threshold, ONE K1 launch takes all
-``3^k * B`` rows (times the pieces).  Padding (odd ``L``, a last piece
+(``a1``, ``b1`` padded to ``h``), are stacked on the row axis, each row's
+three after one another, so every row of a level has one width.  Below the
+threshold, ONE K1 launch takes all ``3^k * B`` rows (times the pieces).  Padding (odd ``L``, a last piece
 narrower than ``Ls``) only adds zero limbs, so every route gives the same
 bits.
 
 The route's glue has kernels of its own (``csrc/route.cu``): on a CUDA
 tensor a routed product is ONE launch of R1 (:func:`route_split`, the whole
-descent for both operands), one of K1, and the launches of R2
-(:func:`route_join`, the bottom levels fused as far as shared memory holds
-a subtree, then one launch a level and one for the chunk step:
-:func:`join_launches`), with no torch op between them.  On a CPU tensor
-the same wrappers compute their plain versions, the level-by-level torch
-steps :func:`_split_levels` and :func:`_join_levels`.
-:func:`route_split_plain` (R1's one-shot index map) and
-:func:`route_join_plain` (R2's formulas in its launch order) mirror the
+descent for both operands, nodes of a depth staged a block:
+:func:`split_plan`), one of K1, and the launches of R2 (:func:`route_join`:
+one ascent from the leaves to a depth, then one launch a level above it
+and one for the chunk step: :func:`join_launches`), with no torch op
+between them.  The leaves are node-major (:func:`leaf_rows`): the three
+halves of a row are stacked row after row, so the leaves under any node
+are one run of rows, which R1 writes and R2 streams whole.  On a CPU
+tensor the same wrappers compute their plain versions, the level-by-level
+torch steps :func:`_split_levels` and :func:`_join_levels`.
+:func:`route_split_plain` (R1's staging by index map at any depth) and
+:func:`route_join_plain` (R2's launches in their own order) mirror the
 kernels in torch for the CPU tests; no path calls them.
 
 The route runs on CUDA tensors from the threshold up.  On a CPU tensor the
@@ -77,8 +80,9 @@ from . import poly as gf2
 
 __all__ = [
     "clmul", "clmul_rows", "clmul_flat", "clmul_plain", "clmul_comb_plain",
-    "karatsuba_min", "route_plan", "route_split", "route_join", "join_launches", "leaf_rows",
-    "route_split_plain", "route_join_plain", "join_pieces_plain",
+    "karatsuba_min", "route_plan", "route_split", "route_join", "split_plan", "split_layout",
+    "join_launches", "ascent_layout", "join_plans", "leaf_rows", "route_split_plain",
+    "route_join_plain", "join_pieces_plain",
 ]
 
 # cap on the [batch, La, Lb] planes the plain sweep materializes at once
@@ -90,8 +94,8 @@ FORCE_KARATSUBA_ENV = "HOMOMORPH_TPU_TORCH_FORCE_KARATSUBA"
 # level: the crossover of chip_smoke.py's route sweep (phase 3c) on an NVIDIA
 # H100 80GB HBM3 at 700 W, where one level (R1, K1, R2) first beats a direct
 # K1 launch at 64 limbs and keeps winning above; at 48 it loses (K1 on
-# 24-limb leaves), and the u16 product end to end is fastest at 64 too
-# (PERF.md section 6, the route sweep).
+# 24-limb leaves).  Measured so with the first R1 and R2 and again with
+# their redesign on node-major leaves (PERF.md section 6).
 _KARATSUBA_MIN = 64
 
 _fn = None
@@ -128,7 +132,8 @@ def clmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     product is first offered to the limb-sharded path, as the JAX
     dispatcher does (``kernels.py:174-178``); the path returns None when
     the shapes do not qualify.  With no mesh the slot is None and the
-    product goes straight to the dense route."""
+    product goes straight to the dense route (:func:`clmul_rows`), which on
+    the card raises for a route of more than 18 split levels."""
     if limb_hook is not None:
         sharded = limb_hook(a, b)
         if sharded is not None:
@@ -173,7 +178,8 @@ def _routed(device: torch.device) -> bool:
 def clmul_rows(af: torch.Tensor, bf: torch.Tensor) -> torch.Tensor:
     """The dispatcher on flat rows: [B, La] x [B, Lb] -> [B, La+Lb] through
     the Karatsuba route (:func:`route_plan`): :func:`route_split`, ONE
-    :func:`clmul_flat` and :func:`route_join`."""
+    :func:`clmul_flat` and :func:`route_join`.  On the card a route of more
+    than 18 split levels raises (:func:`split_plan`)."""
     small, big = (af, bf) if af.shape[1] <= bf.shape[1] else (bf, af)
     steps = route_plan(small.shape[1], big.shape[1], karatsuba_min())
     if not steps or af.shape[0] == 0 or not _routed(af.device):
@@ -183,11 +189,12 @@ def clmul_rows(af: torch.Tensor, bf: torch.Tensor) -> torch.Tensor:
 
 
 def _halves(x: torch.Tensor, h: int) -> torch.Tensor:
-    """[B, L'] with L' <= 2h -> [3B, h]: the rows of ``x0``, of ``x1``
-    (padded to ``h``) and of ``x0 ^ x1``, stacked in that order."""
+    """[B, L'] with L' <= 2h -> [3B, h]: each row's ``x0``, ``x1`` (padded
+    to ``h``) and ``x0 ^ x1``, in that order, row after row: the children
+    of row ``r`` are rows ``3r``, ``3r+1`` and ``3r+2`` (node-major)."""
     xp = F.pad(x, (0, 2 * h - x.shape[1])).reshape(x.shape[0], 2, h)
     x0, x1 = xp[:, 0], xp[:, 1]
-    return torch.cat([x0, x1, x0 ^ x1])
+    return torch.stack([x0, x1, x0 ^ x1], dim=1).reshape(-1, h)
 
 
 def _join_halves(p: torch.Tensor, B: int, Ls: int, Lg: int, h: int) -> torch.Tensor:
@@ -195,7 +202,7 @@ def _join_halves(p: torch.Tensor, B: int, Ls: int, Lg: int, h: int) -> torch.Ten
     ``p0 ^ (pm ^ p0 ^ p2) X^h ^ p2 X^2h``.  Every term's limbs past
     ``Ls + Lg`` are zero, so each is truncated on its own."""
     Lo = Ls + Lg
-    p0, p2, pm = p.view(3, B, 2 * h).unbind(0)
+    p0, p2, pm = p.view(B, 3, 2 * h).unbind(1)
     pm = pm ^ p0 ^ p2
     out = p.new_empty((B, Lo))
     out[:, : 2 * h] = p0
@@ -245,15 +252,36 @@ def _join_levels(p: torch.Tensor, B: int, steps) -> torch.Tensor:
 # R1 and R2: the route's split and join as CUDA kernels (csrc/route.cu)
 # --------------------------------------------------------------------------
 
-#: words of shared memory R2's fused launch may take (``JOIN_SMEM_WORDS`` of
-#: ``csrc/route.cu``, which refuses a launch past it)
-ROUTE_SMEM_WORDS = 16384
+# The launch plans and their shared-memory layouts are made here and passed
+# to csrc/route.cu by value, which checks that each region of a layout lies
+# inside it and that the whole fits the card.
+#: words of shared memory a block of R1 may take (108 KB: two blocks share
+#: an SM of the H100)
+SPLIT_SMEM_WORDS = 27648
+#: words of shared memory a block of R2's ascent may take (216 KB of the
+#: H100's 227)
+JOIN_SMEM_WORDS = 55296
+#: R2's ascent loads its leaf products in tiles of at most this many words.
+#: Each tile's levels cost a block barrier each whatever the tile's size, so
+#: the larger tile wins while the ring still fits
+JOIN_TILE_WORDS = 16384
+#: slots of the ascent's ring: a constant of csrc/route.cu (a deeper ring
+#: measured no faster, PERF.md)
+RING = 2
+#: nodes a launch is given at least where the route allows: two an SM of
+#: the H100 (132 SMs)
+MIN_NODES = 264
+#: R1 at depth 0: rows a block takes at once, at most, and limbs of leaves
+#: a block takes at once, at least
+MAX_GROUP = 64
+GROUP_WORK = 4096
 
 _PLAN = ctypes.POINTER(ctypes.c_longlong)
-# small, big, leaf_s, leaf_g, plan, stream / in, out, plan, top, bottom, stream
+# small, big, leaf_s, leaf_g, plan, layout, its words, stream /
+# in, out, plan, launch, its words, stream
 _ROUTE_ARGS = {
-    "hm_route_split": [ctypes.c_void_p] * 4 + [_PLAN, ctypes.c_void_p],
-    "hm_route_join": [ctypes.c_void_p] * 2 + [_PLAN, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "hm_route_split": [ctypes.c_void_p] * 4 + [_PLAN, _PLAN, ctypes.c_int, ctypes.c_void_p],
+    "hm_route_join": [ctypes.c_void_p] * 2 + [_PLAN, _PLAN, ctypes.c_int, ctypes.c_void_p],
 }
 _route_fns: dict = {}
 
@@ -279,9 +307,16 @@ def _levels(steps) -> "tuple[int, list[int], list[int]]":
 
 
 def leaf_rows(B: int, steps) -> "tuple[int, int]":
-    """(rows, width) of each operand's leaves: what the K1 launch takes."""
+    """(rows, width) of each operand's leaves: what the K1 launch takes.
+    Leaf ``r0 * 3^k + t_1 3^(k-1) + ... + t_k`` (``r0 = b * n + j``, ``t_i``
+    the digit of split level ``i``: 0 for ``x0``, 1 for ``x1``, 2 for
+    ``x0 ^ x1``) is node-major: the leaves under any node are one run."""
     n, h, _ = _levels(steps)
     return B * max(n, 1) * 3 ** len(h), h[-1]
+
+
+def _words(values):
+    return (ctypes.c_longlong * len(values))(*values)
 
 
 def _plan_words(B: int, steps):
@@ -289,26 +324,175 @@ def _plan_words(B: int, steps):
     Ls, Lg, n (0 without a chunk), k, h[0..k-1], Ls+Lg of each level; passed
     by value at each launch, never through device memory."""
     n, h, lo = _levels(steps)
-    words = [B, steps[0][1], steps[0][2], n, len(h), *h, *lo]
-    return (ctypes.c_longlong * len(words))(*words)
+    return _words([B, steps[0][1], steps[0][2], n, len(h), *h, *lo])
 
 
-def join_launches(steps, fuse: "int | None" = None) -> "list[tuple[int, int]]":
-    """R2's launches for a route, in order: ``(top, bottom)`` joins split
-    levels ``top..bottom`` (0-based) in one launch, ``(-1, -1)`` the chunk
-    step's pieces.  The bottom levels are fused as far as a block's shared
-    memory (:data:`ROUTE_SMEM_WORDS`) holds the subtree, 3^m products of
-    ``2 h`` limbs and the level's 3^(m-1) outputs, and at most ``fuse``
-    levels if given (``fuse=1``: one launch a level)."""
-    _, h, lo = _levels(steps)
-    k, m = len(h), 1
-    while (m < k and (fuse is None or m < fuse)
-           and 3 ** (m + 1) * 2 * h[-1] + 3 ** m * lo[-1] <= ROUTE_SMEM_WORDS):
-        m += 1
-    launches = [(k - m, k - 1)] + [(i, i) for i in range(k - m - 1, -1, -1)]
-    if steps[0][0] == "chunk":
-        launches.append((-1, -1))
+def _r4(words: int) -> int:
+    return -(-words // 4) * 4
+
+
+def split_buffers(h, depth: int, group: int) -> "tuple[int, int]":
+    """Words of R1's two shared buffers for ``group`` nodes at ``depth``:
+    the first holds the staged nodes (``2 h[depth]`` limbs each) and the
+    children of levels ``depth+1``, ``depth+3``, ...; the second those of
+    ``depth``, ``depth+2``, ... (each child ``2 h`` limbs of the level below
+    it); the last level writes to device memory."""
+    k = len(h)
+    if depth == k:
+        return 0, 0
+    bufs = [group * 2 * h[depth], 0]
+    for i in range(depth, k - 1):
+        j = (i - depth + 1) % 2
+        bufs[j] = max(bufs[j], group * 3 ** (i + 1 - depth) * 2 * h[i + 1])
+    return _r4(bufs[0]), _r4(bufs[1])
+
+
+def split_layout(h, depth: int, group: int) -> dict:
+    """R1's shared memory for ``group`` nodes at ``depth``, as offsets in
+    words: ``inputs``, the input of each split level from ``depth`` on (the
+    staged nodes, then each level's children), in the two buffers of
+    :func:`split_buffers` by turns; ``base``, the nodes' row starts (two
+    words each); ``off`` and ``lim``, the staging terms' offsets and limits
+    (``cap`` words each: one term a node at depth 0, up to ``2^depth``
+    else); ``words``, all of it."""
+    first, second = split_buffers(h, depth, group)
+    cap = group if depth == 0 else 2 ** depth
+    base = first + second
+    off = base + 2 * group
+    return dict(inputs=[(0, first)[(i - depth) % 2] for i in range(depth, len(h))], base=base,
+                off=off, lim=off + cap, cap=cap, words=_r4(off + 2 * cap))
+
+
+def split_plan(B: int, steps) -> "tuple[int, int]":
+    """R1's launch, ``(depth, group)``: a block stages ``group`` nodes of
+    ``depth`` at once.  The depth is the least whose layout
+    (:func:`split_layout`) fits :data:`SPLIT_SMEM_WORDS`, deepened until the
+    launch has :data:`MIN_NODES` nodes; at depth 0 small rows are grouped
+    up to :data:`GROUP_WORK` leaf limbs a block.  Raises where no depth
+    fits: the staging terms take ``2^depth`` words twice, so a route of more
+    than 18 split levels (at ``w = 32``: a smaller operand of 2^24 limbs or
+    more) is refused; the widest product of the repo's paths, the u64
+    product's, has 12."""
+    n, h, _ = _levels(steps)
+    rows0, k = B * max(n, 1), len(h)
+
+    def fits(depth, group=1):
+        return split_layout(h, depth, group)["words"] <= SPLIT_SMEM_WORDS
+
+    depth = 0
+    while depth <= k and not fits(depth):
+        depth += 1
+    if depth > k:
+        raise ValueError(f"route_split stages no node of a route of {k} split levels "
+                         f"within {SPLIT_SMEM_WORDS} words")
+    while depth < k and rows0 * 3 ** depth < MIN_NODES and fits(depth + 1):
+        depth += 1
+    group = 1
+    if depth == 0:
+        group = max(1, min(-(-GROUP_WORK // (3 ** k * h[-1])), MAX_GROUP, rows0 // MIN_NODES))
+        while group > 1 and not fits(0, group):
+            group -= 1
+    return depth, group
+
+
+def _split_words(h, depth: int, group: int):
+    """R1's launch as ``hm_route_split`` takes it: depth, group, base, off,
+    lim, cap, words, then the input offset of each split level."""
+    lay = split_layout(h, depth, group)
+    return _words([depth, group, lay["base"], lay["off"], lay["lim"], lay["cap"], lay["words"],
+                   *lay["inputs"]])
+
+
+def ascent_group(h, rows0: int, top: int, tile: int) -> int:
+    """Nodes of depth ``top`` a block of R2's ascent takes at once: where a
+    tile is a node's whole subtree, as many as :data:`JOIN_TILE_WORDS` holds
+    while the launch keeps :data:`MIN_NODES` groups; else 1."""
+    if top + tile < len(h):
+        return 1
+    return max(1, min(JOIN_TILE_WORDS // (3 ** tile * 2 * h[-1]), rows0 * 3 ** top // MIN_NODES))
+
+
+def ascent_layout(h, lo, top: int, tile: int, group: int) -> dict:
+    """The shared memory of R2's ascent from the leaves to ``top`` in tiles
+    of ``tile`` levels, as offsets in words: the ring of :data:`RING` slots
+    of ``slot`` words from 0 (``3^tile`` leaf products of each of ``group``
+    nodes a slot); ``lvl``, the output of each tile level from ``k-tile``
+    to ``k-1``, in two buffers by turns (level ``k-1`` in the first; -1 for
+    a level ``top``, which writes to device memory); ``acc``, the product
+    of each level from ``top`` to the tile, written to device memory once
+    complete; ``words``, all of it."""
+    k = len(h)
+    bottom = k - tile
+    slot = _r4(group * 3 ** tile * 2 * h[-1])
+    xy = [0, 0]
+    for j in range(k - 1, max(bottom, top + 1) - 1, -1):
+        xy[(k - 1 - j) % 2] = max(xy[(k - 1 - j) % 2], group * 3 ** (j - bottom) * lo[j])
+    x = RING * slot
+    y = x + _r4(xy[0])
+    at = y + _r4(xy[1])
+    acc = []
+    for i in range(top, bottom):
+        acc.append(at)
+        at += _r4(lo[i])
+    return dict(slot=slot, lvl=[-1 if j == top else (x, y)[(k - 1 - j) % 2] for j in range(bottom, k)],
+                acc=acc, words=at)
+
+
+def join_launches(B: int, steps) -> "list[tuple[int, int, int]]":
+    """R2's launches for a route, in order, each ``(top, tile, group)``:
+    first the ascent, ``tile > 0``: a block takes ``group`` nodes of depth
+    ``top`` (:func:`ascent_group`), streams their leaf products (one run)
+    in tiles of ``tile`` levels and joins them up to the nodes; then ``(i,
+    0, 0)``: split level ``i`` alone, for each level above ``top``; last
+    ``(-1, 0, 0)``: the chunk step's pieces.  The tile is the deepest of at
+    most :data:`JOIN_TILE_WORDS`; ``top`` the least depth whose ascent
+    (:func:`ascent_layout`) fits :data:`JOIN_SMEM_WORDS` and gives
+    :data:`MIN_NODES` nodes (or a block one tile)."""
+    n, h, lo = _levels(steps)
+    k, w2, rows0 = len(h), 2 * h[-1], B * max(n, 1)
+    tile0 = 1
+    while tile0 < k and 3 ** (tile0 + 1) * w2 <= JOIN_TILE_WORDS:
+        tile0 += 1
+    launches = [(i, 0, 0) for i in range(k - 1, -1, -1)]
+    for top in range(k):
+        tile = min(tile0, k - top)
+        group = ascent_group(h, rows0, top, tile)
+        if (ascent_layout(h, lo, top, tile, group)["words"] <= JOIN_SMEM_WORDS
+                and (rows0 * 3 ** top >= MIN_NODES or top >= k - tile0)):
+            launches = [(top, tile, group)] + [(i, 0, 0) for i in range(top - 1, -1, -1)]
+            break
+    if n:
+        launches.append((-1, 0, 0))
     return launches
+
+
+def join_plans(B: int, steps) -> "list[list[tuple[int, int, int]]]":
+    """Every plan R2 takes at a route, for the tests and the sweep: one
+    launch a level, and each ascent (every ``top``, every tile below it, one
+    node a block and :func:`ascent_group`'s) with the levels above it alone;
+    the chunk step last where there is one.  Some ascents' layouts pass
+    :data:`JOIN_SMEM_WORDS`."""
+    n, h, _ = _levels(steps)
+    rows0, k = B * max(n, 1), len(h)
+    chunk = [(-1, 0, 0)] if n else []
+    plans = [[(i, 0, 0) for i in range(k - 1, -1, -1)] + chunk]
+    for top in range(k):
+        for tile in range(1, k - top + 1):
+            for group in sorted({1, ascent_group(h, rows0, top, tile)}):
+                plans.append([(top, tile, group)] + [(i, 0, 0) for i in range(top - 1, -1, -1)]
+                             + chunk)
+    return plans
+
+
+def _launch_words(h, lo, launch):
+    """One R2 launch as ``hm_route_join`` takes it: ``(top, 0)`` for a level
+    alone or the chunk step; for the ascent top, tile, group, slot, words,
+    then :func:`ascent_layout`'s ``lvl`` and ``acc``."""
+    top, tile, group = launch
+    if not tile:
+        return _words([top, 0])
+    lay = ascent_layout(h, lo, top, tile, group)
+    return _words([top, tile, group, lay["slot"], lay["words"], *lay["lvl"], *lay["acc"]])
 
 
 def _check_route(small: torch.Tensor, big: torch.Tensor, steps) -> None:
@@ -332,8 +516,10 @@ def route_split(small: torch.Tensor, big: torch.Tensor, steps) -> "tuple[torch.T
     first step's widths) -> each operand's leaves, :func:`leaf_rows`.
 
     A CPU tensor gets the plain version (:func:`_split_levels`); a CUDA
-    tensor launches ``hm_route_split`` once on the current stream (and
-    counts the launch) or raises."""
+    tensor launches ``hm_route_split`` once on the current stream with
+    :func:`split_plan` and :func:`split_layout` (and counts the launch) or
+    raises, also for a route of more than 18 split levels, whose staging
+    fits no depth."""
     _check_route(small, big, steps)
     if small.device.type == "cpu":
         return _split_levels(small, big, steps)
@@ -344,17 +530,29 @@ def route_split(small: torch.Tensor, big: torch.Tensor, steps) -> "tuple[torch.T
     leaf_g = torch.empty(shape, dtype=gf2.LIMB_DTYPE, device=small.device)
     if small.shape[0] == 0:
         return leaf_s, leaf_g
+    layout = _split_words(_levels(steps)[1], *split_plan(small.shape[0], steps))
     with torch.cuda.device(small.device):
         err = _route_kernel("hm_route_split")(
             small.data_ptr(), big.data_ptr(), leaf_s.data_ptr(), leaf_g.data_ptr(),
-            _plan_words(small.shape[0], steps), torch.cuda.current_stream().cuda_stream)
+            _plan_words(small.shape[0], steps), layout, len(layout),
+            torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"route split kernel launch failed: cudaError {err}")
     route_split.launches += 1
     return leaf_s, leaf_g
 
 
-def route_join(p: torch.Tensor, B: int, steps, fuse: "int | None" = None) -> torch.Tensor:
+def _check_products(p: torch.Tensor, B: int, steps) -> None:
+    if p.dtype != gf2.LIMB_DTYPE:
+        raise TypeError(f"route_join takes int32 limbs, got {p.dtype}")
+    rows, w = leaf_rows(B, steps)
+    if p.ndim != 2 or tuple(p.shape) != (rows, 2 * w):
+        raise ValueError(f"route_join takes [{rows}, {2 * w}] products, got {tuple(p.shape)}")
+    if not p.is_contiguous():
+        raise ValueError("route_join takes contiguous products")
+
+
+def route_join(p: torch.Tensor, B: int, steps) -> torch.Tensor:
     """R2's wrapper: the leaves' products ``[rows, 2w]`` (:func:`leaf_rows`)
     -> the product ``[B, Ls+Lg]`` of the route's first step.
 
@@ -362,29 +560,31 @@ def route_join(p: torch.Tensor, B: int, steps, fuse: "int | None" = None) -> tor
     tensor launches ``hm_route_join`` once for each of
     :func:`join_launches` on the current stream (and counts each launch)
     or raises."""
-    if p.dtype != gf2.LIMB_DTYPE:
-        raise TypeError(f"route_join takes int32 limbs, got {p.dtype}")
-    n, h, lo = _levels(steps)
-    rows, w = leaf_rows(B, steps)
-    if p.ndim != 2 or tuple(p.shape) != (rows, 2 * w):
-        raise ValueError(f"route_join takes [{rows}, {2 * w}] products, got {tuple(p.shape)}")
-    if not p.is_contiguous():
-        raise ValueError("route_join takes contiguous products")
+    _check_products(p, B, steps)
     if p.device.type == "cpu":
         return _join_levels(p, B, steps)
+    return _route_join(p, B, steps, join_launches(B, steps))
+
+
+def _route_join(p: torch.Tensor, B: int, steps, launches) -> torch.Tensor:
+    """:func:`route_join` on the card through the given launches (the
+    card tests also give other plans than :func:`join_launches`)."""
     if p.device.type != "cuda":
         raise ValueError(f"route_join runs on cpu or cuda, not {p.device}")
+    n, h, lo = _levels(steps)
     if B == 0:
         return p.new_empty((0, steps[0][1] + steps[0][2]))
     words = _plan_words(B, steps)
     rows0 = B * max(n, 1)
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for top, bottom in join_launches(steps, fuse):
+        for launch in launches:
+            top = launch[0]
             shape = (B, steps[0][1] + steps[0][2]) if top < 0 else (rows0 * 3 ** top, lo[top])
             out = torch.empty(shape, dtype=gf2.LIMB_DTYPE, device=p.device)
-            err = _route_kernel("hm_route_join")(p.data_ptr(), out.data_ptr(), words, top, bottom,
-                                                 stream)
+            spec = _launch_words(h, lo, launch)
+            err = _route_kernel("hm_route_join")(p.data_ptr(), out.data_ptr(), words, spec,
+                                                 len(spec), stream)
             if err:
                 raise RuntimeError(f"route join kernel launch failed: cudaError {err}")
             route_join.launches += 1
@@ -397,66 +597,80 @@ route_split.launches = 0
 route_join.launches = 0
 
 
-def route_split_plain(small: torch.Tensor, big: torch.Tensor, steps) -> "tuple[torch.Tensor, torch.Tensor]":
-    """R1's index map in torch, all levels at once: leaf limb ``u`` of leaf
-    row ``r0 + rows0 * (t_1 + 3 t_2 + ...)`` is the XOR, over the levels'
-    choices ``c_i`` (0 for digit 0, 1 for digit 1, either for digit 2), of
-    the original row's limb at ``u + sum c_i h_i`` (past the piece's start),
-    each term read only if its position is below the real width of the node
-    at every level on the path (``W' = min(W, h)`` for digits 0 and 2,
-    ``clamp(W - h, 0, h)`` for 1).  The same leaves as :func:`_split_levels`,
-    limb for limb; no path calls it."""
+def route_split_plain(small: torch.Tensor, big: torch.Tensor, steps,
+                      depth: "int | None" = None) -> "tuple[torch.Tensor, torch.Tensor]":
+    """R1's design in torch: every node at ``depth`` (default: the launch's,
+    :func:`split_plan`; ``len(h)``: every leaf) staged from its row, then
+    split level by level below it.  Node ``r0 * 3^D + t_1 3^(D-1) + ... +
+    t_D`` has, for each choice ``c_i`` of the levels above it (0 for digit
+    0, 1 for digit 1, either for digit 2), the term of the row's limbs from
+    ``sum c_i h_i`` (past the piece's start), read below ``lim``: the least,
+    over the levels, of the real width of the node there less the offset
+    still to add below it (``W' = min(W, h)`` for digits 0 and 2,
+    ``clamp(W - h, 0, h)`` for 1), and the node's own real width.  The
+    same leaves as :func:`_split_levels`, limb for limb; no path calls it."""
     n, h, _ = _levels(steps)
     B, Ls = small.shape
-    Lg = big.shape[1]
-    rows0, k, w = B * max(n, 1), len(h), h[-1]
+    Lg, nn, k = big.shape[1], max(n, 1), len(h)
+    D = split_plan(B, steps)[0] if depth is None else depth
     dev = small.device
-    leaf = torch.arange(rows0 * 3 ** k, device=dev)
-    r0, v = leaf % rows0, leaf // rows0
-    b, j = r0 // max(n, 1), r0 % max(n, 1)
-    digits = []
-    for _ in range(k):
-        digits.append(v % 3)
-        v = v // 3
-    u = torch.arange(w, device=dev)
+    node = torch.arange(B * nn * 3 ** D, device=dev)
+    r0, v = node // 3 ** D, node % 3 ** D
+    b, j = r0 // nn, r0 % nn
+    digits = [(v // 3 ** (D - 1 - i)) % 3 for i in range(D)]
+    u = torch.arange(2 * h[D] if D < k else h[-1], device=dev)
     out = []
     for x, chunked in ((small, False), (big, n > 0)):
         L = x.shape[1]
-        base = j * Ls if chunked else torch.zeros_like(j)
+        base = b * L + (j * Ls if chunked else 0)
         widths = [(Lg - j * Ls).clamp(max=Ls) if chunked else torch.full_like(j, L)]
         for t, hh in zip(digits, h):
             W = widths[-1]
             widths.append(torch.where(t == 1, (W - hh).clamp(0, hh), W.clamp(max=hh)))
-        acc = torch.zeros((leaf.numel(), w), dtype=x.dtype, device=dev)
+        acc = torch.zeros((node.numel(), u.numel()), dtype=x.dtype, device=dev)
         flat = x.reshape(-1)
-        for choice in range(2 ** k):
-            c = [(choice >> i) & 1 for i in range(k)]
-            ok = torch.ones((leaf.numel(), w), dtype=torch.bool, device=dev)
-            pos = u.clone()
-            for i in reversed(range(k)):
-                ok &= ((digits[i] == 2) | (digits[i] == c[i]))[:, None]
-                pos = pos + c[i] * h[i]
-                ok &= pos[None, :] < widths[i][:, None]
-            idx = (b * L + base)[:, None] + pos[None, :]
+        for choice in range(2 ** D):
+            ok, off, lim = torch.ones_like(node, dtype=torch.bool), 0, widths[D]
+            for i in reversed(range(D)):
+                c = (choice >> i) & 1
+                ok &= (digits[i] == 2) | (digits[i] == c)
+                off += c * h[i]
+                lim = torch.minimum(lim, widths[i] - off)
+            read = ok[:, None] & (u[None, :] < lim[:, None])
+            idx = (base + off)[:, None] + u[None, :]
             vals = flat[idx.clamp(0, flat.numel() - 1)]
-            acc ^= torch.where(ok, vals, torch.zeros_like(vals))
+            acc ^= torch.where(read, vals, torch.zeros_like(vals))
+        for hh in h[D:]:
+            acc = _halves(acc, hh)
         out.append(acc)
     return out[0], out[1]
+
+
+def _shifted(x: torch.Tensor, shift: int, lo: int) -> torch.Tensor:
+    """``x X^shift`` truncated to ``lo`` limbs (last axis)."""
+    t = torch.arange(lo, device=x.device) - shift
+    ok = (t >= 0) & (t < x.shape[-1])
+    vals = x[..., t.clamp(0, x.shape[-1] - 1)]
+    return torch.where(ok, vals, torch.zeros_like(vals))
 
 
 def _join_terms(p0: torch.Tensor, p2: torch.Tensor, pm: torch.Tensor, h: int, lo: int) -> torch.Tensor:
     """R2's formula on products of ``2h`` limbs (last axis): ``out[t] =
     p0[t] ^ p0[t-h] ^ pm[t-h] ^ p2[t-h] ^ p2[t-2h]`` for ``t < lo``, each
     term zero outside its row."""
-    t = torch.arange(lo, device=p0.device)
+    return (_shifted(p0, 0, lo) ^ _shifted(p0, h, lo) ^ _shifted(pm, h, lo)
+            ^ _shifted(p2, h, lo) ^ _shifted(p2, 2 * h, lo))
 
-    def at(x, shift):
-        i = t - shift
-        ok = (i >= 0) & (i < 2 * h)
-        vals = x[..., i.clamp(0, 2 * h - 1)]
-        return torch.where(ok, vals, torch.zeros_like(vals))
 
-    return at(p0, 0) ^ at(p0, h) ^ at(pm, h) ^ at(p2, h) ^ at(p2, 2 * h)
+def _accumulate(acc: "torch.Tensor | None", c: torch.Tensor, t: int, h: int, lo: int) -> torch.Tensor:
+    """R2's ascent: child ``t`` (0: ``p0``, 1: ``p2``, 2: ``pm``; ``2h``
+    limbs) into its node's product (``lo`` limbs), which child 0 starts:
+    ``p0`` at shifts 0 and ``h``, ``p2`` at ``h`` and ``2h``, ``pm`` at ``h``."""
+    shifts = ((0, h), (h, 2 * h), (h,))[t]
+    part = _shifted(c, shifts[0], lo)
+    for s in shifts[1:]:
+        part = part ^ _shifted(c, s, lo)
+    return part if t == 0 else acc ^ part
 
 
 def join_pieces_plain(p: torch.Tensor, B: int, Ls: int, Lg: int, n: int) -> torch.Tensor:
@@ -471,24 +685,45 @@ def join_pieces_plain(p: torch.Tensor, B: int, Ls: int, Lg: int, n: int) -> torc
     return torch.where(j < n, a, zero) ^ torch.where(j >= 1, c, zero)
 
 
-def route_join_plain(p: torch.Tensor, B: int, steps, fuse: "int | None" = None) -> torch.Tensor:
-    """R2's launches (:func:`join_launches`) in torch, each by its formula:
-    a fused launch gathers each node's subtree (rows ``r + R s``) and joins
-    its levels in that local order, as the kernel's blocks do in shared
-    memory; a level alone and the chunk step join whole rows.  The same
-    product as :func:`_join_levels`; no path calls it."""
+def _ascent_plain(p: torch.Tensor, rows0: int, h, lo, top: int, tile: int) -> torch.Tensor:
+    """R2's ascent in its order: for all nodes of depth ``top`` at once,
+    tile after tile of each node's run (``3^tile`` leaf products), the
+    tile's levels joined by formula, then its product accumulated up the
+    levels above it (:func:`_accumulate`), a level's product going up when
+    its third child is in."""
+    k = len(h)
+    nodes, tiles = rows0 * 3 ** top, 3 ** (k - top - tile)
+    run = p.view(nodes, tiles, 3 ** tile, 2 * h[-1])
+    accs: dict = {}
+    for u in range(tiles):
+        cur = run[:, u]
+        for j in range(k - 1, k - tile - 1, -1):
+            c = cur.reshape(nodes, -1, 3, 2 * h[j])
+            cur = _join_terms(c[:, :, 0], c[:, :, 1], c[:, :, 2], h[j], lo[j])
+        child, v = cur[:, 0], u
+        for i in range(k - tile - 1, top - 1, -1):
+            t, v = v % 3, v // 3
+            accs[i] = child = _accumulate(accs.get(i), child, t, h[i], lo[i])
+            if t != 2:
+                break
+    return child if top == k - tile else accs[top]
+
+
+def route_join_plain(p: torch.Tensor, B: int, steps, launches=None) -> torch.Tensor:
+    """R2's launches (default :func:`join_launches`) in torch, each in its
+    own order: the ascent by :func:`_ascent_plain`, a level alone and the
+    chunk step by their formulas on whole rows.  The same product as
+    :func:`_join_levels`; no path calls it."""
     n, h, lo = _levels(steps)
     rows0 = B * max(n, 1)
-    for top, bottom in join_launches(steps, fuse):
+    for top, tile, *_ in join_launches(B, steps) if launches is None else launches:
         if top < 0:
             p = join_pieces_plain(p, B, steps[0][1], steps[0][2], n)
-            continue
-        R = rows0 * 3 ** top
-        cur = p.view(3 ** (bottom - top + 1), R, 2 * h[bottom]).transpose(0, 1)
-        for lvl in range(bottom, top - 1, -1):
-            M = cur.shape[1] // 3
-            cur = _join_terms(cur[:, :M], cur[:, M : 2 * M], cur[:, 2 * M :], h[lvl], lo[lvl])
-        p = cur.reshape(R, lo[top])
+        elif tile:
+            p = _ascent_plain(p, rows0, h, lo, top, tile)
+        else:
+            c = p.view(rows0 * 3 ** top, 3, 2 * h[top])
+            p = _join_terms(c[:, 0], c[:, 1], c[:, 2], h[top], lo[top])
     return p
 
 

@@ -87,16 +87,17 @@ def test_route_matches_the_direct_launch(monkeypatch, B, La, Lb, kmin):
 
 ROUTE_SHAPES = [(64, 64, 64, 64), (9, 130, 129, 33), (2, 257, 256, 2), (4, 1000, 1000, 100),
                 (5, 100, 400, 50), (3, 48, 1000, 16), (7, 400, 100, 64)]
+# the paths' routes at their real rows: the u16 product's busiest, the u32
+# product's widest at d = 2432 and at d = 5888, and one whose leaves are 37
+# limbs wide (w % 4 != 0: the scalar path, and R2 without bulk copies)
+PATH_ROUTES = [(512, 1536, 8192, 64), (8, 8192, 98304, 64), (8, 16384, 262144, 64),
+               (4608, 73, 192, 64)]
 
 
-@pytest.mark.parametrize("B,La,Lb,kmin", ROUTE_SHAPES)
-def test_route_kernels_match_plain(B, La, Lb, kmin):
-    """R1 against the level-by-level split and its one-shot index map; R2,
-    fused as far as shared memory allows and one launch a level, against
-    the level-by-level join and its formula mirror; on the card."""
-    a, b = on_card((B, La), 41), on_card((B, Lb), 42)
-    small, big = (a, b) if La <= Lb else (b, a)
-    steps = k.route_plan(small.shape[1], big.shape[1], kmin)
+def check_route_kernels(small, big, B, steps, plans):
+    """R1 against the level-by-level split and its design's mirror, once
+    launched; R2 through each plan (every plan the kernel takes where its
+    ascent fits) against the level-by-level join and the plan's mirror."""
     before = k.route_split.launches
     leaf_s, leaf_g = k.route_split(small, big, steps)
     torch.cuda.synchronize()
@@ -105,16 +106,96 @@ def test_route_kernels_match_plain(B, La, Lb, kmin):
     assert torch.equal(leaf_s, want_s) and torch.equal(leaf_g, want_g)
     mirror_s, mirror_g = k.route_split_plain(small, big, steps)
     assert torch.equal(leaf_s, mirror_s) and torch.equal(leaf_g, mirror_g)
+    del want_s, want_g, mirror_s, mirror_g
     p = k.clmul_flat(leaf_s, leaf_g)
+    del leaf_s, leaf_g
     want = k._join_levels(p.clone(), B, steps)
-    for fuse in (None, 1, 2):
+    _, h, lo = k._levels(steps)
+    for plan in plans:
+        top, tile, group = plan[0]
+        if tile and k.ascent_layout(h, lo, top, tile, group)["words"] > k.JOIN_SMEM_WORDS:
+            continue
         before = k.route_join.launches
-        got = k.route_join(p, B, steps, fuse)
+        got = k._route_join(p, B, steps, plan)
         torch.cuda.synchronize()
-        assert k.route_join.launches == before + len(k.join_launches(steps, fuse))
-        assert torch.equal(got, want)
-        assert torch.equal(got, k.route_join_plain(p, B, steps, fuse))
+        assert k.route_join.launches == before + len(plan)
+        assert torch.equal(got, want), plan
+        assert torch.equal(got, k.route_join_plain(p, B, steps, plan)), plan
+    return p, want
+
+
+@pytest.mark.parametrize("B,La,Lb,kmin", ROUTE_SHAPES)
+def test_route_kernels_match_plain(B, La, Lb, kmin):
+    """R1 against the level-by-level split and its design's mirror; R2,
+    through its launch plan and every other plan it takes, against the
+    level-by-level join and the plan's mirror; on the card."""
+    a, b = on_card((B, La), 41), on_card((B, Lb), 42)
+    small, big = (a, b) if La <= Lb else (b, a)
+    steps = k.route_plan(small.shape[1], big.shape[1], kmin)
+    plans = [k.join_launches(B, steps)] + k.join_plans(B, steps)
+    _, want = check_route_kernels(small, big, B, steps, plans)
+    assert torch.equal(k.route_join(k.clmul_flat(*k.route_split(small, big, steps)), B, steps), want)
     assert torch.equal(want, k.clmul_plain(a, b))
+
+
+@pytest.mark.parametrize("B,Ls,Lg,kmin", PATH_ROUTES)
+def test_route_kernels_match_plain_at_the_paths_routes(B, Ls, Lg, kmin):
+    """The paths' routes at their real rows: R1 and R2 (the launch plan, and
+    one launch a level) against the plain versions, limb for limb."""
+    small, big = on_card((B, Ls), 53), on_card((B, Lg), 54)
+    steps = k.route_plan(Ls, Lg, kmin)
+    n, h, _ = k._levels(steps)
+    one_a_level = [[(i, 0, 0) for i in range(len(h) - 1, -1, -1)] + ([(-1, 0, 0)] if n else [])]
+    check_route_kernels(small, big, B, steps, [k.join_launches(B, steps)] + one_a_level)
+
+
+@pytest.mark.parametrize("B,Ls,Lg,kmin", [(64, 64, 64, 64), (4, 1000, 1000, 100), (6, 130, 300, 33),
+                                          (512, 1536, 8192, 64)])
+def test_route_kernels_take_unaligned_rows(B, Ls, Lg, kmin):
+    """Operands and products that start 4 bytes past a 16-byte boundary
+    (views into a larger buffer): no 16-byte access or bulk copy, the same
+    limbs."""
+    steps = k.route_plan(Ls, Lg, kmin)
+    buf = on_card((B * (Ls + Lg) + 2,), 55)
+    small = buf[1 : 1 + B * Ls].view(B, Ls)
+    big = buf[1 + B * Ls : 1 + B * (Ls + Lg)].view(B, Lg)
+    assert small.data_ptr() % 16 and big.data_ptr() % 16
+    leaf_s, leaf_g = k.route_split(small, big, steps)
+    want_s, want_g = k._split_levels(small, big, steps)
+    torch.cuda.synchronize()
+    assert torch.equal(leaf_s, want_s) and torch.equal(leaf_g, want_g)
+    p = k.clmul_flat(leaf_s, leaf_g)
+    held = torch.empty(p.numel() + 1, dtype=p.dtype, device=p.device)
+    shifted = held[1:].view(p.shape)
+    shifted.copy_(p)
+    assert shifted.data_ptr() % 16
+    got = k.route_join(shifted, B, steps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k._join_levels(p, B, steps))
+
+
+def test_route_join_refuses_a_plan_past_its_budget():
+    """An ascent whose layout passes the card's shared memory a block is
+    refused by the kernel's entry, and the wrapper raises; so is a layout
+    whose region passes its own words."""
+    B, Ls, Lg = 1, 32768, 32768
+    steps = k.route_plan(Ls, Lg, 64)
+    _, h, lo = k._levels(steps)
+    p = k.clmul_flat(*k.route_split(on_card((B, Ls), 56), on_card((B, Lg), 57), steps))
+    # the opt-in limit a block (227 KB on the H100)
+    props = torch.cuda.get_device_properties(0)
+    optin = getattr(props, "shared_memory_per_block_optin", 227 * 1024)
+    assert k.ascent_layout(h, lo, 0, 4, 1)["words"] * 4 > optin
+    with pytest.raises(RuntimeError):
+        k._route_join(p, B, steps, [(0, 4, 1)])
+    plan = k.join_launches(B, steps)
+    good = list(k._launch_words(h, lo, plan[0]))
+    bad = good[:4] + [good[4] - 4] + good[5:]  # the last region now passes the words
+    out = torch.empty((3 ** plan[0][0], lo[plan[0][0]]), dtype=torch.int32, device="cuda")
+    err = k._route_kernel("hm_route_join")(p.data_ptr(), out.data_ptr(), k._plan_words(B, steps),
+                                           k._words(bad), len(bad),
+                                           torch.cuda.current_stream().cuda_stream)
+    assert err != 0
 
 
 @pytest.mark.parametrize("B,La,Lb,kmin", ROUTE_SHAPES)
@@ -131,7 +212,7 @@ def test_routed_product_launches_r1_k1_and_r2_only(monkeypatch, B, La, Lb, kmin)
     a, b = on_card((B, La), 43), on_card((B, Lb), 44)
     monkeypatch.setenv(k.KARATSUBA_MIN_ENV, str(kmin))
     steps = k.route_plan(min(La, Lb), max(La, Lb), kmin)
-    J = len(k.join_launches(steps))
+    J = len(k.join_launches(B, steps))
     k.clmul(a, b)
     torch.cuda.synchronize()
     most = Counter()
@@ -164,7 +245,7 @@ def test_routed_product_replays_in_a_cuda_graph(monkeypatch):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = k.clmul(a, b)
-    J = len(k.join_launches(k.route_plan(130, 300, 33)))
+    J = len(k.join_launches(6, k.route_plan(130, 300, 33)))
     before = (k.route_split.launches, k.clmul_flat.launches, k.route_join.launches)
     for seed in (47, 48, 49):
         a.copy_(on_card(a.shape, seed))

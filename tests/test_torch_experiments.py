@@ -120,6 +120,75 @@ def test_mul64_product_decrypts_right():
     assert exp_mul64.PARAMS == (13440, 128, 1, 128)
 
 
+def test_route_experiment_splits_records_by_kernel_and_needs_the_card():
+    """``exp_route`` splits device records into K1, R1, R2 (every
+    ``route_join`` launch: the ascent, a level alone, the chunk step) and
+    the rest, and refuses to measure without a card; its routes are the
+    paths' own (chip_smoke.py holds the bench's and the u64 path's widest
+    products to them)."""
+    from homomorph_tpu_torch.experiments import exp_route
+
+    records = {"clmul_comb_kernel": 3.0, "route_split_kernel": 0.5,
+               "route_join_ascent_kernel": 0.25, "route_join_level_kernel<4>": 0.125,
+               "route_join_pieces_kernel<4>": 0.0625, "elementwise_kernel": 1.0}
+    assert exp_route.by_kernel(records) == {"K1": 3.0, "R1": 0.5, "R2": 0.4375, "other": 1.0}
+    assert [r[0] for r in exp_route.ROUTES] == ["u16-busiest", "u32-widest", "d5888-widest",
+                                                "u64-widest"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            exp_route.run(log=quiet)
+
+
+def test_route_probes_edit_the_kernel_source_once_each_and_need_the_card():
+    """Each probe of ``exp_route_probe`` edits ``csrc/route.cu`` where it
+    means to (every edit matches exactly once, and the kernel it names is
+    the one it edits), an edit that matches nothing is refused, and the
+    probes are measured only on a card."""
+    from homomorph_tpu_torch.experiments import exp_route_probe as probe
+    from homomorph_tpu_torch.gf2 import cuda_build
+
+    source = (cuda_build.CSRC / "route.cu").read_text()
+    r1, r2 = source.index("- R1 --"), source.index("- R2 --")  # the sections of each kernel
+    for name, (kernel, edits) in probe.PROBES.items():
+        edited = probe.probe_source(name, source)
+        assert edited != source and edited.count("\n") == source.count("\n")
+        for old, _ in edits:
+            at = source.index(old)
+            assert (r1 < at < r2) if kernel == "R1" else at > r2
+    with pytest.raises(ValueError, match="0 matches"):
+        probe.probe_source("r1-one-term", "no kernel here")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            probe.run(log=quiet)
+
+
+def test_timer_takes_lost_traces_once_more(monkeypatch):
+    """On the card ``Timer.device_s`` takes a second set of traces where the
+    first held no device record, and raises where the second holds none
+    either; any other error raises at once."""
+    from homomorph_tpu_torch.utils import profiling
+
+    answers = []
+
+    def busy(fn, reps):
+        out = answers.pop(0)
+        if isinstance(out, Exception):
+            raise out
+        return out
+
+    monkeypatch.setattr(profiling, "device_busy", busy)
+    timer = common.Timer(torch.device("cuda"))
+    lost = RuntimeError("torch.profiler recorded no device time in 3 traces")
+    answers.extend([lost, (0.5, {"k": 1.0})])
+    assert timer.device_s(lambda: None) == (0.5, {"k": 1.0}) and not answers
+    answers.extend([lost, lost])
+    with pytest.raises(RuntimeError, match="no device time"):
+        timer.device_s(lambda: None)
+    answers.extend([RuntimeError("device_records needs a CUDA card"), (0.5, {})])
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        timer.device_s(lambda: None)
+
+
 def test_the_route_leaf_and_the_s0_rule():
     assert common.leaf_shape(8, 9, 9) == (8, 9, 9)  # below the route's threshold
     assert common.leaf_shape(2, 256, 256, kmin=64) == (2 * 27, 32, 32)  # three splits
