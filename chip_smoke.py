@@ -61,13 +61,20 @@ Phases, in order; any failure exits non-zero before the result line:
    product's widest, and the widest of the d = 5888 u32 product and of the
    u64 product (``experiments/exp_route.py``'s ``ROUTES``; phases 10e and
    10c hold their paths' widest products to them), each timed as in phase 3
-   (:func:`route_kernel_rows`);
+   (:func:`route_kernel_rows`); C1, C2 and C3 (``csrc/circuit.cu``) against
+   their plain version on random limbs at the programs the u16 product's
+   busiest level and step, the u32 product's widest, the u64 product's
+   busiest and its first level (three launches of C1) give them, and at
+   C1's stack of each product's lanes (:func:`circuit_kernel_rows`);
 7. ``torch.profiler`` traces of the checked add, the first bulk round trip,
    the u8 multiplication, the u32 ``lt`` and the u16 and u32
    multiplications: warm wall time, device time by kernel, busy share; the
-   two products' device time split into K1, R1, R2 and the rest, with
-   their device records a call, and both once more with the route's glue
-   as torch ops (:func:`torch_glue_rows`, the port before R1 and R2);
+   two products' and the add's device time split into K1, R1, R2, C1, C2,
+   C3 and the rest, with their device records a call; both products once
+   more with the route's glue as torch ops (:func:`torch_glue_rows`, the
+   port before R1 and R2), and the products and the add with the circuits'
+   glue one torch op a bit (:func:`with_per_op_glue`, the port before
+   C1-C3), whose outputs must equal the plan's limb for limb;
 9. the verify gate (``run_verification()`` in full, scaled round trip
    included), a path of its own;
 10. the decrypt masks on the card (:func:`phase_masks`, a path of its own)
@@ -115,6 +122,9 @@ Phases, in order; any failure exits non-zero before the result line:
    under keys with ``S(0) = 1`` (the u32 product's mask timed on the card),
    K1's largest and widest launches held against the plain version as in
    10c, every device-busy field a number;
+10f. the bench's u32 product (d = 5888) and the u64 product from their
+   plans against the per-op glue (limbs, bound, noise), each decrypted
+   (:func:`phase_glue`; not a path);
 11. the compiled pipelines as CUDA graphs (:func:`phase_compiled`): the u32
    add (2,048 pairs) and the u32 product (8 pairs) against eager limb for
    limb and decrypted, and the u32 add's encrypt -> add -> decrypt round
@@ -811,7 +821,8 @@ def route_case(ctx, Ls, Lg):
 
 def by_name(records, key):
     """Device ms of the records whose name holds ``key``: "clmul" (K1),
-    "route_split" (R1), "route_join" (R2)."""
+    "route_split" (R1), "route_join" (R2), "csa_level_in" (C1),
+    "csa_level_out" (C2), "ripple_step" (C3)."""
     return sum(v for name, v in records.items() if key in name)
 
 
@@ -1240,6 +1251,109 @@ def with_torch_glue(fn):
         k.clmul_rows = rows
 
 
+def with_per_op_glue(fn):
+    """``fn()`` with the circuits' glue one torch op a bit, as the port ran it
+    before C1-C3 (``circuits._csa_accumulate_per_op``, ``add_per_op``): the
+    "before" of phase 7's stages and phase 10f's reference."""
+    from homomorph_tpu_torch.models import circuits
+
+    saved = circuits._csa_accumulate, circuits.add
+    circuits._csa_accumulate, circuits.add = circuits._csa_accumulate_per_op, circuits.add_per_op
+    try:
+        return fn()
+    finally:
+        circuits._csa_accumulate, circuits.add = saved
+
+
+def same_as_per_op(ctx, label, fn):
+    """Hold ``fn()`` (a circuit from its plan) to the per-op glue's output:
+    limbs, bound and noise."""
+    torch = ctx["torch"]
+    got = fn()
+    want = with_per_op_glue(fn)
+    check(got.limbs.shape == want.limbs.shape and torch.equal(got.limbs, want.limbs)
+          and (got.bound, got.noise) == (want.bound, want.noise),
+          f"{label}: the plan's output differs from the per-op glue's")
+    log(f"[glue] {label}: {list(got.limbs.shape)}, bound {got.bound}, noise {got.noise}: "
+        "equal to the per-op glue's limb for limb")
+    return got
+
+
+#: device records of phase 7's product stages by kernel: K1, R1, R2, C1-C3
+#: (csrc/circuit.cu) and the rest
+STAGE_KERNELS = ("clmul", "route_split", "route_join", "csa_level_in", "csa_level_out",
+                 "ripple_step")
+
+
+def circuit_kernel_rows(ctx):
+    """Phase 3b: C1, C2 and C3 (``csrc/circuit.cu``) against their plain
+    version (``circuit_kernels.xor_rows_plain``, on the card) on random limbs
+    at the programs the paths give them (``experiments/exp_circuit.py``:
+    recorded on the meta device): the u16 product's busiest level and step,
+    the u32 product's (d = 2432) widest, the u64 product's busiest and its
+    first level (692 ops: three launches of C1), and C1's stack of each
+    product's lanes; each timed as in phase 3, bounded by its bytes."""
+    from homomorph_tpu_torch.experiments import exp_circuit
+
+    torch = ctx["torch"]
+    kernels = {"C1": "csa_level_in", "C2": "csa_level_out", "C3": "ripple_step",
+               "C1 stack": "csa_level_in"}
+    cases = []
+    for path, widest, label in (("u16", False, "u16-busiest"), ("u32", True, "u32-widest"),
+                                ("u64", False, "u64-busiest")):
+        for name, rec in exp_circuit.picks(path, widest).items():
+            cases.append((label + (" stack" if "stack" in name else ""), kernels[name], rec))
+    first = exp_circuit.described(next(r for r in exp_circuit.recorded_programs("u64")
+                                       if r["kernel"] == "csa_level_in"))
+    check(first["launches"] == 3, f"the u64 product's first level takes {first['launches']} "
+          "launches of C1, not 3")
+    cases.append(("u64-first-level", "csa_level_in", first))
+    rows = []
+    for seed, (label, kernel, rec) in enumerate(cases):
+        bad, err, run_kernel, run_plain = exp_circuit.kernel_case(rec, ctx["dev"], seed)
+        check(bad == 0, f"{kernel} {label}: {bad} limbs differ from the plain version")
+        shape = (f"{rec['prog'].shape[0]} ops x {rec['rows']} rows, widest {rec['width']} limbs, "
+                 f"{rec['launches']} launch(es)")
+        rows.append(dict(kernel=kernel, label=label, shape=shape, mismatches=bad,
+                         max_abs_err=err, **timed(torch, run_kernel, run_plain, plain_events=True),
+                         work=[], old_ops=0, old_rate="int32_ops", bytes=rec["bytes"],
+                         launches_per_call=rec["launches"]))
+        r = rows[-1]
+        log(f"[kernels] {kernel} {label} {shape}: mismatches {bad}, kernel {r['ms']} ms by "
+            f"{r['ms_by']} (call {r['call_ms']} ms), plain {r['plain_ms']} ms by {r['plain_by']}, "
+            f"{rec['bytes']} bytes")
+        del run_kernel, run_plain
+    torch.cuda.empty_cache()
+    return set_bounds(ctx, rows)
+
+
+def phase_glue(ctx):
+    """Phase 10f: the bench's u32 product (d = 5888, 8 pairs) and the u64
+    product (d = 13440, one pair) from their plans against the per-op glue
+    (limbs, bound, noise), each decrypted under a key with ``S(0) = 1``."""
+    import numpy as np
+
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch.experiments.common import CHECK_SEED, context
+    from homomorph_tpu_torch.models import circuits
+
+    out = {}
+    for label, params, desc, bits, n in (("d5888", (5888, 128, 1, 128), ht.U32, 32, 8),
+                                         ("u64", (13440, 128, 1, 128), ht.U64, 64, 1)):
+        c = context(params, CHECK_SEED, ctx["dev"])
+        rng = np.random.default_rng(ctx["seed"] + bits)
+        xs = [int(v) for v in rng.integers(0, 2**bits, size=n, dtype=np.uint64)]
+        ys = [int(v) for v in rng.integers(0, 2**bits, size=n, dtype=np.uint64)]
+        a, b = (c.encrypt(v, desc, batch=True) for v in (xs, ys))
+        prod = same_as_per_op(ctx, f"{label} product", lambda: circuits.mul_unsigned(a, b))
+        got = [int(v) for v in c.decrypt(prod)]
+        check(got == [x * y % 2**bits for x, y in zip(xs, ys)], f"{label} product decrypts wrong")
+        out[label] = dict(shape=list(prod.limbs.shape), bound=prod.bound, noise=prod.noise)
+        del prod, a, b, c
+        ctx["torch"].cuda.empty_cache()
+    return out
+
+
 def phase_profile(ctx, main_stats, bulk_stats, mul_stats, wide_stats):
     """Warm wall time, device time by kernel and the device's busy share of
     the checked add, the first bulk round trip, the u8 multiplication, the
@@ -1260,18 +1374,28 @@ def phase_profile(ctx, main_stats, bulk_stats, mul_stats, wide_stats):
     mc, e8a, e8b, e32a, e32b = ctx["mulcmp_inputs"]
     wc, w16a, w16b, _ = ctx["u16_inputs"]
     xc, w32a, w32b = ctx["u32_inputs"]
+    for label, fn in (("u16 product", lambda: wc.apply2(HomomorphicMultiplication, w16a, w16b)),
+                      ("u32 product", lambda: xc.apply2(HomomorphicMultiplication, w32a, w32b)),
+                      ("u32 add", lambda: c.apply2(HomomorphicAddition, ca, cb))):
+        same_as_per_op(ctx, label, fn)
     stages = {
         "mul_u16": (lambda: wc.apply2(HomomorphicMultiplication, w16a, w16b),
                     wide_stats["u16"]["mul_ms"]),
+        "mul_u16_per_op": (lambda: with_per_op_glue(
+            lambda: wc.apply2(HomomorphicMultiplication, w16a, w16b)), None),
         "mul_u16_torch_glue": (lambda: with_torch_glue(
             lambda: wc.apply2(HomomorphicMultiplication, w16a, w16b)), None),
         "mul_u32": (lambda: xc.apply2(HomomorphicMultiplication, w32a, w32b),
                     wide_stats["u32"]["mul_ms"]),
         "mul_u32_torch_glue": (lambda: with_torch_glue(
             lambda: xc.apply2(HomomorphicMultiplication, w32a, w32b)), None),
+        "mul_u32_per_op": (lambda: with_per_op_glue(
+            lambda: xc.apply2(HomomorphicMultiplication, w32a, w32b)), None),
         "mul_u8": (lambda: mc.apply2(HomomorphicMultiplication, e8a, e8b), mul_stats["mul_ms"]),
         "lt_u32": (lambda: mc.apply2(HomomorphicLessThan, e32a, e32b), mul_stats["lt_ms"]),
         "add": (lambda: c.apply2(HomomorphicAddition, ca, cb), main_stats["add_ms"]),
+        "add_per_op": (lambda: with_per_op_glue(
+            lambda: c.apply2(HomomorphicAddition, ca, cb)), None),
         "bulk_encrypt": (lambda: bc.encrypt(vals.tolist(), ht.U32, batch=True),
                          bulk_stats[0]["encrypt_ms"]),
         "bulk_decrypt": (lambda: bc.decrypt(bct), bulk_stats[0]["decrypt_ms"]),
@@ -1289,18 +1413,17 @@ def phase_profile(ctx, main_stats, bulk_stats, mul_stats, wide_stats):
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
         out[name] = dict(cold_ms=cold_ms, warm_ms=warm_ms, device_ms=dev_ms,
                          busy_share=busy, top=top)
-        if name.startswith("mul_u16") or name.startswith("mul_u32"):
-            # the product stages' device time by kernel: K1, R1, R2 and the
-            # rest (the circuit's own ops, and the torch glue where it runs)
-            split = {key: by_name(per_kernel, key) for key in ("clmul", "route_split", "route_join")}
+        if name.startswith(("mul_u16", "mul_u32", "add")):
+            # the product and add stages' device time by kernel: K1, R1, R2,
+            # C1-C3 and the rest (the circuit's own torch ops, and the torch
+            # glue where it runs)
+            split = {key: by_name(per_kernel, key) for key in STAGE_KERNELS}
             split["other"] = (dev_ms or 0.0) - sum(split.values())
             out[name].update(device_by_kernel=split if per_kernel else None,
                              device_records=device_launches(fn))
-            log(f"[profile] {name}: device by kernel {ms_text(dev_ms and split['clmul'], 3)} K1, "
-                f"{ms_text(dev_ms and split['route_split'], 3)} R1, "
-                f"{ms_text(dev_ms and split['route_join'], 3)} R2, "
-                f"{ms_text(dev_ms and split['other'], 3)} other ms; "
-                f"{out[name]['device_records']} device records a call")
+            log(f"[profile] {name}: device by kernel " + ", ".join(
+                f"{ms_text(dev_ms and split[key], 3)} {key}" for key in split)
+                + f" ms; {out[name]['device_records']} device records a call")
         log(f"[profile] {name}: cold {ms_text(cold_ms, 3)} ms, warm {warm_ms:.3f} ms wall, device "
             f"{ms_text(dev_ms, 3)} ms (busy {'not measured' if busy is None else f'{busy:.1%}'}); "
             "top: " + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
@@ -2255,6 +2378,7 @@ def main(argv=None):
     from homomorph_tpu_torch.gf2 import encrypt_kernel as enc
     from homomorph_tpu_torch.gf2 import kernels as k
     from homomorph_tpu_torch.gf2 import mask_kernel as mk
+    from homomorph_tpu_torch.models import circuit_kernels as ck
 
     dev = torch.device("cuda")
     ctx = dict(torch=torch, dev=dev, seed=SEED,
@@ -2296,7 +2420,9 @@ def main(argv=None):
         "encrypt_v1": enc.encrypt_words_mma, "encrypt_v3": enc.encrypt_sel_mma,
         "threefry": prng.random_bits, "threefry_dkey": prng.random_bits_device_key,
         "square": mk.square, "newton_step": mk.newton_step, "series_small": mk.series_small,
-        "mask_clmul": MaskK1(), "route_split": k.route_split, "route_join": k.route_join}
+        "mask_clmul": MaskK1(), "route_split": k.route_split, "route_join": k.route_join,
+        "csa_level_in": ck.csa_level_in, "csa_level_out": ck.csa_level_out,
+        "ripple_step": ck.ripple_step}
 
     def run_path(fn):
         for w in wrappers.values():
@@ -2325,6 +2451,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     rows += mul_shape_rows(ctx)
     rows += route_kernel_rows(ctx)
+    rows += circuit_kernel_rows(ctx)
     widest = widest_product(ctx)
     wide_stats["u16_thresholds"] = threshold_scan(ctx, *ctx["u16_inputs"])
     log(f"[kernels] phase 3b done in {time.perf_counter() - t0:.3f} s")
@@ -2360,6 +2487,9 @@ def main(argv=None):
     u64_stats, paths["u64"] = run_path(lambda: phase_u64(ctx))
     entry_stats, paths["entry"] = run_path(lambda: phase_entry(ctx))
     bench_stats, paths["bench"] = run_path(lambda: phase_bench(ctx))
+    t0 = time.perf_counter()
+    glue_stats = phase_glue(ctx)
+    log(f"[glue] phase done in {time.perf_counter() - t0:.3f} s")
     compiled_stats, _ = run_path(lambda: phase_compiled(ctx))
     # the compiled path's launches are those of its warm-ups and captures
     # (the counters do not move at a replay)
@@ -2371,21 +2501,23 @@ def main(argv=None):
     # which kernels each path must have run, and K2 must not run under pallas_v1
     # (every new mask starts with M3; the wider classes go on with M2, and
     # phase 10 also runs the route, M1 and K1, at every class)
-    needs = {"add": ("clmul", "encrypt", "threefry", "series_small"),
-             "mul_cmp": ("clmul", "encrypt_v1", "threefry", "series_small"),
+    circuit = ("csa_level_in", "csa_level_out", "ripple_step")
+    needs = {"add": ("clmul", "encrypt", "threefry", "series_small", "csa_level_in",
+                     "ripple_step"),
+             "mul_cmp": ("clmul", "encrypt_v1", "threefry", "series_small") + circuit,
              "exp_enc": ("encrypt", "encrypt_v1", "encrypt_v3", "threefry"),
              "wide": ("clmul", "encrypt", "threefry", "series_small", "newton_step",
-                      "route_split", "route_join"),
-             "verify": ("clmul", "encrypt", "threefry", "series_small"),
+                      "route_split", "route_join") + circuit,
+             "verify": ("clmul", "encrypt", "threefry", "series_small") + circuit,
              "masks": ("clmul", "square", "newton_step", "series_small", "mask_clmul"),
-             "mesh": ("clmul", "encrypt", "encrypt_v3", "threefry", "series_small"),
+             "mesh": ("clmul", "encrypt", "encrypt_v3", "threefry", "series_small") + circuit,
              "u64": ("clmul", "encrypt", "series_small", "newton_step", "route_split",
-                     "route_join"),
+                     "route_join") + circuit,
              "entry": ("clmul", "encrypt", "encrypt_v3", "threefry", "series_small"),
              "bench": ("clmul", "encrypt", "threefry", "series_small", "newton_step",
-                       "route_split", "route_join"),
+                       "route_split", "route_join") + circuit,
              "compiled": ("clmul", "encrypt", "encrypt_v1", "threefry_dkey", "route_split",
-                          "route_join")}
+                          "route_join") + circuit}
     for path, names in needs.items():
         for name in names:
             check(paths[path][name] > 0, f"{name} was not launched on the {path} path")
@@ -2429,6 +2561,15 @@ def main(argv=None):
                         "u16-busiest"),
         "route_join": ("homomorph_tpu_torch/csrc/route.cu", "homomorph_tpu/gf2/kernels.py:356",
                        "u16-busiest"),
+        # not Pallas kernels: the XLA XORs, pads, stacks and fits of the
+        # carry-save tree (_csa_accumulate, with _batched_clmul_pairs and
+        # _fit_bit) and of the ripples (_ripple_add_rows, add's chain)
+        "csa_level_in": ("homomorph_tpu_torch/csrc/circuit.cu",
+                         "homomorph_tpu/models/circuits.py:765", "u16-busiest"),
+        "csa_level_out": ("homomorph_tpu_torch/csrc/circuit.cu",
+                          "homomorph_tpu/models/circuits.py:765", "u16-busiest"),
+        "ripple_step": ("homomorph_tpu_torch/csrc/circuit.cu",
+                        "homomorph_tpu/models/circuits.py:844", "u16-busiest"),
     }
     kernels = []
     for name, (source, replaces, label) in meta.items():
@@ -2456,6 +2597,7 @@ def main(argv=None):
                            verify=verify_stats, masks=mask_stats,
                            mesh=mesh_stats,
                            u64=u64_stats, entry=entry_stats, bench=bench_stats,
+                           glue=glue_stats,
                            compiled=compiled_stats,
                            profiler_after_graphs=profiler_probe,
                            lt_launch_times=ctx["lt_launch_times"],

@@ -3,9 +3,10 @@
 Counterpart of ``experiments/exp_mul_roofline.py``:
 
 1. runs each stage as its own call (the partial-product tensor, each
-   compressor level's grouped clmuls, the final ripple's chain), threading
-   the bits from one stage to the next, and checks that the staged product
-   decrypts right;
+   compressor level: its C1 launch, grouped clmuls and C2 launch, the final
+   ripple's chain), threading the live tensors from one stage to the next
+   (``models/circuit_kernels.py``: ``tree_start``, ``tree_level``,
+   ``tree_ripple``), and checks that the staged product decrypts right;
 2. bounds each stage by the summed bound of the products it launched, as
    the card runs them (K1's comb at the Karatsuba route's leaf shape,
    :func:`~homomorph_tpu_torch.experiments.common.products_sol`), and takes
@@ -44,10 +45,8 @@ def run(width: str = "u16", params=None, B: "int | None" = None, seed: int = CHE
     and the parameters are inside the product's noise envelope, so every
     coefficient is checked)."""
     import homomorph_tpu_torch as ht
-    from homomorph_tpu_torch.cipher import CipheredBit
     from homomorph_tpu_torch.device import resolve
-    from homomorph_tpu_torch.gf2 import poly as gf2
-    from homomorph_tpu_torch.models import circuits, csaplan
+    from homomorph_tpu_torch.models import circuit_kernels, circuits, csaplan
 
     dev = resolve(device)
     d0, B0 = CONFIGS[width]
@@ -65,43 +64,14 @@ def run(width: str = "u16", params=None, B: "int | None" = None, seed: int = CHE
     plan = csaplan.csa_plan(n)
 
     def stage_pp():
-        return circuits._pp_bits(circuits._pp_tensor(a, b), n)
+        return circuit_kernels.tree_start(circuits._pp_bits(circuits._pp_tensor(a, b), n), plan,
+                                          a.batch_shape)
 
     def make_level(k):
-        def run_level(bits):
-            bits = dict(bits)
-            pairs = []
-            for op in plan.levels[k]:
-                x, y = bits[op.x], bits[op.y]
-                if op.z is None:
-                    bits[op.sum] = x.xor(y)
-                    if op.carry is not None:
-                        pairs.append((x, y, op.carry))
-                else:
-                    xy = x.xor(y)
-                    bits[op.sum] = xy.xor(bits[op.z])
-                    if op.carry is not None:
-                        pairs.append((x, y, ("p1", op.carry)))
-                        pairs.append((xy, bits[op.z], ("p2", op.carry)))
-            prods = circuits._batched_clmul_pairs(pairs)
-            for op in plan.levels[k]:
-                if op.carry is None:
-                    continue
-                if op.z is None:
-                    bits[op.carry] = circuits._fit_bit(prods[op.carry])
-                else:
-                    p1, p2 = prods[("p1", op.carry)], prods[("p2", op.carry)]
-                    bits[op.carry] = circuits._fit_bit(CipheredBit(
-                        gf2.xor(p1.limbs, p2.limbs), max(p1.bound, p2.bound),
-                        noise=max(p1.noise, p2.noise)))
-            return bits
+        return lambda state: circuit_kernels.tree_level(state, k)
 
-        return run_level
-
-    def stage_ripple(bits):
-        A = [bits[c[0]] if len(c) > 0 else None for c in plan.final_cols]
-        Bv = [bits[c[1]] if len(c) > 1 else None for c in plan.final_cols]
-        return circuits._ripple_add_rows(A, Bv, a.batch_shape)
+    def stage_ripple(state):
+        return circuit_kernels.tree_ripple(state)
 
     pk = peaks(dev)
     state, shapes = recorded_products(stage_pp)
@@ -114,7 +84,7 @@ def run(width: str = "u16", params=None, B: "int | None" = None, seed: int = CHE
     sol["ripple"] = products_sol(shapes, pk)
     t = Timer(dev)
     t.sync()
-    got = [int(v) for v in ctx.decrypt(ht.Ciphered.new_from_raw(out_lanes, desc))]
+    got = [int(v) for v in ctx.decrypt(out_lanes.ciphered(desc))]
     if got != [(x * y) & mask for x, y in zip(xs, ys)]:
         raise RuntimeError(f"the staged {width} product decrypts wrong on {dev}")
     log(f"\n== {width} mul roofline, B={B}, {ctx.parameters} on {dev}: the staged product "

@@ -139,7 +139,9 @@ def clmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if sharded is not None:
             return sharded
     La, Lb = a.shape[-1], b.shape[-1]
-    lead = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+    lead = a.shape[:-1]
+    if b.shape[:-1] != lead:
+        lead = torch.broadcast_shapes(lead, b.shape[:-1])
     batch = math.prod(lead)
     af = a.expand(*lead, La).reshape(batch, La).contiguous()
     bf = b.expand(*lead, Lb).reshape(batch, Lb).contiguous()

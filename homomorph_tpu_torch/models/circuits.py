@@ -20,6 +20,11 @@ tracked noise carry over unchanged:
   ripple; the reference's column accumulation (common.rs:66-163) is kept
   as the ``_ref`` oracle and as the circuit below width 4.  ``sum_many``
   and ``popcount`` run the same tree on their own plans.
+* The glue of the tree and of the ripples (sums, operand stacks, carries'
+  fits, each chain step's XORs and output lane) runs from plans as the
+  kernels C1, C2 and C3 (:mod:`.circuit_kernels`, ``csrc/circuit.cu``); the
+  per-op torch glue they replaced stays at the end of this module as the
+  tests' reference.
 * Degree-free lane remaps: ``shl``, ``shr``, ``rotl``, ``rotr`` by a
   plaintext amount; ``abs_`` and ``clamp`` are muxes over the comparator.
 
@@ -49,6 +54,7 @@ from .. import device as _device
 from ..cipher import Ciphered, CipheredBit
 from ..gf2 import kernels as gf2k
 from ..gf2 import poly as gf2
+from . import circuit_kernels as _ck
 from . import csaplan as _csaplan
 
 __all__ = [
@@ -146,20 +152,14 @@ def add_lanes(
     via the majority form ``c' = g ^ x*c`` with ``x = a ^ b``,
     ``g = a & b`` (see :func:`add`).  The final carry is dropped (wrapping
     semantics, common.rs:47-49).  ``carry_in`` seeds the chain (default:
-    trivial zero).
+    trivial zero).  Runs as the two-row ripple (:func:`_ripple_add_rows`):
+    one C1 launch, the ``g`` products grouped by widths, one C3 launch a
+    step; each lane comes back at its own width, bound and noise.
     """
     n = min(len(a), len(b))
-    xs = [a[i].xor(b[i]) for i in range(n)]
-    gs = [a[i].and_(b[i]) for i in range(n)]
-    carry: CipheredBit | None = carry_in
-    out: list[CipheredBit] = []
-    for i in range(n):
-        out.append(xs[i] if carry is None else xs[i].xor(carry))
-        if i + 1 >= n:
-            break
-        # c' = g ^ x*c; with no carry yet, c' = g exactly (x * zero = 0)
-        carry = gs[i] if carry is None else gs[i].xor(xs[i].and_(carry))
-    return out
+    if n == 0:
+        return []
+    return _ck.run_ripple(list(a[:n]), list(b[:n]), a[0].batch_shape, carry_in).bits()
 
 
 def add(a: Ciphered, b: Ciphered, carry_in: CipheredBit | None = None) -> Ciphered:
@@ -173,32 +173,49 @@ def add(a: Ciphered, b: Ciphered, carry_in: CipheredBit | None = None) -> Cipher
     Chain shape: step ``i`` multiplies the small fixed-degree ``x_i`` (kept
     at its exact width) by the growing carry (kept degree-class bucketed),
     so a u32 add runs 30 sequential carry-less multiplies after one
-    whole-tensor AND.  With ``HOMOMORPH_TPU_TORCH_CARRY_SCAN=1`` and 16 or
-    more lanes, the carries come from :func:`_affine_carry_scan` instead.
+    whole-tensor AND.  The glue runs from a plan
+    (:func:`~.circuit_kernels.run_add`): one C1 launch (the ``x`` lanes and
+    output lane 0), then one C3 launch a step, which writes its carry and
+    the next output lane straight into the stacked output.  With
+    ``HOMOMORPH_TPU_TORCH_CARRY_SCAN=1`` and 16 or more lanes, the carries
+    come from :func:`_affine_carry_scan` instead.
     """
+    a, b = a.densify(), b.densify()
+    n = len(a)
+    if not (_use_carry_scan() and n >= 16):
+        return _ck.run_add(
+            a.limbs, b.limbs, _ck.Bit(a.num_limbs, a.bound, a.noise),
+            _ck.Bit(b.num_limbs, b.bound, b.noise), carry_in,
+        ).ciphered(a.desc)
+    x_all = gate_xor(a, b)
+    g_all = gate_and(a, b)
+    x_limbs = gf2.fit_limbs(x_all.limbs, gf2.limbs_for(x_all.bound))
+    carries = _affine_carry_scan(
+        g_all.limbs[..., : n - 1, :],
+        g_all.bound,
+        x_limbs[..., : n - 1, :],
+        x_all.bound,
+        carry_in if carry_in is not None
+        else CipheredBit.zero(a.batch_shape, device=a.limbs.device),
+        g_noise=g_all.noise,
+        m_noise=x_all.noise,
+    )
+    out = [x_all[i].xor(c) for i, c in enumerate(carries)]
+    return Ciphered.new_from_raw(out, a.desc)
+
+
+def add_per_op(a: Ciphered, b: Ciphered, carry_in: CipheredBit | None = None) -> Ciphered:
+    """:func:`add`'s ripple one torch op a bit, as the port ran it before
+    C1 and C3 (the "before" that ``chip_smoke.py`` times, and the CPU
+    tests' reference for :func:`~.circuit_kernels.run_add`)."""
     a, b = a.densify(), b.densify()
     x_all = gate_xor(a, b)
     g_all = gate_and(a, b)
     x_limbs = gf2.fit_limbs(x_all.limbs, gf2.limbs_for(x_all.bound))
     x_bound = x_all.bound
     x_noise = x_all.noise
-
     n = len(a)
     carry: CipheredBit | None = carry_in
-    if _use_carry_scan() and n >= 16:
-        carries = _affine_carry_scan(
-            g_all.limbs[..., : n - 1, :],
-            g_all.bound,
-            x_limbs[..., : n - 1, :],
-            x_bound,
-            carry if carry is not None
-            else CipheredBit.zero(a.batch_shape, device=a.limbs.device),
-            g_noise=g_all.noise,
-            m_noise=x_noise,
-        )
-        out = [x_all[i].xor(c) for i, c in enumerate(carries)]
-        return Ciphered.new_from_raw(out, a.desc)
-
     xs = [x_all[i] for i in range(n)]
     gs = [g_all[i] for i in range(n)]
     out: list[CipheredBit] = []
@@ -626,25 +643,13 @@ def _batched_clmul_pairs(
     pairs: "list[tuple[CipheredBit, CipheredBit, object]]",
 ) -> "dict[object, CipheredBit]":
     """Many independent carry-less multiplies, one clmul launch per group
-    of equal (exact) operand limb widths.  Products keep their own exact
-    bounds and are not degree-class fitted: callers fit after assembly."""
-    out: dict[object, CipheredBit] = {}
-    groups: dict[tuple[int, int], list[tuple[CipheredBit, CipheredBit, object]]] = {}
-    for u, v, key in pairs:
-        groups.setdefault((u.num_limbs, v.num_limbs), []).append((u, v, key))
-    for items in groups.values():
-        if len(items) == 1:
-            u, v, key = items[0]
-            out[key] = CipheredBit(gf2k.clmul(u.limbs, v.limbs),
-                                   u.bound + v.bound, noise=u.noise + v.noise)
-            continue
-        U = torch.stack([u.limbs for u, _, _ in items], dim=-2)
-        V = torch.stack([v.limbs for _, v, _ in items], dim=-2)
-        P = gf2k.clmul(U, V)
-        for idx, (u, v, key) in enumerate(items):
-            out[key] = CipheredBit(P[..., idx, :], u.bound + v.bound,
-                                   noise=u.noise + v.noise)
-    return out
+    of equal (exact) operand limb widths, the groups' operands stacked by
+    one C1 launch (:func:`~.circuit_kernels.clmul_pairs`).  Products keep
+    their own exact bounds and are not degree-class fitted: callers fit
+    after assembly."""
+    if not pairs:
+        return {}
+    return _ck.clmul_pairs(pairs, pairs[0][0].batch_shape)
 
 
 def _fit_bit(bit: CipheredBit, *, bucketed: bool = True) -> CipheredBit:
@@ -660,136 +665,53 @@ def _csa_accumulate(
     bits: "dict[int, CipheredBit]",
     plan: "_csaplan.CsaPlan",
     batch: tuple[int, ...],
-) -> list[CipheredBit]:
+) -> "_ck.Lanes":
     """Run a static carry-save plan (models/csaplan.py) on live bits.
 
-    Each level's compressor products run as few grouped clmuls; sums are
-    XORs.  Compressors whose carry falls off column ``n-1`` skip their
-    products.  Finishes with the two-row ripple add.  Bits that no later
-    level and not the final ripple read are dropped level by level (a
-    liveness set derived from the plan), so the caching allocator can
-    reuse their memory instead of holding every level alive.  With
+    Each level is one C1 launch (every sum; every row of the level's
+    grouped clmul operands), the grouped clmuls (one launch per group of
+    equal operand widths, keyed as :func:`_batched_clmul_pairs` keys them)
+    and one C2 launch (every carry at its degree class); compressors whose
+    carry falls off column ``n-1`` skip their products.  Finishes with the
+    two-row ripple add (:func:`_ripple_add_rows`).  The launches come from
+    :func:`~.circuit_kernels.tree_plan`, made once per shape.  A level's
+    outputs share one buffer for each level at which they die, so the
+    caching allocator reuses their memory as each bit dies, as the
+    liveness set of the per-op glue did.  With
     ``HOMOMORPH_TPU_TORCH_EAGER_SYNC=1`` the card is synchronized after any
-    level whose outputs exceed 8,192 limbs.
+    level whose sums exceed 8,192 limbs.
     """
-    final_ids = {c[i] for c in plan.final_cols for i in range(min(2, len(c)))}
-    live_after: list[set] = [set(final_ids)]
-    for level in reversed(plan.levels):
-        needed = set(live_after[0])
-        for op in level:
-            needed.add(op.x)
-            needed.add(op.y)
-            if op.z is not None:
-                needed.add(op.z)
-        live_after.insert(0, needed)
-    sync = os.environ.get(EAGER_SYNC_ENV, "0") == "1"
-    if sync and _device.capturing():
-        raise RuntimeError(
-            f"{EAGER_SYNC_ENV}=1 synchronizes the card inside the operation, which a "
-            "CUDA graph capture cannot hold: unset it to compile this operation"
-        )
+    sync = None
+    if os.environ.get(EAGER_SYNC_ENV, "0") == "1":
+        if _device.capturing():
+            raise RuntimeError(
+                f"{EAGER_SYNC_ENV}=1 synchronizes the card inside the operation, which a "
+                "CUDA graph capture cannot hold: unset it to compile this operation"
+            )
 
-    for li, level in enumerate(plan.levels):
-        pairs: list[tuple[CipheredBit, CipheredBit, object]] = []
-        for op in level:
-            x, y = bits[op.x], bits[op.y]
-            if op.z is None:  # half adder
-                bits[op.sum] = x.xor(y)
-                if op.carry is not None:
-                    pairs.append((x, y, op.carry))
-            else:  # full adder: sum = x^y^z, carry = x*y ^ (x^y)*z
-                xy = x.xor(y)
-                bits[op.sum] = xy.xor(bits[op.z])
-                if op.carry is not None:
-                    pairs.append((x, y, ("p1", op.carry)))
-                    pairs.append((xy, bits[op.z], ("p2", op.carry)))
-        prods = _batched_clmul_pairs(pairs)
-        for op in level:
-            if op.carry is None:
-                continue
-            if op.z is None:
-                bits[op.carry] = _fit_bit(prods[op.carry])
-            else:
-                p1, p2 = prods[("p1", op.carry)], prods[("p2", op.carry)]
-                carry = CipheredBit(
-                    gf2.xor(p1.limbs, p2.limbs), max(p1.bound, p2.bound),
-                    noise=max(p1.noise, p2.noise),
-                )
-                bits[op.carry] = _fit_bit(carry)
-        del prods, pairs
-        keep = live_after[li + 1]
-        for bid in [k for k in bits if k not in keep]:
-            del bits[bid]
-        outs = [bits[op.sum] for op in level if op.sum in bits]
-        if sync and any(b.num_limbs > 8192 for b in outs) and outs[0].limbs.is_cuda:
-            torch.cuda.synchronize(outs[0].limbs.device)
-    A = [bits[c[0]] if len(c) > 0 else None for c in plan.final_cols]
-    B = [bits[c[1]] if len(c) > 1 else None for c in plan.final_cols]
-    return _ripple_add_rows(A, B, batch)
+        def sync(dev):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    return _ck.run_tree(bits, plan, batch, sync)
 
 
 def _ripple_add_rows(
     A: "list[CipheredBit | None]",
     B: "list[CipheredBit | None]",
     batch: tuple[int, ...],
-) -> list[CipheredBit]:
+) -> "_ck.Lanes":
     """Wrapping ripple-carry sum of two per-lane-bounded rows.
 
     The :func:`add` recurrence ``c' = g ^ x*c``, with the ``g`` products
-    grouped through :func:`_batched_clmul_pairs` because lanes carry
-    different exact bounds.  ``None`` lanes are trivial zeros and pruned
-    exactly: a single-row column has ``g = 0`` and steps ``c' = x*c``; an
-    empty column zeroes the carry (models/noise.py::_replay_csa mirrors
-    these rules)."""
-    n = len(A)
-    dev = next(bit.limbs.device for bit in A + B if bit is not None)
-    zero = CipheredBit.zero(batch, device=dev)
-    xs: list[CipheredBit | None] = []
-    gpairs: list[tuple[CipheredBit, CipheredBit, object]] = []
-    for i in range(n):
-        a_i, b_i = A[i], B[i]
-        if a_i is None and b_i is not None:
-            a_i, b_i = b_i, a_i
-        if a_i is None:
-            xs.append(None)
-        elif b_i is None:
-            xs.append(a_i)
-        else:
-            xs.append(a_i.xor(b_i))
-            if i + 1 < n:
-                gpairs.append((a_i, b_i, i))
-    gp = _batched_clmul_pairs(gpairs)
-    gs = {i: _fit_bit(p) for i, p in gp.items()}  # two-row columns only
-    out: list[CipheredBit] = []
-    carry: CipheredBit | None = None
-    for i in range(n):
-        x_i = xs[i]
-        if x_i is None:
-            out.append(carry if carry is not None else zero)
-        else:
-            out.append(x_i if carry is None else x_i.xor(carry))
-        if i + 1 >= n:
-            break
-        if x_i is None:
-            carry = None  # empty column: c' = g ^ x*c = 0
-        elif carry is None:
-            carry = gs.get(i)  # c' = g (None for single-row columns)
-        else:
-            prod = gf2k.clmul(x_i.limbs, carry.limbs)
-            g_i = gs.get(i)
-            if g_i is None:
-                nb = x_i.bound + carry.bound
-                nn = x_i.noise + carry.noise
-                Lc = gf2.bucket(gf2.limbs_for(nb))
-                carry = CipheredBit(gf2.fit_limbs(prod, Lc), nb, noise=nn)
-            else:
-                nb = max(g_i.bound, x_i.bound + carry.bound)
-                nn = max(g_i.noise, x_i.noise + carry.noise)
-                Lc = gf2.bucket(gf2.limbs_for(nb))
-                carry = CipheredBit(
-                    gf2.xor(gf2.fit_limbs(prod, Lc), g_i.limbs), nb, noise=nn
-                )
-    return out
+    grouped by widths because lanes carry different exact bounds.  ``None``
+    lanes are trivial zeros and pruned exactly: a single-row column has
+    ``g = 0`` and steps ``c' = x*c``; an empty column zeroes the carry
+    (models/noise.py::_replay_csa mirrors these rules).  One C1 launch
+    (each column's ``x``, the ``g`` operands, the lanes no carry reaches),
+    then one C3 launch a step into the stacked output
+    (:func:`~.circuit_kernels.run_ripple`)."""
+    return _ck.run_ripple(A, B, batch)
 
 
 def _mul_accumulate(
@@ -854,7 +776,7 @@ def mul_unsigned_lanes(
     pp = _pp_lanes(a, b, length)
     batch = a[0].batch_shape if length else ()
     if length >= _csaplan.TREE_MIN_WIDTH:
-        return _csa_accumulate(_pp_bits(pp, length), _csaplan.csa_plan(length), batch)
+        return _csa_accumulate(_pp_bits(pp, length), _csaplan.csa_plan(length), batch).bits()
     return _mul_accumulate(pp, length, batch)
 
 
@@ -866,11 +788,9 @@ def _pp_tensor(a: Ciphered, b: Ciphered) -> list[list[CipheredBit]]:
     bound = a.bound + b.bound
     noise = a.noise + b.noise
     prod = gf2.fit_limbs(prod, gf2.limbs_for(bound))
-    n = len(a)
-    return [
-        [CipheredBit(prod[..., i, j, :], bound, noise=noise) for j in range(n)]
-        for i in range(n)
-    ]
+    # unbind: one call a lane axis, where an index per view costs a call each
+    return [[CipheredBit(v, bound, noise=noise) for v in row.unbind(-2)]
+            for row in prod.unbind(-3)]
 
 
 def mul_unsigned(a: Ciphered, b: Ciphered) -> Ciphered:
@@ -880,9 +800,7 @@ def mul_unsigned(a: Ciphered, b: Ciphered) -> Ciphered:
     if n < _csaplan.TREE_MIN_WIDTH:
         return mul_unsigned_ref(a, b)
     pp = _pp_tensor(a, b)
-    return Ciphered.new_from_raw(
-        _csa_accumulate(_pp_bits(pp, n), _csaplan.csa_plan(n), a.batch_shape), a.desc
-    )
+    return _csa_accumulate(_pp_bits(pp, n), _csaplan.csa_plan(n), a.batch_shape).ciphered(a.desc)
 
 
 def mul_unsigned_ref(a: Ciphered, b: Ciphered) -> Ciphered:
@@ -906,7 +824,7 @@ def mul_signed_lanes(
     pp[length - 1][0] = pp[length - 1][0].not_()
     batch = a[0].batch_shape if length else ()
     if length >= _csaplan.TREE_MIN_WIDTH:
-        return _csa_accumulate(_pp_bits(pp, length), _csaplan.csa_plan(length), batch)
+        return _csa_accumulate(_pp_bits(pp, length), _csaplan.csa_plan(length), batch).bits()
     return _mul_accumulate(pp, length, batch)
 
 
@@ -919,9 +837,7 @@ def mul_signed(a: Ciphered, b: Ciphered) -> Ciphered:
     pp = _pp_tensor(a, b)
     pp[0][n - 1] = pp[0][n - 1].not_()
     pp[n - 1][0] = pp[n - 1][0].not_()
-    return Ciphered.new_from_raw(
-        _csa_accumulate(_pp_bits(pp, n), _csaplan.csa_plan(n), a.batch_shape), a.desc
-    )
+    return _csa_accumulate(_pp_bits(pp, n), _csaplan.csa_plan(n), a.batch_shape).ciphered(a.desc)
 
 
 def mul_signed_ref(a: Ciphered, b: Ciphered) -> Ciphered:
@@ -959,8 +875,7 @@ def sum_many(operands: "Sequence[Ciphered]") -> Ciphered:
         return add(ops[0], ops[1])
     k = len(ops)
     bits = {o * n + j: ops[o][j] for o in range(k) for j in range(n)}
-    lanes = _csa_accumulate(bits, _csaplan.sum_plan(n, k), ops[0].batch_shape)
-    return Ciphered.new_from_raw(lanes, ops[0].desc)
+    return _csa_accumulate(bits, _csaplan.sum_plan(n, k), ops[0].batch_shape).ciphered(ops[0].desc)
 
 
 def popcount(a: Ciphered) -> Ciphered:
@@ -973,5 +888,158 @@ def popcount(a: Ciphered) -> Ciphered:
     if n == 1:
         return a
     bits = {j: a[j] for j in range(n)}
-    lanes = _csa_accumulate(bits, _csaplan.popcount_plan(n), a.batch_shape)
-    return Ciphered.new_from_raw(lanes, a.desc)
+    return _csa_accumulate(bits, _csaplan.popcount_plan(n), a.batch_shape).ciphered(a.desc)
+
+
+# --------------------------------------------------------------------------
+# The per-op glue that C1-C3 replaced: the "before" that chip_smoke.py
+# times (patched in for a stage), and the CPU tests' reference for the plan
+# --------------------------------------------------------------------------
+
+
+def _batched_clmul_pairs_per_op(
+    pairs: "list[tuple[CipheredBit, CipheredBit, object]]",
+) -> "dict[object, CipheredBit]":
+    """:func:`_batched_clmul_pairs` with the operands stacked by
+    ``torch.stack`` (the per-op glue)."""
+    out: dict[object, CipheredBit] = {}
+    groups: dict[tuple[int, int], list[tuple[CipheredBit, CipheredBit, object]]] = {}
+    for u, v, key in pairs:
+        groups.setdefault((u.num_limbs, v.num_limbs), []).append((u, v, key))
+    for items in groups.values():
+        if len(items) == 1:
+            u, v, key = items[0]
+            out[key] = CipheredBit(gf2k.clmul(u.limbs, v.limbs),
+                                   u.bound + v.bound, noise=u.noise + v.noise)
+            continue
+        U = torch.stack([u.limbs for u, _, _ in items], dim=-2)
+        V = torch.stack([v.limbs for _, v, _ in items], dim=-2)
+        P = gf2k.clmul(U, V)
+        for idx, (u, v, key) in enumerate(items):
+            out[key] = CipheredBit(P[..., idx, :], u.bound + v.bound,
+                                   noise=u.noise + v.noise)
+    return out
+
+
+def _csa_accumulate_per_op(
+    bits: "dict[int, CipheredBit]",
+    plan: "_csaplan.CsaPlan",
+    batch: tuple[int, ...],
+) -> list[CipheredBit]:
+    """:func:`_csa_accumulate` one torch op a bit, as the port ran it
+    before C1-C3: each level's sums as XORs, its products grouped
+    (:func:`_batched_clmul_pairs_per_op`), each carry fitted
+    (:func:`_fit_bit`), then :func:`_ripple_add_rows_per_op` and the
+    lanes padded and stacked.  The "before" that ``chip_smoke.py`` times,
+    and the CPU tests' reference for the plan."""
+    final_ids = {c[i] for c in plan.final_cols for i in range(min(2, len(c)))}
+    live_after: list[set] = [set(final_ids)]
+    for level in reversed(plan.levels):
+        needed = set(live_after[0])
+        for op in level:
+            needed.add(op.x)
+            needed.add(op.y)
+            if op.z is not None:
+                needed.add(op.z)
+        live_after.insert(0, needed)
+    sync = os.environ.get(EAGER_SYNC_ENV, "0") == "1"
+    if sync and _device.capturing():
+        raise RuntimeError(
+            f"{EAGER_SYNC_ENV}=1 synchronizes the card inside the operation, which a "
+            "CUDA graph capture cannot hold: unset it to compile this operation"
+        )
+
+    for li, level in enumerate(plan.levels):
+        pairs: list[tuple[CipheredBit, CipheredBit, object]] = []
+        for op in level:
+            x, y = bits[op.x], bits[op.y]
+            if op.z is None:  # half adder
+                bits[op.sum] = x.xor(y)
+                if op.carry is not None:
+                    pairs.append((x, y, op.carry))
+            else:  # full adder: sum = x^y^z, carry = x*y ^ (x^y)*z
+                xy = x.xor(y)
+                bits[op.sum] = xy.xor(bits[op.z])
+                if op.carry is not None:
+                    pairs.append((x, y, ("p1", op.carry)))
+                    pairs.append((xy, bits[op.z], ("p2", op.carry)))
+        prods = _batched_clmul_pairs_per_op(pairs)
+        for op in level:
+            if op.carry is None:
+                continue
+            if op.z is None:
+                bits[op.carry] = _fit_bit(prods[op.carry])
+            else:
+                p1, p2 = prods[("p1", op.carry)], prods[("p2", op.carry)]
+                carry = CipheredBit(
+                    gf2.xor(p1.limbs, p2.limbs), max(p1.bound, p2.bound),
+                    noise=max(p1.noise, p2.noise),
+                )
+                bits[op.carry] = _fit_bit(carry)
+        del prods, pairs
+        keep = live_after[li + 1]
+        for bid in [k for k in bits if k not in keep]:
+            del bits[bid]
+        outs = [bits[op.sum] for op in level if op.sum in bits]
+        if sync and any(b.num_limbs > 8192 for b in outs) and outs[0].limbs.is_cuda:
+            torch.cuda.synchronize(outs[0].limbs.device)
+    A = [bits[c[0]] if len(c) > 0 else None for c in plan.final_cols]
+    B = [bits[c[1]] if len(c) > 1 else None for c in plan.final_cols]
+    return _ck.Lanes.stack(_ripple_add_rows_per_op(A, B, batch))
+
+
+def _ripple_add_rows_per_op(
+    A: "list[CipheredBit | None]",
+    B: "list[CipheredBit | None]",
+    batch: tuple[int, ...],
+) -> list[CipheredBit]:
+    """:func:`_ripple_add_rows` one torch op a bit (the per-op glue)."""
+    n = len(A)
+    dev = next(bit.limbs.device for bit in A + B if bit is not None)
+    zero = CipheredBit.zero(batch, device=dev)
+    xs: list[CipheredBit | None] = []
+    gpairs: list[tuple[CipheredBit, CipheredBit, object]] = []
+    for i in range(n):
+        a_i, b_i = A[i], B[i]
+        if a_i is None and b_i is not None:
+            a_i, b_i = b_i, a_i
+        if a_i is None:
+            xs.append(None)
+        elif b_i is None:
+            xs.append(a_i)
+        else:
+            xs.append(a_i.xor(b_i))
+            if i + 1 < n:
+                gpairs.append((a_i, b_i, i))
+    gp = _batched_clmul_pairs_per_op(gpairs)
+    gs = {i: _fit_bit(p) for i, p in gp.items()}  # two-row columns only
+    out: list[CipheredBit] = []
+    carry: CipheredBit | None = None
+    for i in range(n):
+        x_i = xs[i]
+        if x_i is None:
+            out.append(carry if carry is not None else zero)
+        else:
+            out.append(x_i if carry is None else x_i.xor(carry))
+        if i + 1 >= n:
+            break
+        if x_i is None:
+            carry = None  # empty column: c' = g ^ x*c = 0
+        elif carry is None:
+            carry = gs.get(i)  # c' = g (None for single-row columns)
+        else:
+            prod = gf2k.clmul(x_i.limbs, carry.limbs)
+            g_i = gs.get(i)
+            if g_i is None:
+                nb = x_i.bound + carry.bound
+                nn = x_i.noise + carry.noise
+                Lc = gf2.bucket(gf2.limbs_for(nb))
+                carry = CipheredBit(gf2.fit_limbs(prod, Lc), nb, noise=nn)
+            else:
+                nb = max(g_i.bound, x_i.bound + carry.bound)
+                nn = max(g_i.noise, x_i.noise + carry.noise)
+                Lc = gf2.bucket(gf2.limbs_for(nb))
+                carry = CipheredBit(
+                    gf2.xor(gf2.fit_limbs(prod, Lc), g_i.limbs), nb, noise=nn
+                )
+    return out

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1, R1, R2, K2, K3, X1, T1, M1, M2, M3) against their
-plain torch versions (and K1 and K2 against the torch mirrors of their
+"""The port's CUDA kernels (K1, R1, R2, K2, K3, X1, T1, M1, M2, M3, C1, C2, C3)
+against their plain torch versions (and K1 and K2 against the torch mirrors of their
 designs), on the card.
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
@@ -961,3 +961,115 @@ def test_masks_through_every_plan_on_the_card():
             assert np.array_equal(gf2.to_numpy(w), want), (d, n_limbs, plan)
             if all(kind == "M3" for kind, _ in plan):
                 assert mk.series_small.launches == before + 1
+
+
+# -- C1, C2, C3: the circuits' glue (csrc/circuit.cu) -------------------------
+
+
+def circuit_wrapper(rec):
+    from homomorph_tpu_torch.models import circuit_kernels as ck
+
+    return getattr(ck, rec["kernel"])
+
+
+@pytest.mark.parametrize("path,widest,name", [
+    (path, widest, name) for path, widest in (("u16", False), ("u32", True), ("u64", False))
+    for name in ("C1", "C2", "C3", "C1 stack")] + [("add", False, "C1"), ("add", False, "C3")])
+def test_circuit_kernels_match_plain_at_the_paths_programs(path, widest, name):
+    """C1, C2 and C3 at the programs of the u16 product's busiest level and
+    step, the u32 product's (d = 2432) widest, the u64 product's busiest and
+    the u32 add's, on random limbs: every tensor equal to the plain
+    version's, one launch counted for each the program takes."""
+    from homomorph_tpu_torch.experiments import exp_circuit
+
+    on_card((1,), 0)
+    rec = exp_circuit.picks(path, widest)[name]
+    wrapper = circuit_wrapper(rec)
+    before = wrapper.launches
+    bad, err, _, _ = exp_circuit.kernel_case(rec, "cuda", seed=len(name))
+    assert (bad, err) == (0, 0)
+    assert wrapper.launches == before + rec["launches"]
+
+
+def test_a_level_split_across_launches_on_card():
+    """The u64 product's first level: 692 ops, three launches of C1 (240 ops
+    a launch), equal to the plain version; its carries two launches of C2."""
+    from homomorph_tpu_torch.experiments import exp_circuit
+
+    on_card((1,), 0)
+    recs = exp_circuit.recorded_programs("u64")
+    for kernel, launches in (("csa_level_in", 3), ("csa_level_out", 2)):
+        rec = exp_circuit.described(next(r for r in recs if r["kernel"] == kernel))
+        assert rec["launches"] == launches
+        wrapper = circuit_wrapper(rec)
+        before = wrapper.launches
+        bad, _, _, _ = exp_circuit.kernel_case(rec, "cuda", seed=launches)
+        assert bad == 0
+        assert wrapper.launches == before + launches
+
+
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_circuit_kernels_take_unaligned_rows(shift):
+    """The u16 product's busiest level with every slot's tensor starting
+    ``shift`` limbs into a buffer (no 16-byte row starts)."""
+    from homomorph_tpu_torch.experiments import exp_circuit
+    from homomorph_tpu_torch.models import circuit_kernels as ck
+
+    on_card((1,), 0)
+    rec = exp_circuit.picks("u16")["C1"]
+    base = exp_circuit.slot_tensors([e + shift for e in rec["extents"]], "cuda", 7)
+    got = [t[shift:] for t in base]
+    want = [t.cpu() for t in got]
+    ck.csa_level_in(rec["prog"], got, rec["rows"])
+    ck.csa_level_in(rec["prog"], want, rec["rows"])
+    torch.cuda.synchronize()
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+def test_circuit_wrappers_refuse_on_card():
+    from homomorph_tpu_torch.models import circuit_kernels as ck
+
+    on_card((1,), 0)
+    prog = np.array([[0, 0, 6, 3, 0, 10, 6, 3, 1, 0, 4, 4, 3]], dtype=np.int64)
+    t = [torch.arange(20, dtype=torch.int32, device="cuda"),
+         torch.zeros(8, dtype=torch.int32, device="cuda")]
+    with pytest.raises(TypeError):
+        ck.csa_level_out(prog, [t[0].to(torch.int64), t[1]], 2)
+    with pytest.raises(ValueError):
+        ck.csa_level_out(prog, [t[0], t[1].cpu()], 2)
+    with pytest.raises(ValueError):  # a destination past its tensor
+        ck.csa_level_out(prog, [t[0], t[1][:7]], 2)
+    ck.csa_level_out(prog, t, 2)
+    torch.cuda.synchronize()
+    assert t[1].tolist() == [10, 10, 14, 0, 22, 22, 26, 0]
+
+
+def test_compiled_u32_product_equals_eager_under_a_graph():
+    """The u32 product at d = 2432 captured as a CUDA graph (the launches'
+    pointers inside the graph's pool) equals eager limb for limb on new
+    inputs of the same shape, and both equal the per-op glue's."""
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch.experiments.common import CHECK_SEED, context
+    from homomorph_tpu_torch.models import HomomorphicMultiplication, circuits
+    from homomorph_tpu_torch.models.compiled import compile_op2
+
+    on_card((1,), 0)
+    ctx = context((2432, 128, 1, 128), CHECK_SEED, "cuda")
+    fn = compile_op2(HomomorphicMultiplication, ht.U32, ctx.parameters.pk_degree)
+    rng = np.random.default_rng(8)
+    for _ in range(2):
+        xs = [int(v) for v in rng.integers(0, 2**32, size=4, dtype=np.uint64)]
+        ys = [int(v) for v in rng.integers(0, 2**32, size=4, dtype=np.uint64)]
+        a, b = ctx.encrypt(xs, ht.U32, batch=True), ctx.encrypt(ys, ht.U32, batch=True)
+        got, want = fn(a, b), HomomorphicMultiplication.unsafe_apply(a, b)
+        saved = circuits._csa_accumulate
+        circuits._csa_accumulate = circuits._csa_accumulate_per_op
+        try:
+            per_op = HomomorphicMultiplication.unsafe_apply(a, b)
+        finally:
+            circuits._csa_accumulate = saved
+        for other in (want, per_op):
+            assert torch.equal(got.limbs, other.limbs)
+            assert (got.bound, got.noise) == (other.bound, other.noise)
+        assert [int(v) for v in ctx.decrypt(got)] == [x * y % 2**32 for x, y in zip(xs, ys)]
+    assert fn.graphed.graphs == 1
