@@ -159,7 +159,6 @@ SEED = 1234  # keys, plaintexts and selection words all derive from it
 
 # the peaks and the bounds' work counts live in the port (fails outside a checkout)
 sys.path.insert(0, ROOT)
-from homomorph_tpu_torch.gf2 import mask_kernel  # noqa: E402
 from homomorph_tpu_torch.experiments.common import (  # noqa: E402
     comb_pairs,
     leaf_shape,
@@ -168,6 +167,7 @@ from homomorph_tpu_torch.experiments.common import (  # noqa: E402
     recorded_products,
 )
 from homomorph_tpu_torch.utils.profiling import (  # noqa: E402
+    counters,
     SQUARE_OPS_PER_LIMB,
     THREEFRY_ALU_OPS_PER_WORD,
     bound,
@@ -872,9 +872,9 @@ def wide_mul(ctx, ht, name, params, n, desc, bits, direct_rows, seed):
     req = Mul.requirement_for(ea, eb)
     check(req * params.delta <= params.d, f"{name}: requirement {req} above d/delta")
     torch.cuda.reset_peak_memory_stats()
-    before = k.clmul_flat.launches
+    before = counters["K1"]
     (prod, mul_ms), shapes = recorded_products(lambda: stage(torch, lambda: c.apply2(Mul, ea, eb)))
-    launches = k.clmul_flat.launches - before
+    launches = counters["K1"] - before
     peak = torch.cuda.max_memory_allocated() / 1e9
     sk = c.get_secret_key()
     _, mask_ms = stage(torch, lambda: sk.decrypt_mask(prod.num_limbs))
@@ -886,10 +886,10 @@ def wide_mul(ctx, ht, name, params, n, desc, bits, direct_rows, seed):
     r = direct_rows
     da = ht.Ciphered(ea.limbs[:r], ea.bound, desc, noise=ea.noise)
     db = ht.Ciphered(eb.limbs[:r], eb.bound, desc, noise=eb.noise)
-    before = k.clmul_flat.launches
+    before = counters["K1"]
     direct, direct_ms = with_env(k.KARATSUBA_MIN_ENV, 1 << 30,
                                  lambda: stage(torch, lambda: c.apply2(Mul, da, db)))
-    direct_launches = k.clmul_flat.launches - before
+    direct_launches = counters["K1"] - before
     check(direct.limbs.shape == prod.limbs[:r].shape
           and bool((direct.limbs == prod.limbs[:r]).all())
           and (direct.bound, direct.noise) == (prod.bound, prod.noise),
@@ -1039,10 +1039,10 @@ def phase_wide(ctx):
     # the u32 add through the carry scan, against the ripple's polynomials
     xs = np.array(c.decrypt(ca).tolist(), dtype=np.uint64)
     ys = np.array(c.decrypt(cb).tolist(), dtype=np.uint64)
-    before = k.clmul_flat.launches
+    before = counters["K1"]
     scan, scan_ms = with_env(circuits.CARRY_SCAN_ENV, "1", lambda: stage(
         torch, lambda: c.apply2(HomomorphicAddition, ca, cb)))
-    scan_launches = k.clmul_flat.launches - before
+    scan_launches = counters["K1"] - before
     ripple, ripple_ms = stage(torch, lambda: c.apply2(HomomorphicAddition, ca, cb))
     got = np.array(c.decrypt(scan).tolist(), dtype=np.uint64)
     check(np.array_equal(got, (xs + ys) % (1 << 32)), "scanned u32 add wrong")
@@ -1769,8 +1769,8 @@ def mask_kernel_rows(ctx, keys):
 #: K1's launches on the paths before the mesh phase, as counted before the
 #: limb-mesh hook existed in the clmul dispatcher (PERF.md section 6), and
 #: before the decrypt masks moved to the card: the mask route's own K1
-#: launches (``mask_kernel.series_inverse.k1_launches``, the ``mask_clmul``
-#: count of each path) are taken off each path's K1 count before the check
+#: launches (the counter ``mask.K1``, the ``mask_clmul`` count of each
+#: path) are taken off each path's K1 count before the check
 K1_EARLIER_PATHS = {"add": 36, "mul_cmp": 47, "exp_enc": 1, "wide": 429, "verify": 39,
                     "compiled": 378}
 
@@ -1785,7 +1785,7 @@ def mesh_partials(ctx, sel, pk_limbs, shape, L):
     each on the planes of its shard's key rows and a zero plaintext, as
     ``sharded_encrypt_bits`` launches them.  Held one by one, so that a
     fault that is the same in every shard cannot cancel in the XOR of the
-    partials.  The launches made here are taken back off X1's count.
+    partials.  The launches made here are taken back off the counters.
     Returns the mismatches over both shards."""
     from homomorph_tpu_torch.gf2 import encrypt_kernel as enc
     from homomorph_tpu_torch.gf2 import poly as gf2
@@ -1793,21 +1793,20 @@ def mesh_partials(ctx, sel, pk_limbs, shape, L):
     torch = ctx["torch"]
     (n_data, n_tau), (B, n, tau) = shape, sel.shape
     blk, ts = B // n_data, tau // n_tau
-    launches = enc.encrypt_sel_mma.launches
     zero = torch.zeros(blk * n, dtype=gf2.LIMB_DTYPE, device=sel.device)
     total = 0
-    for j in sorted({0, n_tau - 1}):
-        rows = sel[:blk, :, j * ts:(j + 1) * ts].reshape(blk * n, ts).contiguous()
-        planes = enc.pk_planes(enc.pk_columns(pk_limbs[j * ts:(j + 1) * ts].contiguous()))
-        bad, err = compare(torch, enc.encrypt_sel_mma(rows, planes, zero, L),
-                           enc.encrypt_sel_plain(rows, planes, zero, L))
-        check(bad == 0, f"mesh {shape}: X1's partial of tau shard {j} ({blk * n} rows, {ts} key "
-                        f"rows): {bad} limbs differ from its plain version")
-        total += bad
-        if j == 0:  # every shard's partial has this shape: time it once
-            mesh_x1_row(ctx, shape, rows, planes, zero, L, bad, err)
-        del rows, planes
-    enc.encrypt_sel_mma.launches = launches
+    with counters.aside():
+        for j in sorted({0, n_tau - 1}):
+            rows = sel[:blk, :, j * ts:(j + 1) * ts].reshape(blk * n, ts).contiguous()
+            planes = enc.pk_planes(enc.pk_columns(pk_limbs[j * ts:(j + 1) * ts].contiguous()))
+            bad, err = compare(torch, enc.encrypt_sel_mma(rows, planes, zero, L),
+                               enc.encrypt_sel_plain(rows, planes, zero, L))
+            check(bad == 0, f"mesh {shape}: X1's partial of tau shard {j} ({blk * n} rows, "
+                            f"{ts} key rows): {bad} limbs differ from its plain version")
+            total += bad
+            if j == 0:  # every shard's partial has this shape: time it once
+                mesh_x1_row(ctx, shape, rows, planes, zero, L, bad, err)
+            del rows, planes
     return total
 
 
@@ -1876,10 +1875,10 @@ def mesh_bulk(ctx, params, n_bits, shapes, seed):
         def run():
             return bulk.sharded_encrypt_bits(cfg, sel, pk.limbs, plain, L)
 
-        x1 = enc.encrypt_sel_mma.launches
+        x1 = counters["X1"]
         ppermute.local_bytes = ppermute.cross_bytes = 0
         out, wall = stage(torch, run)
-        x1 = enc.encrypt_sel_mma.launches - x1
+        x1 = counters["X1"] - x1
         moved = (ppermute.local_bytes, ppermute.cross_bytes)
         bad, _ = compare(torch, out.view(-1, L), dense)
         check(bad == 0, f"mesh {shape} {params}: {bad} limbs differ from K2's dense output")
@@ -1939,9 +1938,9 @@ def phase_mesh(ctx):
         return cc.encrypt(xs.tolist(), ht.U32, batch=True), cc.encrypt(ys.tolist(), ht.U32,
                                                                          batch=True)
 
-    x1 = enc.encrypt_sel_mma.launches
+    x1 = counters["X1"]
     (sa, sb), enc_cold = stage(torch, lambda: pair(sh))
-    x1 = enc.encrypt_sel_mma.launches - x1
+    x1 = counters["X1"] - x1
     (oa, ob), one_cold = stage(torch, lambda: pair(one))
     check(torch.equal(sa.limbs, oa.limbs) and torch.equal(sb.limbs, ob.limbs)
           and sa.to_bytes() == oa.to_bytes(),
@@ -1969,11 +1968,11 @@ def phase_mesh(ctx):
     dense, dense_ms = stage(torch, lambda: xc.apply2(HomomorphicMultiplication, w32a, w32b))
     hook = limbmul.maybe_sharded_clmul
     lmesh = Mesh([dev] * 4, (limbmul.LIMB_AXIS,))
-    k1 = k.clmul_flat.launches
+    k1 = counters["K1"]
     ppermute.local_bytes = ppermute.cross_bytes = hook.taken = hook.planned_bytes = 0
     with limbmul.use_limb_mesh(lmesh):
         prod, mesh_ms = stage(torch, lambda: xc.apply2(HomomorphicMultiplication, w32a, w32b))
-    k1 = k.clmul_flat.launches - k1
+    k1 = counters["K1"] - k1
     moved = ppermute.local_bytes, ppermute.cross_bytes
     taken, expect = hook.taken, hook.planned_bytes
     check(taken > 0, "no product of the u32 multiplication took the limb mesh")
@@ -2013,8 +2012,8 @@ def k1_spot_checked(ctx, label, fn):
     last :data:`SPOT_ROWS` rows.  The rows are copied right after each
     launch, before the route joins and frees its output; launches under
     CUDA graph capture are not copied.  While ``fn`` runs, the kernels
-    module's ``clmul_flat`` is a wrapper that calls the real one, so every
-    launch is counted once, on the wrapper, and the count is handed back."""
+    module's ``clmul_flat`` is a wrapper that calls the real one, which
+    counts each launch."""
     torch = ctx["torch"]
     from homomorph_tpu_torch.gf2 import kernels as k
 
@@ -2033,13 +2032,11 @@ def k1_spot_checked(ctx, label, fn):
                                              for e in ends])
         return out
 
-    spy.launches = real.launches
     k.clmul_flat = spy
     try:
         result = fn()
     finally:
         k.clmul_flat = real
-        real.launches = spy.launches
     torch.cuda.synchronize()
     check(kept, f"{label}: no K1 launch to check")
     checks = []
@@ -2130,22 +2127,8 @@ def phase_bench(ctx):
     return dict(result, windows=windows, k1_spot_checks=spots, widest_product=widest)
 
 
-class MaskK1:
-    """K1's launches made by the decrypt masks' series inverse
-    (``mask_kernel.series_inverse.k1_launches``, a share of K1's count),
-    read and reset like a wrapper's ``launches``."""
-
-    @property
-    def launches(self):
-        return mask_kernel.series_inverse.k1_launches
-
-    @launches.setter
-    def launches(self, value):
-        mask_kernel.series_inverse.k1_launches = value
-
-
 def launch_counts(ctx):
-    return {name: w.launches for name, w in ctx["wrappers"].items()}
+    return {name: counters[key] for name, key in ctx["wrappers"].items()}
 
 
 def compiled_case(ctx, name, graphed, call, eager_fn, meta_fn, replays=5):
@@ -2155,8 +2138,9 @@ def compiled_case(ctx, name, graphed, call, eager_fn, meta_fn, replays=5):
     Python without device work), a compiled callable's first call (meta,
     warm-up, capture, replay), the median wall time of ``replays`` more and
     one replay's device time.  The launch counters move at the first call
-    (warm-up and capture) and must not move at a replay.  Returns (stats,
-    first output, last output, eager output)."""
+    (the warm-up, and the capture's manifest at its replay) and by the
+    manifest at each replay after it.  Returns (stats, first output, last
+    output, eager output)."""
     torch = ctx["torch"]
     eager_walls = []
     for _ in range(3):
@@ -2170,7 +2154,10 @@ def compiled_case(ctx, name, graphed, call, eager_fn, meta_fn, replays=5):
     for _ in range(replays):
         out, ms = stage(torch, call)
         walls.append(ms)
-    check(launch_counts(ctx) == mid, f"compiled {name}: a replay counted a launch")
+    (manifest,) = graphed.manifests
+    want = {k: n + replays * manifest.get(ctx["wrappers"][k], 0) for k, n in mid.items()}
+    check(launch_counts(ctx) == want, f"compiled {name}: {replays} replays counted "
+          f"{launch_counts(ctx)} from {mid}, not their manifest's {manifest}")
     stats = dict(eager_ms=sorted(eager_walls)[1], eager_walls_ms=eager_walls, meta_ms=meta_ms,
                  capture_ms=capture_ms, replay_ms=sorted(walls)[len(walls) // 2],
                  replays_ms=walls, replay_device_ms=profiled_ms(call, 1), graphs=graphed.graphs,
@@ -2373,12 +2360,8 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
         return 2
-    from homomorph_tpu_torch import prng
     from homomorph_tpu_torch.gf2 import cuda_build
     from homomorph_tpu_torch.gf2 import encrypt_kernel as enc
-    from homomorph_tpu_torch.gf2 import kernels as k
-    from homomorph_tpu_torch.gf2 import mask_kernel as mk
-    from homomorph_tpu_torch.models import circuit_kernels as ck
 
     dev = torch.device("cuda")
     ctx = dict(torch=torch, dev=dev, seed=SEED,
@@ -2415,22 +2398,19 @@ def main(argv=None):
     phase_fixtures(ctx)
 
     # 5-6, 5b, 6b. the paths, each with its launch counts from 0
+    # each wrapper's name in the logs, and its counter
     ctx["wrappers"] = wrappers = {
-        "clmul": k.clmul_flat, "encrypt": enc.encrypt_words_table,
-        "encrypt_v1": enc.encrypt_words_mma, "encrypt_v3": enc.encrypt_sel_mma,
-        "threefry": prng.random_bits, "threefry_dkey": prng.random_bits_device_key,
-        "square": mk.square, "newton_step": mk.newton_step, "series_small": mk.series_small,
-        "mask_clmul": MaskK1(), "route_split": k.route_split, "route_join": k.route_join,
-        "csa_level_in": ck.csa_level_in, "csa_level_out": ck.csa_level_out,
-        "ripple_step": ck.ripple_step}
+        "clmul": "K1", "encrypt": "K2", "encrypt_v1": "K3", "encrypt_v3": "X1",
+        "threefry": "T1", "threefry_dkey": "T1.dkey", "square": "M1", "newton_step": "M2",
+        "series_small": "M3", "mask_clmul": "mask.K1", "route_split": "R1", "route_join": "R2",
+        "csa_level_in": "C1", "csa_level_out": "C2", "ripple_step": "C3"}
 
     def run_path(fn):
-        for w in wrappers.values():
-            w.launches = 0
+        before = launch_counts(ctx)
         t0 = time.perf_counter()
         out = fn()
         log(f"[paths] path done in {time.perf_counter() - t0:.3f} s")
-        return out, {name: w.launches for name, w in wrappers.items()}
+        return out, {name: n - before[name] for name, n in launch_counts(ctx).items()}
 
     paths = {}
     torch.cuda.reset_peak_memory_stats()
@@ -2491,8 +2471,8 @@ def main(argv=None):
     glue_stats = phase_glue(ctx)
     log(f"[glue] phase done in {time.perf_counter() - t0:.3f} s")
     compiled_stats, _ = run_path(lambda: phase_compiled(ctx))
-    # the compiled path's launches are those of its warm-ups and captures
-    # (the counters do not move at a replay)
+    # the compiled path's launches are those of its warm-ups and first
+    # replays (each replay after them counts its manifest again)
     paths["compiled"] = {name: sum(st["captured_launches"][name] for st in compiled_stats.values())
                          for name in wrappers}
     profiler_probe = profiler_after_graphs(ctx)

@@ -60,7 +60,6 @@ import torch
 import homomorph_tpu_torch as ht
 from homomorph_tpu_torch import prng
 from homomorph_tpu_torch import rng as hrng
-from homomorph_tpu_torch.gf2 import kernels as gf2k
 from homomorph_tpu_torch.gf2 import poly as gf2
 from homomorph_tpu_torch.experiments.common import (
     CHECK_SEED,
@@ -79,6 +78,7 @@ from homomorph_tpu_torch.models import (
 )
 from homomorph_tpu_torch.models.compiled import Graphed, compile_op2
 from homomorph_tpu_torch.utils.cache import build_dir
+from homomorph_tpu_torch.utils.profiling import counters
 
 # the reference crate's u32 encrypt on one Ryzen 7800X3D core (its README:
 # 76 us per u32), the bench's baseline
@@ -381,13 +381,13 @@ def _mul32(t: Timer, m: dict, log, dev) -> None:
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    k1 = gf2k.clmul_flat.launches
+    k1 = counters["K1"]
     t.sync()
     t0 = time.perf_counter()
     prod = step()
     t.sync()
     m["mul32_first_s"] = time.perf_counter() - t0
-    m["mul32_k1"] = gf2k.clmul_flat.launches - k1
+    m["mul32_k1"] = counters["K1"] - k1
     m["mul32_peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
                           if dev.type == "cuda" else None)
     m["mul32_limbs"] = int(prod.shape[-1])

@@ -39,6 +39,7 @@ from .cipher import Ciphered
 from .device import resolve as _resolve
 from .operations import OperationRequirement
 from .params import Parameters
+from .utils.profiling import span
 from .utils.errors import (
     InvalidParametersError,
     PublicKeyUnsetError,
@@ -168,23 +169,25 @@ d/delta >= 21, got d=32, delta=2
     ) -> Ciphered:
         if self._public_key is None:
             raise PublicKeyUnsetError("Public key not generated yet")
-        if self._use_source_for_encrypt:
+        with span("context.encrypt"):
+            if self._use_source_for_encrypt:
+                return Ciphered.cipher(
+                    data, self._public_key, desc, source=self._source, batch=batch
+                )
+            if self._enc_key is not None:
+                self._enc_key, sub = _rng.threefry_split(self._enc_key)
+            else:
+                sub = _rng.os_entropy_key()  # fresh OS entropy per stream
+            sharding = self._sharding if batch else None
             return Ciphered.cipher(
-                data, self._public_key, desc, source=self._source, batch=batch
+                data, self._public_key, desc, key=sub, batch=batch, sharding=sharding
             )
-        if self._enc_key is not None:
-            self._enc_key, sub = _rng.threefry_split(self._enc_key)
-        else:
-            sub = _rng.os_entropy_key()  # fresh OS entropy per stream
-        sharding = self._sharding if batch else None
-        return Ciphered.cipher(
-            data, self._public_key, desc, key=sub, batch=batch, sharding=sharding
-        )
 
     def decrypt(self, ciphered: Ciphered) -> Any:
         if self._secret_key is None:
             raise SecretKeyUnsetError("Secret key not generated yet")
-        return ciphered.decipher(self._secret_key)
+        with span("context.decrypt"):
+            return ciphered.decipher(self._secret_key)
 
     def zeroize(self) -> None:
         """Scrub all key material held by this context: the secret key and
@@ -212,16 +215,19 @@ d/delta >= 21, got d=32, delta=2
             raise InvalidParametersError(required, d, delta)
 
     def apply1(self, op, a: Ciphered) -> Ciphered:
-        self.validate_operation(op, a)
-        return _keep_sharding(op.unsafe_apply(a), (a,))
+        with span("context.apply"):
+            self.validate_operation(op, a)
+            return _keep_sharding(op.unsafe_apply(a), (a,))
 
     def apply2(self, op, a: Ciphered, b: Ciphered) -> Ciphered:
-        self.validate_operation(op, a, b)
-        return _keep_sharding(op.unsafe_apply(a, b), (a, b))
+        with span("context.apply"):
+            self.validate_operation(op, a, b)
+            return _keep_sharding(op.unsafe_apply(a, b), (a, b))
 
     def apply_n(self, op, args: Sequence[Ciphered]) -> Ciphered:
-        self.validate_operation(op, *args)
-        return _keep_sharding(op.unsafe_apply(args), args)
+        with span("context.apply"):
+            self.validate_operation(op, *args)
+            return _keep_sharding(op.unsafe_apply(args), args)
 
 
 def _keep_sharding(out: Ciphered, operands: Sequence[Ciphered]) -> Ciphered:

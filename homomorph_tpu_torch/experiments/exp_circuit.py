@@ -54,14 +54,15 @@ def recorded_programs(path: str) -> "list[dict]":
     shape = (rows, bits, gf2.limbs_for(bound))
     a = ht.Ciphered(torch.empty(shape, dtype=gf2.LIMB_DTYPE, device="meta"), bound, desc)
     out, run = [], ck._run
+    wrappers = {spec: name for name, spec in SPECS.items()}
 
-    def recording(spec, wrapper, prog, tensors, rows):
+    def recording(spec, prog, tensors, rows):
         if prog.shape[0]:  # a level with no carry gives C2 no op
             kept = prog.copy()
             kept.flags.writeable = False  # read-only, as the plans make them
-            out.append(dict(kernel=wrapper.__name__, prog=kept,
+            out.append(dict(kernel=wrappers[spec], prog=kept,
                             extents=[ck._extent(t) for t in tensors], rows=rows))
-        return run(spec, wrapper, prog, tensors, rows)
+        return run(spec, prog, tensors, rows)
 
     ck._run = recording
     try:

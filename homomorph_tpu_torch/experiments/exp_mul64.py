@@ -80,7 +80,7 @@ def run(params=PARAMS, seed: int = CHECK_SEED, device=None, log=print) -> dict:
     the checked bound; raises if it decrypts wrong.  Returns the
     measurements and the key's ``S(0)``."""
     from homomorph_tpu_torch.device import resolve
-    from homomorph_tpu_torch.gf2 import kernels as gf2k
+    from homomorph_tpu_torch.utils.profiling import counters
     from homomorph_tpu_torch.models import HomomorphicMultiplication, circuits
 
     dev = resolve(device)
@@ -101,13 +101,13 @@ def run(params=PARAMS, seed: int = CHECK_SEED, device=None, log=print) -> dict:
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    k1 = gf2k.clmul_flat.launches
+    k1 = counters["K1"]
     t.sync()
     t0 = time.perf_counter()
     prod = circuits.mul_unsigned(a, b)
     t.sync()
     t_tree = time.perf_counter() - t0
-    k1 = gf2k.clmul_flat.launches - k1
+    k1 = counters["K1"] - k1
     peak = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None
     shape = tuple(prod.limbs.shape)
     gb = prod.limbs.numel() * 4 / 1e9

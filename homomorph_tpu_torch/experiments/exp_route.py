@@ -110,23 +110,24 @@ def route_kernels(label: str, B: int, Ls: int, Lg: int, hbm_bw: float) -> dict:
     :func:`event_ms`; the plain version over 3 calls), counted, and bounded
     by :func:`function_bytes`."""
     from homomorph_tpu_torch.gf2 import kernels as k
+    from homomorph_tpu_torch.utils.profiling import counters
 
     steps = k.route_plan(Ls, Lg, k.karatsuba_min())
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     small, big = (torch.randint(-(2**31), 2**31, (B, L), dtype=torch.int32, device="cuda",
                                 generator=gen) for L in (Ls, Lg))
-    before = k.route_split.launches
+    before = counters["R1"]
     leaf_s, leaf_g = k.route_split(small, big, steps)
-    r1_launches = k.route_split.launches - before
+    r1_launches = counters["R1"] - before
     want_s, want_g = k._split_levels(small, big, steps)
     (bad_s, err_s), (bad_g, err_g) = compare(leaf_s, want_s), compare(leaf_g, want_g)
     del want_s, want_g
     rows, w = leaf_s.shape
     p = k.clmul_flat(leaf_s, leaf_g)
     del leaf_s, leaf_g
-    before = k.route_join.launches
+    before = counters["R2"]
     got = k.route_join(p, B, steps)
-    r2_launches = k.route_join.launches - before
+    r2_launches = counters["R2"] - before
     bad_j, err_j = compare(got, k._join_levels(p, B, steps))
     del got
     out = dict(label=label, B=B, Ls=Ls, Lg=Lg, leaves=[rows, w], steps=[list(s) for s in steps])

@@ -53,6 +53,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from . import poly as gf2
+from ..utils.profiling import counters
 
 __all__ = [
     "ENC_IMPL_ENV",
@@ -430,7 +431,7 @@ def encrypt_words_table(
         )
     if err:
         raise RuntimeError(f"hm_encrypt_table launch failed: cudaError {err}")
-    encrypt_words_table.launches += 1
+    counters.add("K2")
     return out
 
 
@@ -449,7 +450,7 @@ def encrypt_words_mma(
         return encrypt_plain(selw, planes, plain, L)
     W = selw.shape[1]
     out = _launch("hm_encrypt_mma_words", selw, planes, plain, L, gf2.bit_capacity(W), W)
-    encrypt_words_mma.launches += 1
+    counters.add("K3")
     return out
 
 
@@ -468,14 +469,9 @@ def encrypt_sel_mma(
         return encrypt_sel_plain(sel, planes, plain, L)
     tau = sel.shape[1]
     out = _launch("hm_encrypt_mma_sel", sel, planes, plain, L, tau, tau)
-    encrypt_sel_mma.launches += 1
+    counters.add("X1")
     return out
 
-
-#: launches of each CUDA kernel since the last reset (plain integers)
-encrypt_words_table.launches = 0
-encrypt_words_mma.launches = 0
-encrypt_sel_mma.launches = 0
 
 
 # --------------------------------------------------------------------------

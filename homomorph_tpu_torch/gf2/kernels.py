@@ -77,6 +77,7 @@ import torch
 import torch.nn.functional as F
 
 from . import poly as gf2
+from ..utils.profiling import counters, span
 
 __all__ = [
     "clmul", "clmul_rows", "clmul_flat", "clmul_plain", "clmul_comb_plain",
@@ -180,14 +181,20 @@ def _routed(device: torch.device) -> bool:
 def clmul_rows(af: torch.Tensor, bf: torch.Tensor) -> torch.Tensor:
     """The dispatcher on flat rows: [B, La] x [B, Lb] -> [B, La+Lb] through
     the Karatsuba route (:func:`route_plan`): :func:`route_split`, ONE
-    :func:`clmul_flat` and :func:`route_join`.  On the card a route of more
-    than 18 split levels raises (:func:`split_plan`)."""
+    :func:`clmul_flat` and :func:`route_join`, each in a span (``route.plan``,
+    ``route.split``, ``route.leaves``, ``route.join``).  On the card a route
+    of more than 18 split levels raises (:func:`split_plan`)."""
     small, big = (af, bf) if af.shape[1] <= bf.shape[1] else (bf, af)
-    steps = route_plan(small.shape[1], big.shape[1], karatsuba_min())
+    with span("route.plan"):
+        steps = route_plan(small.shape[1], big.shape[1], karatsuba_min())
     if not steps or af.shape[0] == 0 or not _routed(af.device):
         return clmul_flat(af, bf)
-    leaf_s, leaf_g = route_split(small, big, steps)
-    return route_join(clmul_flat(leaf_s, leaf_g), small.shape[0], steps)
+    with span("route.split"):
+        leaf_s, leaf_g = route_split(small, big, steps)
+    with span("route.leaves"):
+        p = clmul_flat(leaf_s, leaf_g)
+    with span("route.join"):
+        return route_join(p, small.shape[0], steps)
 
 
 def _halves(x: torch.Tensor, h: int) -> torch.Tensor:
@@ -540,7 +547,7 @@ def route_split(small: torch.Tensor, big: torch.Tensor, steps) -> "tuple[torch.T
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"route split kernel launch failed: cudaError {err}")
-    route_split.launches += 1
+    counters.add("R1")
     return leaf_s, leaf_g
 
 
@@ -589,14 +596,9 @@ def _route_join(p: torch.Tensor, B: int, steps, launches) -> torch.Tensor:
                                                  len(spec), stream)
             if err:
                 raise RuntimeError(f"route join kernel launch failed: cudaError {err}")
-            route_join.launches += 1
+            counters.add("R2")
             p = out
     return p
-
-
-#: launches of each kernel since the last reset (plain integers)
-route_split.launches = 0
-route_join.launches = 0
 
 
 def route_split_plain(small: torch.Tensor, big: torch.Tensor, steps,
@@ -813,9 +815,6 @@ def clmul_flat(af: torch.Tensor, bf: torch.Tensor) -> torch.Tensor:
         )
     if err:
         raise RuntimeError(f"clmul kernel launch failed: cudaError {err}")
-    clmul_flat.launches += 1
+    counters.add("K1")
     return out
 
-
-#: launches of the CUDA kernel since the last reset (a plain integer)
-clmul_flat.launches = 0

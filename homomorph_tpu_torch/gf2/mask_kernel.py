@@ -65,6 +65,7 @@ import torch.nn.functional as F
 
 from . import kernels as gf2k
 from . import poly as gf2
+from ..utils.profiling import counters, span
 
 __all__ = [
     "square", "square_plain", "newton_step", "newton_step_plain", "series_small",
@@ -178,12 +179,9 @@ def square(x: torch.Tensor, n_bits: "int | None" = None) -> torch.Tensor:
                                                  _stream(x))
     if err:
         raise RuntimeError(f"square kernel launch failed: cudaError {err}")
-    square.launches += 1
+    counters.add("M1")
     return out
 
-
-#: launches of the CUDA kernel since the last reset (a plain integer)
-square.launches = 0
 
 
 def _check_series(sstar: torch.Tensor, n_bits: int, what: str) -> None:
@@ -244,12 +242,9 @@ def newton_step(inv: torch.Tensor, sstar: torch.Tensor, k: int) -> torch.Tensor:
             _stream(inv))
     if err:
         raise RuntimeError(f"newton_step kernel launch failed: cudaError {err}")
-    newton_step.launches += 1
+    counters.add("M2")
     return out
 
-
-#: launches of M2 since the last reset (a plain integer)
-newton_step.launches = 0
 
 
 def assemble_mask(inv: torch.Tensor, sstar: torch.Tensor, s_degree: int, n_limbs: int) -> torch.Tensor:
@@ -317,12 +312,9 @@ def series_small(sstar: torch.Tensor, n_bits: int,
             int(assemble is not None), _stream(sstar))
     if err:
         raise RuntimeError(f"series_small kernel launch failed: cudaError {err}")
-    series_small.launches += 1
+    counters.add("M3")
     return out
 
-
-#: launches of M3 since the last reset (a plain integer)
-series_small.launches = 0
 
 
 def reversed_key(s: torch.Tensor, s_degree: int) -> torch.Tensor:
@@ -408,7 +400,7 @@ def series_inverse(sstar: torch.Tensor, n_bits: int,
     :func:`series_small`, then one :func:`newton_step` an M2 step, and for
     a route step M1 and a product by ``S*``, cut to the limbs the precision
     can see, through the clmul dispatcher.  The K1 launches of the route
-    steps are counted on :attr:`series_inverse.k1_launches` too."""
+    steps are counted as ``mask.K1`` too."""
     if n_bits < 1:
         raise ValueError(f"a series inverse needs at least one bit, not {n_bits}")
     sstar = sstar.reshape(-1)
@@ -419,7 +411,7 @@ def series_inverse(sstar: torch.Tensor, n_bits: int,
         inv = series_small(sstar, plan[n_small - 1][1])
     else:
         inv = torch.ones(1, dtype=gf2.LIMB_DTYPE, device=sstar.device)
-    before = gf2k.clmul_flat.launches
+    before = counters["K1"]
     for kind, k in plan[n_small:]:
         if kind == "M2":
             inv = newton_step(inv, sstar, k)
@@ -429,15 +421,11 @@ def series_inverse(sstar: torch.Tensor, n_bits: int,
         # S* first: the plain sweep's planes are [rows of its first
         # operand, both widths], so the narrow operand leads
         inv = gf2k.clmul(sstar[: min(Ls, Lo)].view(1, -1), sq)[0, :Lo]
-    series_inverse.k1_launches += gf2k.clmul_flat.launches - before
+    counters.add("mask.K1", counters["K1"] - before)
     if plan and plan[-1][0] == "route":  # a route step leaves bits above k set
         inv = _truncate(inv.clone(), n_bits)
     return inv
 
-
-#: K1 launches made by :func:`series_inverse` since the last reset, a share
-#: of ``kernels.clmul_flat.launches`` (a plain integer)
-series_inverse.k1_launches = 0
 
 
 def series_mask(sstar: torch.Tensor, s_degree: int, n_limbs: int,
@@ -449,13 +437,15 @@ def series_mask(sstar: torch.Tensor, s_degree: int, n_limbs: int,
     :func:`series_inverse` and :func:`assemble_mask`."""
     n_bits = gf2.bit_capacity(n_limbs) - s_degree
     plan = mask_plan(s_degree, n_limbs) if plan is None else list(plan)
-    if _check_plan(plan, n_bits) == len(plan):
-        return series_small(sstar, n_bits, assemble=(s_degree, n_limbs))
-    return assemble_mask(series_inverse(sstar, n_bits, plan), sstar, s_degree, n_limbs)
+    with span("mask.series"):
+        if _check_plan(plan, n_bits) == len(plan):
+            return series_small(sstar, n_bits, assemble=(s_degree, n_limbs))
+        return assemble_mask(series_inverse(sstar, n_bits, plan), sstar, s_degree, n_limbs)
 
 
 def launch_counts() -> "dict[str, int]":
-    """The mask kernels' launch counters: M1, the route steps' K1 share, M2
-    and M3 (plain integers; a CPU call counts nothing)."""
-    return {"M1": square.launches, "K1": series_inverse.k1_launches,
-            "M2": newton_step.launches, "M3": series_small.launches}
+    """The mask kernels' launches from the program's counters: M1, the
+    route steps' K1 share (``mask.K1``), M2 and M3 (a CPU call counts
+    nothing)."""
+    return {"M1": counters["M1"], "K1": counters["mask.K1"], "M2": counters["M2"],
+            "M3": counters["M3"]}

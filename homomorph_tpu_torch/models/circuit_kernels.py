@@ -59,6 +59,7 @@ import torch
 from ..cipher import Ciphered, CipheredBit
 from ..gf2 import kernels as gf2k
 from ..gf2 import poly as gf2
+from ..utils.profiling import counters, span
 
 __all__ = [
     "Spec", "CSA_IN", "CSA_OUT", "RIPPLE", "launch_chunks", "csa_level_in", "csa_level_out",
@@ -74,23 +75,24 @@ __all__ = [
 
 
 class Spec(NamedTuple):
-    """A kernel's C entry, its sources and destinations an op, and the ops
-    a launch takes at most (``csrc/circuit.cu``'s constants: its parameter
-    of at most 32,764 bytes)."""
+    """A kernel's C entry, its sources and destinations an op, the ops a
+    launch takes at most (``csrc/circuit.cu``'s constants: its parameter of
+    at most 32,764 bytes), and its id among the launch counters."""
 
     entry: str
     srcs: int
     dsts: int
     ops: int
+    kernel: str
 
     @property
     def fields(self) -> int:
         return 4 * self.srcs + 5 * self.dsts
 
 
-CSA_IN = Spec("hm_csa_level_in", 3, 5, 240)
-CSA_OUT = Spec("hm_csa_level_out", 2, 1, 600)
-RIPPLE = Spec("hm_ripple_step", 3, 2, 1)
+CSA_IN = Spec("hm_csa_level_in", 3, 5, 240, "C1")
+CSA_OUT = Spec("hm_csa_level_out", 2, 1, 600, "C2")
+RIPPLE = Spec("hm_ripple_step", 3, 2, 1, "C3")
 
 _fns: dict = {}
 
@@ -143,7 +145,7 @@ class _Prepared(NamedTuple):
     spec: Spec
     rows: int
     need: np.ndarray
-    launches: tuple  # (words, pos, slot, off) each
+    calls: tuple  # (words, pos, slot, off) a launch
 
 
 #: programs the plans made (read-only arrays), prepared once a row count
@@ -255,7 +257,7 @@ def xor_rows_plain(spec: Spec, prog: np.ndarray, tensors, rows: int) -> None:
             view.copy_(acc)
 
 
-def _run(spec: Spec, wrapper, prog: np.ndarray, tensors, rows: int) -> None:
+def _run(spec: Spec, prog: np.ndarray, tensors, rows: int) -> None:
     prep = _prepare(spec, prog, rows)
     dev = _check(spec, prep, tensors)
     if rows == 0 or prog.shape[0] == 0:
@@ -272,39 +274,34 @@ def _run(spec: Spec, wrapper, prog: np.ndarray, tensors, rows: int) -> None:
     ptrs = np.array([t.data_ptr() for t in tensors], dtype=np.int64)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        for words, pos, slot, off in prep.launches:
+        for words, pos, slot, off in prep.calls:
             words = words.copy()
             words[pos] = ptrs[slot] + off
             err = fn(words.ctypes.data, len(words), stream)
             if err:
                 raise RuntimeError(f"{spec.entry[3:]} kernel launch failed: cudaError {err}")
-            wrapper.launches += 1
+            counters.add(spec.kernel)
 
 
 def csa_level_in(prog: np.ndarray, tensors, rows: int) -> None:
     """C1's wrapper (``hm_csa_level_in``): a level's compressors, ops of 3
     sources and 5 destinations (:func:`tree_plan`), in launches of at most
     ``CSA_IN.ops``."""
-    _run(CSA_IN, csa_level_in, prog, tensors, rows)
+    _run(CSA_IN, prog, tensors, rows)
 
 
 def csa_level_out(prog: np.ndarray, tensors, rows: int) -> None:
     """C2's wrapper (``hm_csa_level_out``): a level's carries, ops of 2
     sources and 1 destination, in launches of at most ``CSA_OUT.ops``."""
-    _run(CSA_OUT, csa_level_out, prog, tensors, rows)
+    _run(CSA_OUT, prog, tensors, rows)
 
 
 def ripple_step(prog: np.ndarray, tensors, rows: int) -> None:
     """C3's wrapper (``hm_ripple_step``): one step of a carry chain, one op
     of 3 sources (prod, g, the next x) and 2 destinations (the carry, the
     next output lane)."""
-    _run(RIPPLE, ripple_step, prog, tensors, rows)
+    _run(RIPPLE, prog, tensors, rows)
 
-
-#: launches of each kernel since the last reset (plain integers)
-csa_level_in.launches = 0
-csa_level_out.launches = 0
-ripple_step.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -858,25 +855,28 @@ def tree_start(bits: "dict[int, CipheredBit]", plan, batch: tuple) -> TreeState:
 def tree_level(state: TreeState, li: int, sync=None) -> TreeState:
     """Level ``li``: one C1 launch (sums, operand rows), the grouped clmuls,
     one C2 launch (carries); then the bits that die here are dropped.
-    ``sync(device)`` runs after it if its sums pass 8,192 limbs."""
-    env, rows, dev = dict(state.env), state.rows, state.device
-    lv = state.plan.levels[li]
-    (p1, k1), (p2, k2) = state.programs[0][li]
-    for bkey, words in lv.buffers:
-        env[bkey] = _empty(rows * words, dev)
-    env[("opnd",)] = _empty(rows * lv.opnd, dev)
-    csa_level_in(p1, [env[k] for k in k1], rows)
-    prods = [_product_rows(U, V) for U, V in _operand_views(env.pop(("opnd",)), lv.groups, rows)]
-    env.update((("prod", g), P) for g, P in enumerate(prods))
-    del prods
-    csa_level_out(p2, [env[k] for k in k2], rows)
-    for g in range(len(lv.groups)):
-        del env[("prod", g)]
-    for k in lv.dead:
-        del env[k]
-    if sync is not None and lv.sync:
-        sync(dev)
-    return state._replace(env=env)
+    ``sync(device)`` runs after it if its sums pass 8,192 limbs.  A span,
+    ``circuit.csa_level``."""
+    with span("circuit.csa_level"):
+        env, rows, dev = dict(state.env), state.rows, state.device
+        lv = state.plan.levels[li]
+        (p1, k1), (p2, k2) = state.programs[0][li]
+        for bkey, words in lv.buffers:
+            env[bkey] = _empty(rows * words, dev)
+        env[("opnd",)] = _empty(rows * lv.opnd, dev)
+        csa_level_in(p1, [env[k] for k in k1], rows)
+        prods = [_product_rows(U, V)
+                 for U, V in _operand_views(env.pop(("opnd",)), lv.groups, rows)]
+        env.update((("prod", g), P) for g, P in enumerate(prods))
+        del prods
+        csa_level_out(p2, [env[k] for k in k2], rows)
+        for g in range(len(lv.groups)):
+            del env[("prod", g)]
+        for k in lv.dead:
+            del env[k]
+        if sync is not None and lv.sync:
+            sync(dev)
+        return state._replace(env=env)
 
 
 def tree_ripple(state: TreeState) -> Lanes:
@@ -927,15 +927,16 @@ def _ripple_run(rp: Ripple, progs, env, rows, batch, dev) -> Lanes:
     env.update((("gprod", g), P) for g, P in enumerate(prods))
     del prods
     for step, (prog, keys) in zip(rp.steps, steps):
-        if step.x is not None:
-            env[("step",)] = _product_rows(_operand(env, step.x, rows),
-                                           _operand(env, step.carry, rows))
-        if step.keep:
-            env[("carry", step.i + 1)] = _empty(rows * step.keep, dev).view(rows, step.keep)
-        env[("lane", step.i + 1)] = _empty(rows * rp.lanes[step.i + 1].width, dev)
-        ripple_step(prog, [env[k] for k in keys], rows)
-        env.pop(("carry", step.i), None)
-        env.pop(("step",), None)
+        with span("circuit.ripple"):
+            if step.x is not None:
+                env[("step",)] = _product_rows(_operand(env, step.x, rows),
+                                               _operand(env, step.carry, rows))
+            if step.keep:
+                env[("carry", step.i + 1)] = _empty(rows * step.keep, dev).view(rows, step.keep)
+            env[("lane", step.i + 1)] = _empty(rows * rp.lanes[step.i + 1].width, dev)
+            ripple_step(prog, [env[k] for k in keys], rows)
+            env.pop(("carry", step.i), None)
+            env.pop(("step",), None)
     for k in [k for k in env if k[0] != "lane"]:  # freed before the output is made
         del env[k]
     out = torch.empty(batch + (n, rp.width), dtype=gf2.LIMB_DTYPE, device=dev)
@@ -1000,14 +1001,15 @@ def run_add(a: torch.Tensor, b: torch.Tensor, a_bit: Bit, b_bit: Bit,
     if n > 1:
         env[("g",)] = _product_rows(a, b).view(-1)
     for step, (prog, keys) in zip(ap.steps, steps):
-        if step.x is not None:
-            env[("step",)] = _product_rows(_rows_view(env[("x",)], step.x, rows),
-                                           _operand(env, step.carry, rows))
-        if step.keep:
-            env[("carry", step.i + 1)] = _empty(rows * step.keep, dev).view(rows, step.keep)
-        ripple_step(prog, [env[k] for k in keys], rows)
-        env.pop(("carry", step.i), None)
-        env.pop(("step",), None)
+        with span("circuit.ripple"):
+            if step.x is not None:
+                env[("step",)] = _product_rows(_rows_view(env[("x",)], step.x, rows),
+                                               _operand(env, step.carry, rows))
+            if step.keep:
+                env[("carry", step.i + 1)] = _empty(rows * step.keep, dev).view(rows, step.keep)
+            ripple_step(prog, [env[k] for k in keys], rows)
+            env.pop(("carry", step.i), None)
+            env.pop(("step",), None)
     return Lanes(out, ap.lanes)
 
 

@@ -41,8 +41,20 @@ Three things a graph cannot hold, and what happens to them:
   (``homomorph_tpu/parallel/limbmul.py:63-71``).  Set them before the
   first call of a shape.
 
-The launch counters are plain integers on the wrappers, so they count a
-captured kernel at capture (and at the warm-up), never at a replay.
+What a call counts (:data:`~homomorph_tpu_torch.utils.profiling.counters`):
+the warm-up's launches count as eager calls'; a capture launches nothing,
+so what is counted while a graph is captured is set aside as the graph's
+manifest, what one replay launches of each hand-written kernel, and each
+replay adds the manifest to the counters.  Each call is a span,
+``compiled.call``, whose record carries ``launches``: every node of the
+replayed graph that runs work on the card (:func:`graph_launches`; torch's
+kernels and copies as well as the port's), read from the driver at
+capture.  Its inner spans are ``graph.copy_in``, ``graph.replay`` and
+``graph.clone`` (``graph.capture`` at a capture); the round trip's add
+``roundtrip.bits_in`` (the host arrays' copies to the card),
+``roundtrip.keys`` and ``roundtrip.mask`` (the first shape's mask), and
+``roundtrip.decrypt``, the card's time of the decrypt stage between two
+CUDA events the graph records.
 
 The reference has no such layer (every op is a direct function call,
 src/context.rs:496-546).
@@ -62,6 +74,8 @@ from ..cipher import FRESH_NOISE, Ciphered
 from ..context import Context
 from ..gf2 import poly as gf2
 from ..gf2.encrypt_kernel import encrypt_bits_fused
+from ..utils import profiling
+from ..utils.profiling import span
 
 __all__ = ["compile_op2", "compile_op1", "compile_roundtrip", "Graphed"]
 
@@ -77,6 +91,36 @@ def _derive_meta(apply_fn, bound: int, desc, *shapes, noise: int = FRESH_NOISE) 
     out = apply_fn(*args)
     return dict(bound=out.bound, zero_lanes=out.zero_lanes, desc=out.desc, noise=out.noise,
                 shape=tuple(out.limbs.shape))
+
+
+#: ``CUgraphNodeType`` values (``cuda.h``) of the nodes that run work on
+#: the card: kernels, copies and sets
+_WORK_NODES = (0, 1, 2)
+
+
+def graph_launches(graph: "torch.cuda.CUDAGraph") -> int:
+    """The nodes of a captured graph (``keep_graph=True``) that run work on
+    the card, torch's kernels and copies among them: what one replay
+    launches.  Read from the CUDA driver (``cuGraphGetNodes``)."""
+    import ctypes
+
+    driver = ctypes.CDLL("libcuda.so.1")
+
+    def check(err):
+        if err:
+            raise RuntimeError(f"reading a CUDA graph's nodes failed: CUresult {err}")
+
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(driver.cuGraphGetNodes(raw, None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    check(driver.cuGraphGetNodes(raw, nodes, ctypes.byref(n)))
+    kind = ctypes.c_int(-1)
+    count = 0
+    for node in nodes:
+        check(driver.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)))
+        count += kind.value in _WORK_NODES
+    return count
 
 
 class Graphed:
@@ -96,27 +140,46 @@ class Graphed:
         entry = self._graphs.get(key)
         if entry is None:
             entry = self._graphs[key] = self._capture(inputs, dev)
-        graph, static_in, static_out = entry
-        for buf, x in zip(static_in, inputs):
-            buf.copy_(x)
-        graph.replay()
-        return static_out.clone()
+        graph, static_in, static_out, manifest, launches = entry
+        with span("graph.copy_in"):
+            for buf, x in zip(static_in, inputs):
+                buf.copy_(x)
+        with span("graph.replay"):
+            graph.replay()
+        profiling.counters.replay(manifest)
+        profiling.annotate("launches", launches)
+        with span("graph.clone"):
+            return static_out.clone()
 
     def _capture(self, inputs, dev: torch.device):
-        with torch.cuda.device(dev):
+        with span("graph.capture"), torch.cuda.device(dev):
             static_in = [x.detach().clone() for x in inputs]
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 self._fn(*static_in)  # warm-up: builds, attributes, allocator
             torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
+            # kept to count its nodes, then instantiated here, not at the
+            # first replay
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
             try:
-                with torch.cuda.graph(graph):
+                with profiling.counters.aside() as captured, torch.cuda.graph(graph):
                     static_out = self._fn(*static_in)
             except RuntimeError as err:
                 raise RuntimeError(f"CUDA graph capture of {self._name} failed: {err}") from err
-        return graph, static_in, static_out
+            graph.instantiate()
+        return graph, static_in, static_out, captured, graph_launches(graph)
+
+    @property
+    def manifests(self) -> "list[dict[str, int]]":
+        """What one replay counts, for each graph captured so far."""
+        return [dict(entry[3]) for entry in self._graphs.values()]
+
+    @property
+    def launches(self) -> "list[int]":
+        """What one replay launches on the card, for each graph captured so
+        far (:func:`graph_launches`)."""
+        return [entry[4] for entry in self._graphs.values()]
 
     @property
     def graphs(self) -> int:
@@ -165,11 +228,12 @@ def compile_op2(
     graphed = Graphed(run, getattr(op, "__name__", "op"))
 
     def call(a: Ciphered, b: Ciphered) -> Ciphered:
-        _noise_check(noise, a, b)
-        if not out_meta:
-            out_meta.update(_derive_meta(op.unsafe_apply, bound, desc, a.limbs.shape,
-                                         b.limbs.shape, noise=noise))
-        return _stamp(graphed(a.limbs, b.limbs), out_meta)
+        with span("compiled.call"):
+            _noise_check(noise, a, b)
+            if not out_meta:
+                out_meta.update(_derive_meta(op.unsafe_apply, bound, desc, a.limbs.shape,
+                                             b.limbs.shape, noise=noise))
+            return _stamp(graphed(a.limbs, b.limbs), out_meta)
 
     call.graphed = graphed
     return call
@@ -187,11 +251,12 @@ def compile_op1(
     graphed = Graphed(run, getattr(op, "__name__", "op"))
 
     def call(a: Ciphered) -> Ciphered:
-        _noise_check(noise, a)
-        if not out_meta:
-            out_meta.update(_derive_meta(op.unsafe_apply, bound, desc, a.limbs.shape,
-                                         noise=noise))
-        return _stamp(graphed(a.limbs), out_meta)
+        with span("compiled.call"):
+            _noise_check(noise, a)
+            if not out_meta:
+                out_meta.update(_derive_meta(op.unsafe_apply, bound, desc, a.limbs.shape,
+                                             noise=noise))
+            return _stamp(graphed(a.limbs), out_meta)
 
     call.graphed = graphed
     return call
@@ -240,7 +305,9 @@ def compile_roundtrip(ctx: Context, op, desc: _codec.TypeDescriptor) -> Callable
     L = gf2.limbs_for(bound)
     W = -(-params.tau // 32)
     dev = pk.device
-    masks: dict = {}  # output shape -> (decrypt mask, zero lanes)
+    # input shapes -> (decrypt mask, zero lanes, the decrypt's two timing
+    # events on the card or None)
+    masks: dict = {}
 
     def encrypt(key: torch.Tensor, bits: torch.Tensor) -> Ciphered:
         total = bits.numel()
@@ -250,24 +317,42 @@ def compile_roundtrip(ctx: Context, op, desc: _codec.TypeDescriptor) -> Callable
 
     def run(keys, bits_a, bits_b):
         out = op.unsafe_apply(encrypt(keys[0], bits_a), encrypt(keys[1], bits_b))
-        w, zero_lanes = masks[(tuple(bits_a.shape), tuple(bits_b.shape))]
+        w, zero_lanes, events = masks[(tuple(bits_a.shape), tuple(bits_b.shape))]
+        if events is not None:
+            events[0].record()
         bits = gf2.decipher_bits(out.limbs, w)
         if zero_lanes:  # slim bool layout: implicit lanes decrypt to 0
             bits = torch.cat([bits, bits.new_zeros(bits.shape[:-1] + (zero_lanes,))], dim=-1)
+        if events is not None:
+            events[1].record()
         return bits
 
     graphed = Graphed(run, f"roundtrip of {getattr(op, '__name__', 'op')}")
 
     def call(key, bits_a, bits_b) -> torch.Tensor:
-        ba, bb = _bits_tensor(bits_a, dev), _bits_tensor(bits_b, dev)
-        shapes = (tuple(ba.shape), tuple(bb.shape))
-        if shapes not in masks:
-            meta = _derive_meta(op.unsafe_apply, bound, desc, shapes[0] + (L,),
-                                shapes[1] + (L,))
-            masks[shapes] = (sk.decrypt_mask(meta["shape"][-1]), meta["zero_lanes"])
-        ka, kb = _rng.threefry_split(key)
-        keys = torch.stack([_prng.key_words(ka), _prng.key_words(kb)]).to(dev)
-        return graphed(keys, ba, bb)
+        with span("compiled.call"):
+            with span("roundtrip.bits_in"):
+                ba, bb = _bits_tensor(bits_a, dev), _bits_tensor(bits_b, dev)
+            shapes = (tuple(ba.shape), tuple(bb.shape))
+            if shapes not in masks:
+                with span("roundtrip.mask"):
+                    meta = _derive_meta(op.unsafe_apply, bound, desc, shapes[0] + (L,),
+                                        shapes[1] + (L,))
+                    # recorded in the graph (external: a node of their own),
+                    # whether or not tracing is on when it is captured
+                    events = (tuple(torch.cuda.Event(enable_timing=True, external=True)
+                                    for _ in range(2)) if dev.type == "cuda" else None)
+                    masks[shapes] = (sk.decrypt_mask(meta["shape"][-1]), meta["zero_lanes"],
+                                     events)
+            with span("roundtrip.keys"):
+                ka, kb = _rng.threefry_split(key)
+                keys = torch.stack([_prng.key_words(ka), _prng.key_words(kb)]).to(dev)
+            profiling.settle()  # the last replay's events are recorded again now
+            out = graphed(keys, ba, bb)
+            events = masks[shapes][2]
+            if events is not None:
+                profiling.device_span("roundtrip.decrypt", *events)
+            return out
 
     call.graphed = graphed
     return call

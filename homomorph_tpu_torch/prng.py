@@ -26,6 +26,7 @@ import math
 import torch
 
 from .gf2 import poly as gf2
+from .utils.profiling import counters
 
 __all__ = ["random_bits", "random_bits_device_key", "random_bits_plain", "key_words"]
 
@@ -111,7 +112,7 @@ def random_bits(key, shape, device=None) -> torch.Tensor:
         err = _kernel()(out.data_ptr(), out.numel(), k0, k1, stream)
     if err:
         raise RuntimeError(f"threefry kernel launch failed: cudaError {err}")
-    random_bits.launches += 1
+    counters.add("T1")
     return out
 
 
@@ -121,7 +122,7 @@ def random_bits_device_key(key: torch.Tensor, shape) -> torch.Tensor:
 
     A CPU tensor gets :func:`random_bits_plain` of the words it holds; a
     CUDA tensor launches T1's device-key entry on the current stream (and
-    counts the launch on this function) or raises.  The kernel reads the
+    counts the launch as ``T1.dkey``) or raises.  The kernel reads the
     words when it runs, so a CUDA graph that captured the launch draws
     under whatever the buffer holds at each replay."""
     if key.shape != (2,) or key.dtype != gf2.LIMB_DTYPE or not key.is_contiguous():
@@ -139,7 +140,7 @@ def random_bits_device_key(key: torch.Tensor, shape) -> torch.Tensor:
         err = _kernel("hm_threefry_bits_dkey")(out.data_ptr(), out.numel(), key.data_ptr(), stream)
     if err:
         raise RuntimeError(f"threefry device-key launch failed: cudaError {err}")
-    random_bits_device_key.launches += 1
+    counters.add("T1.dkey")
     return out
 
 
@@ -149,7 +150,3 @@ def key_words(key) -> torch.Tensor:
     k0, k1 = _check_key(key)
     return torch.tensor([k0, k1], dtype=torch.int64).to(gf2.LIMB_DTYPE)
 
-
-#: launches of each CUDA kernel entry since the last reset (plain integers)
-random_bits.launches = 0
-random_bits_device_key.launches = 0

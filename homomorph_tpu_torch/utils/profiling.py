@@ -7,8 +7,6 @@ kernels (``chip_smoke.py`` reads its bounds from here):
   tensor-core rate (NVIDIA's H100 SXM data sheet), and the INT32 and
   shared-memory rates per SM per clock scaled by the card's SM count and
   maximum SM clock.
-* :func:`trace` - context manager around ``torch.profiler`` that writes a
-  Chrome trace.
 * :func:`clmul_sol` / :func:`encrypt_sol` / :func:`decrypt_sol` - the
   least time the card could take, modelled on the port's designs: K1's
   comb (shared-memory loads of the multiples), K2's table lookups, the
@@ -17,7 +15,9 @@ kernels (``chip_smoke.py`` reads its bounds from here):
   :func:`clmul_ops` keeps the bit-serial count of the first K1 design.
 * :func:`device_records` / :func:`device_busy` - device time by record
   name from ``torch.profiler``'s device records.
-* :class:`Meter` - operation counters around the batch APIs.
+* :func:`span`, :func:`tracing`, :func:`records` - the program's spans,
+  kept in memory while tracing is on; :data:`counters` - its launches by
+  kernel, a graph's replays included.
 
 Nothing here holds a TPU number.  The peaks need a card (or the SM count
 and clock given by hand); the device-time functions raise without one.
@@ -26,19 +26,15 @@ and clock given by hand); the device-time functions raise without one.
 from __future__ import annotations
 
 import contextlib
-import dataclasses
-import os
 import subprocess
-import tempfile
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 
 import torch
 
 __all__ = [
     "chip_peaks",
     "max_sm_clock_mhz",
-    "trace",
     "bound",
     "clmul_ops",
     "clmul_comb_work",
@@ -51,7 +47,18 @@ __all__ = [
     "device_records",
     "device_ms",
     "device_busy",
-    "Meter",
+    "KERNELS",
+    "Counters",
+    "counters",
+    "Record",
+    "PROFILER_RANGES",
+    "span",
+    "annotate",
+    "device_span",
+    "settle",
+    "tracing",
+    "tracing_on",
+    "records",
 ]
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate and dense int8
@@ -115,25 +122,6 @@ def chip_peaks(device=None, sms: "int | None" = None, mhz: "float | None" = None
         sms=sms,
         mhz=mhz,
     )
-
-
-@contextlib.contextmanager
-def trace(logdir: "str | None" = None):
-    """Profile the body with ``torch.profiler`` (the card's activity too,
-    where there is one) and write a Chrome trace, ``trace.json``, into
-    ``logdir`` (default: a new temporary directory).  Yields ``logdir``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    logdir = logdir or tempfile.mkdtemp(prefix="homomorph_tpu_torch_trace_")
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield logdir
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    os.makedirs(logdir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 # --------------------------------------------------------------------------
@@ -264,7 +252,9 @@ def device_records(fn, iters: int = 1, traces: int = TRACES) -> "dict[str, float
             torch.cuda.synchronize()
         counts: dict[str, int] = defaultdict(int)
         for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA:
+            # a record_function range's shadow on the device's timeline is
+            # no device work
+            if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
                 times[ev.name].append(ev.time_range.elapsed_us() / 1e3)
                 counts[ev.name] += 1
         for name, c in counts.items():
@@ -289,57 +279,251 @@ def device_busy(fn, reps: int = 2) -> "tuple[float, dict[str, float]]":
     return total_ms / reps / 1e3, {k: v * 1e3 / reps for k, v in records.items()}
 
 
+
+
 # --------------------------------------------------------------------------
 # Counters
 # --------------------------------------------------------------------------
 
-
-@dataclasses.dataclass
-class _Stat:
-    calls: int = 0
-    items: int = 0
-    seconds: float = 0.0
+#: the kernels' launch counters, by the ids of PERF.md's kernel table;
+#: ``T1.dkey`` is T1's entry that reads its key from a device buffer
+KERNELS = ("K1", "R1", "R2", "C1", "C2", "C3", "K2", "K3", "X1", "T1", "T1.dkey", "M1", "M2", "M3")
 
 
-class Meter:
-    """Operation counters for observability around the batch APIs.
+class Counters:
+    """The program's counters, by key: each kernel's launches
+    (:data:`KERNELS`; a CPU or ``meta`` call launches nothing) and
+    ``mask.K1`` (the share of K1's launches the decrypt masks' route steps
+    make).
 
-    Usage::
-
-        meter = Meter()
-        with meter.measure("encrypt", items=batch_bits):
-            ct = ctx.encrypt(...)
-        print(meter.report())
-
-    The clock is the host's: around card work, synchronize inside the
-    ``with`` block to count the work and not its enqueue.
-    """
+    A count made eagerly adds at once.  A capture launches nothing: what is
+    counted while a graph is captured is set aside (:meth:`aside`) as the
+    graph's manifest, and each replay adds the manifest (:meth:`replay`)."""
 
     def __init__(self):
-        self._stats: dict[str, _Stat] = defaultdict(_Stat)
+        self._counts: "dict[str, int]" = defaultdict(int)
+
+    def add(self, key: str, n: int = 1) -> None:
+        self._counts[key] += n
+
+    def __getitem__(self, key: str) -> int:
+        return self._counts.get(key, 0)
+
+    def replay(self, manifest: "dict[str, int]") -> None:
+        """Count one replay of a graph whose capture counted ``manifest``."""
+        for key, n in manifest.items():
+            self._counts[key] += n
+
+    def snapshot(self) -> "dict[str, int]":
+        """Every key's count (the kernels' always, at 0 if never counted)."""
+        return {k: self[k] for k in sorted(set(KERNELS) | set(self._counts))}
 
     @contextlib.contextmanager
-    def measure(self, name: str, items: int = 1):
-        t0 = time.perf_counter()
+    def aside(self):
+        """Counts made inside the block are taken off the counters at its
+        end, and yielded as a dict filled then (key: count made inside)."""
+        before = dict(self._counts)
+        made: "dict[str, int]" = {}
         try:
-            yield
+            yield made
         finally:
-            dt = time.perf_counter() - t0
-            s = self._stats[name]
-            s.calls += 1
-            s.items += items
-            s.seconds += dt
+            for k, v in self._counts.items():
+                if v != before.get(k, 0):
+                    made[k] = v - before.get(k, 0)
+            self._counts = defaultdict(int, before)
 
-    def report(self) -> dict[str, dict]:
-        out = {}
-        for name, s in sorted(self._stats.items()):
-            out[name] = {
-                "calls": s.calls,
-                "items": s.items,
-                "seconds": round(s.seconds, 6),
-                "items_per_s": round(s.items / s.seconds, 1) if s.seconds else None,
-            }
-        return out
 
-    def reset(self) -> None:
-        self._stats.clear()
+#: the process's counters, incremented by the kernel wrappers and the
+#: compiled pipelines
+counters = Counters()
+
+
+# --------------------------------------------------------------------------
+# Spans
+# --------------------------------------------------------------------------
+
+#: records kept of the latest traced session (the oldest are dropped)
+MAX_RECORDS = 65536
+#: the spans that are also ``record_function`` ranges under a profiler, so
+#: that a breakdown of the trace can name them: a range costs the host tens
+#: of microseconds there, which the card idles through, so the other spans
+#: stay records in memory
+PROFILER_RANGES = frozenset({"compiled.call", "roundtrip.bits_in"})
+
+
+class Record:
+    """One span: ``name``, ``start`` and ``end`` (``time.perf_counter``
+    seconds; ``None`` for a span timed on the card), the ``id`` of its
+    ``parent`` span (``None`` at the top), the ``request`` id that every
+    span of one top-level call shares, and the ``counts`` its site
+    attached (a device span's ``device_ms`` among them)."""
+
+    __slots__ = ("id", "name", "start", "end", "parent", "request", "counts")
+
+    def __init__(self, rid, name, parent, request):
+        self.id, self.name, self.parent, self.request = rid, name, parent, request
+        self.start = self.end = None
+        self.counts: "dict[str, float]" = {}
+
+    @property
+    def seconds(self) -> "float | None":
+        return None if self.start is None or self.end is None else self.end - self.start
+
+
+class _Tracer:
+    # one for the process: the program issues its work from one host thread
+    def __init__(self):
+        self.blocks = 0  # open tracing() blocks
+        self.session = False  # a traced session holds the records
+        self.records: "deque[Record]" = deque(maxlen=MAX_RECORDS)
+        self.stack: "list[Record]" = []
+        self.ids = 0
+        self.requests = 0
+        self.pending: list = []  # (record, start event, end event)
+
+    def begin(self) -> None:
+        self.records.clear()
+        self.pending.clear()
+        self.session = True
+
+    def open(self, name: str) -> Record:
+        if not self.session:
+            self.begin()
+        parent = self.stack[-1] if self.stack else None
+        if parent is None:
+            self.requests += 1
+        rec = Record(self.ids, name, None if parent is None else parent.id,
+                     self.requests if parent is None else parent.request)
+        self.ids += 1
+        self.records.append(rec)
+        return rec
+
+
+_tracer = _Tracer()
+_autograd_profiler = torch.autograd.profiler
+
+
+def _profiler_on() -> bool:
+    # torch keeps this flag for fast checks: True while a torch.profiler
+    # (or autograd profiler) session records
+    return _autograd_profiler._is_profiler_enabled
+
+
+def tracing_on() -> bool:
+    """Tracing is on while a ``torch.profiler`` session records, and inside
+    :func:`tracing`."""
+    return bool(_tracer.blocks) or _profiler_on()
+
+
+class _Off:
+    """The span of every site while tracing is off: it does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def add(self, key: str, n) -> None:
+        pass
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("record", "range")
+
+    def __init__(self, name: str):
+        self.record = _tracer.open(name)
+        self.range = None
+
+    def __enter__(self):
+        _tracer.stack.append(self.record)
+        if self.record.name in PROFILER_RANGES and _profiler_on():
+            self.range = _autograd_profiler.record_function(self.record.name)
+            self.range.__enter__()
+        self.record.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.record.end = time.perf_counter()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        _tracer.stack.pop()
+        return False
+
+    def add(self, key: str, n) -> None:
+        """Attach a count to the span's record."""
+        self.record.counts[key] = self.record.counts.get(key, 0) + n
+
+
+def span(name: str):
+    """A span around the work of a ``with`` block, the program's own tracing.
+
+    While tracing is on (:func:`tracing_on`) it appends a :class:`Record`;
+    ``with span(name) as s: s.add(key, n)`` attaches a count.  Under a
+    profiler a span of :data:`PROFILER_RANGES` also opens a
+    ``torch.profiler.record_function`` range of ``name``, which lies on the
+    clock of the card's records.  The first span of a traced session drops the last session's
+    records: :func:`tracing` starts a session, and so does a profiler's
+    first span after a span opened while tracing was off (two profiler
+    sessions with no span between them are read as one).  While tracing is
+    off it returns one shared object that does nothing."""
+    if not (_tracer.blocks or _autograd_profiler._is_profiler_enabled):
+        _tracer.session = False
+        return _OFF
+    return _Span(name)
+
+
+def annotate(key: str, n) -> None:
+    """Add ``n`` to the count ``key`` of the innermost open span (none while
+    tracing is off)."""
+    if _tracer.stack:
+        rec = _tracer.stack[-1]
+        rec.counts[key] = rec.counts.get(key, 0) + n
+
+
+def device_span(name: str, start, end) -> None:
+    """While tracing is on: a record of ``name``, inside the open span, whose
+    ``device_ms`` count is the card's time between two CUDA events
+    (``enable_timing``), read once the later has completed, by :func:`settle`
+    or :func:`records`.  Events that will be recorded again (in a graph, at
+    its next replay) must be settled first."""
+    if not (_tracer.blocks or _profiler_on()):
+        return
+    _tracer.pending.append((_tracer.open(name), start, end))
+
+
+def settle() -> None:
+    """Read the device spans whose events are pending (waiting for them)."""
+    while _tracer.pending:
+        rec, start, end = _tracer.pending.pop(0)
+        end.synchronize()
+        rec.counts["device_ms"] = start.elapsed_time(end)
+
+
+@contextlib.contextmanager
+def tracing():
+    """Tracing on without ``torch.profiler``: spans are kept in memory only
+    (no ``record_function`` range), a new session that drops the last
+    one's records.  Read them with :func:`records`."""
+    if not _tracer.blocks:
+        _tracer.begin()
+    _tracer.blocks += 1
+    try:
+        yield
+    finally:
+        _tracer.blocks -= 1
+        if not _tracer.blocks:
+            _tracer.session = False
+
+
+def records() -> "list[Record]":
+    """The records of the latest traced session, in the order their spans
+    opened (at most :data:`MAX_RECORDS`, the newest).  Reading leaves them
+    in place."""
+    settle()
+    return list(_tracer.records)

@@ -79,18 +79,19 @@ def _check_clmul_shapes(failures: list, log, dev: torch.device) -> None:
     product must launch K1 once."""
     from .gf2 import kernels as gf2k
     from .gf2 import poly as gf2
+    from .utils.profiling import counters
 
     rng = np.random.default_rng(0xC1A0)
     for name, La, Lb, B in CLMUL_SHAPES:
         a = rng.integers(0, 1 << 32, size=(B, La), dtype=np.uint32)
         b = rng.integers(0, 1 << 32, size=(B, Lb), dtype=np.uint32)
-        before = gf2k.clmul_flat.launches
+        before = counters["K1"]
         got = gf2.to_numpy(gf2k.clmul(gf2.from_numpy(a, dev), gf2.from_numpy(b, dev)))
         steps = gf2k.route_plan(min(La, Lb), max(La, Lb), gf2k.karatsuba_min())
         route = "+".join(s[0] for s in steps) if gf2k._routed(dev) and steps else "direct"
-        if dev.type == "cuda" and gf2k.clmul_flat.launches != before + 1:
+        if dev.type == "cuda" and counters["K1"] != before + 1:
             failures.append(
-                f"clmul[{name}]: {gf2k.clmul_flat.launches - before} K1 launches, expected 1"
+                f"clmul[{name}]: {counters['K1'] - before} K1 launches, expected 1"
             )
             continue
         # oracle-check a sample of rows (the kernel is batch-uniform)

@@ -25,6 +25,7 @@ from homomorph_tpu_torch import rng as hrng
 from homomorph_tpu_torch.gf2 import encrypt_kernel as enc
 from homomorph_tpu_torch.gf2 import kernels as k
 from homomorph_tpu_torch.gf2 import poly as gf2
+from homomorph_tpu_torch.utils.profiling import counters
 
 pytestmark = pytest.mark.cuda
 
@@ -43,10 +44,10 @@ def on_card(shape, seed):
 )
 def test_clmul_kernel_matches_plain(B, La, Lb):
     a, b = on_card((B, La), 1), on_card((B, Lb), 2)
-    before = k.clmul_flat.launches
+    before = counters["K1"]
     got = k.clmul_flat(a, b)
     torch.cuda.synchronize()
-    assert k.clmul_flat.launches == before + 1
+    assert counters["K1"] == before + 1
     assert torch.equal(got, k.clmul_plain(a, b))
 
 
@@ -76,10 +77,10 @@ def test_route_matches_the_direct_launch(monkeypatch, B, La, Lb, kmin):
     launch per product, the same limbs as one direct launch."""
     a, b = on_card((B, La), 31), on_card((B, Lb), 32)
     monkeypatch.setenv(k.KARATSUBA_MIN_ENV, str(kmin))
-    before = k.clmul_flat.launches
+    before = counters["K1"]
     got = k.clmul(a, b)
     torch.cuda.synchronize()
-    assert k.clmul_flat.launches == before + 1
+    assert counters["K1"] == before + 1
     assert k.route_plan(min(La, Lb), max(La, Lb), kmin)
     assert torch.equal(got, k.clmul_flat(a, b))
     assert torch.equal(got, k.clmul_plain(a, b))
@@ -98,10 +99,10 @@ def check_route_kernels(small, big, B, steps, plans):
     """R1 against the level-by-level split and its design's mirror, once
     launched; R2 through each plan (every plan the kernel takes where its
     ascent fits) against the level-by-level join and the plan's mirror."""
-    before = k.route_split.launches
+    before = counters["R1"]
     leaf_s, leaf_g = k.route_split(small, big, steps)
     torch.cuda.synchronize()
-    assert k.route_split.launches == before + 1
+    assert counters["R1"] == before + 1
     want_s, want_g = k._split_levels(small, big, steps)
     assert torch.equal(leaf_s, want_s) and torch.equal(leaf_g, want_g)
     mirror_s, mirror_g = k.route_split_plain(small, big, steps)
@@ -115,10 +116,10 @@ def check_route_kernels(small, big, B, steps, plans):
         top, tile, group = plan[0]
         if tile and k.ascent_layout(h, lo, top, tile, group)["words"] > k.JOIN_SMEM_WORDS:
             continue
-        before = k.route_join.launches
+        before = counters["R2"]
         got = k._route_join(p, B, steps, plan)
         torch.cuda.synchronize()
-        assert k.route_join.launches == before + len(plan)
+        assert counters["R2"] == before + len(plan)
         assert torch.equal(got, want), plan
         assert torch.equal(got, k.route_join_plain(p, B, steps, plan)), plan
     return p, want
@@ -217,12 +218,12 @@ def test_routed_product_launches_r1_k1_and_r2_only(monkeypatch, B, La, Lb, kmin)
     torch.cuda.synchronize()
     most = Counter()
     for _ in range(3):
-        counts = (k.route_split.launches, k.clmul_flat.launches, k.route_join.launches)
+        counts = (counters["R1"], counters["K1"], counters["R2"])
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             got = k.clmul(a, b)
             torch.cuda.synchronize()
-        assert (k.route_split.launches - counts[0], k.clmul_flat.launches - counts[1],
-                k.route_join.launches - counts[2]) == (1, 1, J)
+        assert (counters["R1"] - counts[0], counters["K1"] - counts[1],
+                counters["R2"] - counts[2]) == (1, 1, J)
         seen = Counter(ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA)
         most = Counter({name: max(most[name], seen[name]) for name in most.keys() | seen.keys()})
     assert torch.equal(got, k.clmul_plain(a, b))
@@ -246,7 +247,7 @@ def test_routed_product_replays_in_a_cuda_graph(monkeypatch):
     with torch.cuda.graph(graph):
         out = k.clmul(a, b)
     J = len(k.join_launches(6, k.route_plan(130, 300, 33)))
-    before = (k.route_split.launches, k.clmul_flat.launches, k.route_join.launches)
+    before = (counters["R1"], counters["K1"], counters["R2"])
     for seed in (47, 48, 49):
         a.copy_(on_card(a.shape, seed))
         b.copy_(on_card(b.shape, seed + 100))
@@ -254,7 +255,7 @@ def test_routed_product_replays_in_a_cuda_graph(monkeypatch):
         torch.cuda.synchronize()
         assert torch.equal(out, k.clmul_plain(a, b))
         assert torch.equal(out, k.clmul(a, b))  # eager: counts 1, 1 and J
-    after = (k.route_split.launches, k.clmul_flat.launches, k.route_join.launches)
+    after = (counters["R1"], counters["K1"], counters["R2"])
     assert after == (before[0] + 3, before[1] + 3, before[2] + 3 * J)
 
 
@@ -310,10 +311,10 @@ def test_encrypt_kernel_matches_plain(tau, Lpk, L):
     pk = on_card((tau, Lpk), 5)
     selw = on_card((B, -(-tau // 32)), 6)
     plain = on_card((B,), 7) & 1
-    before = enc.encrypt_words_table.launches
+    before = counters["K2"]
     got = enc.encrypt_words_table(selw, pk, plain, L)
     torch.cuda.synchronize()
-    assert enc.encrypt_words_table.launches == before + 1
+    assert counters["K2"] == before + 1
     assert torch.equal(got, enc.encrypt_plain(selw, enc.pk_planes(enc.pk_columns(pk)), plain, L))
 
 
@@ -358,11 +359,11 @@ def test_encrypt_mma_kernels_match_plain(tau, Lpk, L):
     plain = on_card((B,), 11) & 1
     sel = gf2.unpack_bits(selw, tau, dtype=torch.int8)
     want = enc.encrypt_plain(selw, planes, plain, L)
-    before = (enc.encrypt_words_mma.launches, enc.encrypt_sel_mma.launches)
+    before = (counters["K3"], counters["X1"])
     k3 = enc.encrypt_words_mma(selw, planes, plain, L)
     x1 = enc.encrypt_sel_mma(sel, planes, plain, L)
     torch.cuda.synchronize()
-    assert (enc.encrypt_words_mma.launches, enc.encrypt_sel_mma.launches) == (
+    assert (counters["K3"], counters["X1"]) == (
         before[0] + 1, before[1] + 1)
     assert torch.equal(k3, want)
     assert torch.equal(x1, enc.encrypt_sel_plain(sel, planes, plain, L))
@@ -448,9 +449,9 @@ def test_selector_launches_k3_on_the_card(monkeypatch):
     pk = on_card((128, 9), 12)
     selw, plain = on_card((256, 4), 13), on_card((256,), 14) & 1
     monkeypatch.setenv(enc.ENC_IMPL_ENV, "pallas_v1")
-    before = (enc.encrypt_words_table.launches, enc.encrypt_words_mma.launches)
+    before = (counters["K2"], counters["K3"])
     got = enc.encrypt_bits_fused(selw, pk, plain, 9)
-    assert (enc.encrypt_words_table.launches, enc.encrypt_words_mma.launches) == (
+    assert (counters["K2"], counters["K3"]) == (
         before[0], before[1] + 1)
     assert torch.equal(got, enc.encrypt_words_table(selw, pk, plain, 9))
 
@@ -458,10 +459,10 @@ def test_selector_launches_k3_on_the_card(monkeypatch):
 @pytest.mark.parametrize("shape", [(5,), (7, 8), ((1 << 20) + 3, 4)])
 def test_threefry_kernel_matches_plain(shape):
     on_card((1,), 0)  # skips without a card
-    before = prng.random_bits.launches
+    before = counters["T1"]
     got = prng.random_bits((0x12345678, 0x9ABCDEF0), shape, "cuda")
     torch.cuda.synchronize()
-    assert prng.random_bits.launches == before + 1
+    assert counters["T1"] == before + 1
     assert torch.equal(got, prng.random_bits_plain((0x12345678, 0x9ABCDEF0), shape, "cuda"))
 
 
@@ -498,10 +499,10 @@ def test_wrappers_raise_on_unsupported_input():
 def test_threefry_device_key_matches_plain(key):
     on_card((1,), 0)
     buf = prng.key_words(key).cuda()
-    before = prng.random_bits_device_key.launches
+    before = counters["T1.dkey"]
     got = prng.random_bits_device_key(buf, (4099, 4))
     torch.cuda.synchronize()
-    assert prng.random_bits_device_key.launches == before + 1
+    assert counters["T1.dkey"] == before + 1
     assert torch.equal(got, prng.random_bits_plain(key, (4099, 4), "cuda"))
     assert torch.equal(got, prng.random_bits(key, (4099, 4), "cuda"))
 
@@ -596,7 +597,7 @@ def test_compiled_roundtrip_through_k3_replays_equal_eager(monkeypatch):
     monkeypatch.setenv(enc.ENC_IMPL_ENV, "pallas_v1")
     fn = compile_roundtrip(ctx, HomomorphicAddition, ht.U8)
     rng = np.random.default_rng(14)
-    before = (enc.encrypt_words_table.launches, enc.encrypt_words_mma.launches)
+    before = (counters["K2"], counters["K3"])
     for seed in (3, 4, 5):
         xs = rng.integers(0, 256, size=300).astype(np.uint8)
         ys = rng.integers(0, 256, size=300).astype(np.uint8)
@@ -608,8 +609,8 @@ def test_compiled_roundtrip_through_k3_replays_equal_eager(monkeypatch):
         assert torch.equal(out, fn.graphed._fn(keys, *dev_bits))
         got = np.packbits(out.cpu().numpy().astype(np.uint8), axis=1, bitorder="little")
         assert (got.reshape(-1) == (xs + ys).astype(np.uint8)).all()
-    assert enc.encrypt_words_table.launches == before[0]
-    assert enc.encrypt_words_mma.launches > before[1]
+    assert counters["K2"] == before[0]
+    assert counters["K3"] > before[1]
     assert fn.graphed.graphs == 1
 
     pk = ctx.get_public_key()
@@ -648,6 +649,113 @@ def test_compiled_add_through_the_carry_scan(monkeypatch):
     assert fn.graphed.graphs == 1
 
 
+PROGRAM_KERNEL_EXCLUDED = ("Memcpy", "Memset", "at::", "void at::")
+
+
+def program_kernels(prof) -> int:
+    """Device records of a profile that are the program's own kernels (no
+    copy, no torch kernel, no ``record_function`` shadow)."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False)
+               and not ev.name.startswith(PROGRAM_KERNEL_EXCLUDED) and "at::" not in ev.name)
+
+
+def device_work(prof) -> int:
+    """Device records of a profile that ran work: kernels, copies and sets
+    (no ``record_function`` shadow)."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False))
+
+
+def test_a_replay_counts_its_manifest_as_the_profiler_sees_it():
+    """A compiled u8 product: its capture counts no launch, each replay adds
+    the capture's manifest (what the counters moved by at one replay), the
+    manifest's kernel launches equal the program kernels the profiler
+    records in one replay, the graph's work nodes (torch's as well) equal
+    the replay's device records (the most of three traces, as
+    ``device_records`` counts), and the call's span carries them."""
+    import time
+
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch.models import HomomorphicMultiplication
+    from homomorph_tpu_torch.models.compiled import compile_op2
+    from homomorph_tpu_torch.utils import profiling
+    from torch.profiler import ProfilerActivity, profile
+
+    ctx = card_context(ht.Parameters(160, 16, 1, 16), 9)
+    a, b = ctx.encrypt([3, 5], ht.U8, batch=True), ctx.encrypt([7, 11], ht.U8, batch=True)
+    fn = compile_op2(HomomorphicMultiplication, ht.U8, ctx.parameters.pk_degree)
+    fn(a, b)
+    torch.cuda.synchronize()
+    (manifest,) = fn.graphed.manifests
+    (launches,) = fn.graphed.launches
+    launched = sum(manifest.get(key, 0) for key in profiling.KERNELS)
+    assert 0 < launched < launches and manifest["K1"] > 0
+    for profiled in (True, False):
+        if profiled:
+            seen = []
+            for _ in range(profiling.TRACES):  # a trace can come back short of device records
+                with profiling.tracing():
+                    pass  # a new session: this trace's records alone
+                before = counters.snapshot()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    time.sleep(0.02)
+                    out = fn(a, b)
+                    torch.cuda.synchronize()
+                seen.append((program_kernels(prof), device_work(prof)))
+            assert max(k for k, _ in seen) == launched
+            assert max(w for _, w in seen) == launches + 3  # and both inputs' copies, the clone
+        else:
+            before = counters.snapshot()
+            with profiling.tracing():
+                out = fn(a, b)
+        after = counters.snapshot()
+        assert {key: n - before.get(key, 0) for key, n in after.items()
+                if n != before.get(key, 0)} == manifest
+        calls = [r for r in profiling.records() if r.name == "compiled.call"]
+        assert [r.counts for r in calls] == [{"launches": launches}]
+        assert {r.name for r in profiling.records() if r.parent == calls[0].id} == {
+            "graph.copy_in", "graph.replay", "graph.clone"}
+    assert [int(v) for v in ctx.decrypt(out)] == [21, 55]
+
+
+def test_the_round_trip_times_its_decrypt_on_the_card():
+    """The round trip's graph records two timing events around its decrypt
+    stage, captured whatever tracing is at its capture: inside
+    ``tracing()`` each replay's decrypt milliseconds become a record in its
+    call's request."""
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch import rng as hrng
+    from homomorph_tpu_torch.models import HomomorphicAddition
+    from homomorph_tpu_torch.models.compiled import compile_roundtrip
+    from homomorph_tpu_torch.utils import profiling
+
+    ctx = card_context(ht.Parameters(64, 16, 1, 16), 13)
+    fn = compile_roundtrip(ctx, HomomorphicAddition, ht.U8)
+    rng = np.random.default_rng(14)
+    xs, ys = (rng.integers(0, 256, size=4096).astype(np.uint8) for _ in range(2))
+    bits = [np.unpackbits(v[:, None], axis=1, bitorder="little") for v in (xs, ys)]
+    fn(hrng.threefry_key(1), *bits)  # capture, tracing off
+    with profiling.tracing():
+        for seed in (2, 3, 4):
+            out = fn(hrng.threefry_key(seed), *bits)
+            torch.cuda.synchronize()
+    recs = profiling.records()
+    calls = {r.request: r for r in recs if r.name == "compiled.call"}
+    decrypts = [r for r in recs if r.name == "roundtrip.decrypt"]
+    assert len(calls) == 3 and [r.request for r in decrypts] == sorted(calls)
+    assert all(0 < r.counts["device_ms"] < 1000 and r.parent == calls[r.request].id
+               for r in decrypts)
+    assert all(r.counts == {} for r in recs if r.name == "roundtrip.bits_in")
+    assert [c.counts for c in calls.values()] == [{"launches": fn.graphed.launches[0]}] * 3
+    got = np.packbits(out.cpu().numpy().astype(np.uint8), axis=1, bitorder="little")
+    assert (got.reshape(-1) == (xs + ys).astype(np.uint8)).all()
+
+
 def test_eager_sync_refuses_capture(monkeypatch):
     import homomorph_tpu_torch as ht
     from homomorph_tpu_torch.models import HomomorphicMultiplication, circuits
@@ -666,10 +774,10 @@ def test_run_verification_on_card():
     from homomorph_tpu_torch.gf2 import kernels as k
 
     on_card((1,), 0)
-    before = (k.clmul_flat.launches, enc.encrypt_words_table.launches, prng.random_bits.launches)
+    before = (counters["K1"], counters["K2"], counters["T1"])
     lines = []
     ht.run_verification(quick=True, log=lines.append)
-    after = (k.clmul_flat.launches, enc.encrypt_words_table.launches, prng.random_bits.launches)
+    after = (counters["K1"], counters["K2"], counters["T1"])
     assert all(x > y for x, y in zip(after, before))
     assert any("route chunk+split" in line for line in lines), lines
 
@@ -689,11 +797,11 @@ def test_sharded_encrypt_on_card_matches_k2(shape, tau):
     selw = on_card((B * n, -(-tau // 32)), 4)
     sel = gf2.unpack_bits(selw, tau, dtype=torch.int8).view(B, n, tau)
     plain = on_card((B, n), 5) & 1
-    before = enc.encrypt_sel_mma.launches
+    before = counters["X1"]
     cfg = make_mesh(*shape, ["cuda"] * (shape[0] * shape[1]))
     got = bulk.sharded_encrypt_bits(cfg, sel, pk.limbs, plain, L)
     torch.cuda.synchronize()
-    assert enc.encrypt_sel_mma.launches == before + shape[0] * shape[1]
+    assert counters["X1"] == before + shape[0] * shape[1]
     assert torch.equal(got.view(B * n, L), enc.encrypt_words_table(selw, pk.limbs, plain.view(-1), L))
     back = bulk.sharded_decrypt_bits(cfg, got, sk.decrypt_mask(L))
     assert torch.equal(back, plain)
@@ -704,11 +812,11 @@ def test_sharded_clmul_on_card_matches_dense(n, B, La, Lb):
     from homomorph_tpu_torch.parallel import Mesh, limbmul, ppermute
 
     a, b = on_card((B, La), 6), on_card((B, Lb), 7)
-    before = k.clmul_flat.launches
+    before = counters["K1"]
     ppermute.local_bytes = 0
     got = limbmul.sharded_clmul(a, b, Mesh(["cuda"] * n, ("limb",)))
     torch.cuda.synchronize()
-    assert k.clmul_flat.launches == before + n
+    assert counters["K1"] == before + n
     assert ppermute.local_bytes == limbmul.comm_bytes_per_call(B, Lb, n)
     assert torch.equal(got, k.clmul(a, b))
 
@@ -751,9 +859,9 @@ def _example_names():
 @pytest.mark.parametrize("name", _example_names())
 def test_example_on_card(name, capsys):
     on_card((1,), 0)
-    before = k.clmul_flat.launches + enc.encrypt_words_table.launches
+    before = counters["K1"] + counters["K2"]
     importlib.import_module(f"homomorph_tpu_torch.examples.{name}").main(device="cuda")
-    assert k.clmul_flat.launches + enc.encrypt_words_table.launches > before
+    assert counters["K1"] + counters["K2"] > before
     assert capsys.readouterr().out.strip()
 
 
@@ -765,9 +873,9 @@ def test_bench_quick_on_card(capsys):
     from homomorph_tpu_torch import bench
 
     on_card((1,), 0)
-    before = (k.clmul_flat.launches, enc.encrypt_words_table.launches, prng.random_bits.launches)
+    before = (counters["K1"], counters["K2"], counters["T1"])
     assert bench.main(["--quick", "--json-only"]) == 0
-    after = (k.clmul_flat.launches, enc.encrypt_words_table.launches, prng.random_bits.launches)
+    after = (counters["K1"], counters["K2"], counters["T1"])
     assert all(x > y for x, y in zip(after, before))
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     ex = out["extras"]
@@ -786,9 +894,9 @@ def test_entry_on_card():
     on_card((1,), 0)
     fn, args = entry.entry("cuda")
     assert all(a.is_cuda for a in args)
-    before = (k.clmul_flat.launches, enc.encrypt_words_table.launches)
+    before = (counters["K1"], counters["K2"])
     out = [o.cpu() for o in fn(*args)]
-    assert k.clmul_flat.launches > before[0] and enc.encrypt_words_table.launches > before[1]
+    assert counters["K1"] > before[0] and counters["K2"] > before[1]
     cfn, cargs = entry.entry("cpu")
     for got, want in zip(out, cfn(*cargs)):
         assert torch.equal(got, want)
@@ -808,10 +916,10 @@ def test_square_kernel_matches_plain(B, L, n_bits, offset):
 
     x = on_card((B, L + offset), 41)[:, offset:]
     x = x if B == 1 else x.contiguous()
-    before = mk.square.launches
+    before = counters["M1"]
     got = mk.square(x, n_bits)
     torch.cuda.synchronize()
-    assert mk.square.launches == before + 1
+    assert counters["M1"] == before + 1
     assert torch.equal(got, mk.square_plain(x, n_bits))
 
 
@@ -835,10 +943,10 @@ def test_device_mask_equals_native_at_the_u32_class():
     want = native.decrypt_mask(host, 2432, 98304)
     assert np.array_equal(gf2.to_numpy(w), want)
     route = [("route", kk) for _, kk in mk.mask_plan(2432, 98304)]
-    m1, k1 = mk.square.launches, k.clmul_flat.launches
+    m1, k1 = counters["M1"], counters["K1"]
     w_route = mk.series_mask(mk.reversed_key(sk.limbs, 2432), 2432, 98304, route)
     torch.cuda.synchronize()
-    assert mk.square.launches > m1 and k.clmul_flat.launches > k1
+    assert counters["M1"] > m1 and counters["K1"] > k1
     assert np.array_equal(gf2.to_numpy(w_route), want)
 
 
@@ -857,9 +965,9 @@ def test_u32_product_decrypts_right_with_the_device_mask():
     xs, ys = [0xDEADBEEF, 12345, 0xFFFFFFFF], [0x12345678, 67890, 0xFFFFFFFF]
     prod = ctx.apply2(HomomorphicMultiplication, ctx.encrypt(xs, ht.U32, batch=True),
                       ctx.encrypt(ys, ht.U32, batch=True))
-    before = mk.newton_step.launches
+    before = counters["M2"]
     got = [int(v) for v in ctx.decrypt(prod).tolist()]
-    assert mk.newton_step.launches > before  # the product's class was new to the key
+    assert counters["M2"] > before  # the product's class was new to the key
     assert got == [(x * y) & 0xFFFFFFFF for x, y in zip(xs, ys)]
 
 
@@ -884,10 +992,10 @@ def test_newton_step_kernel_matches_plain(Li, Ls, k):
     from homomorph_tpu_torch.gf2 import mask_kernel as mk
 
     inv, sstar = step_operands(Li, Ls, Li + Ls + k)
-    before = mk.newton_step.launches
+    before = counters["M2"]
     got = mk.newton_step(inv, sstar, k)
     torch.cuda.synchronize()
-    assert mk.newton_step.launches == before + 1
+    assert counters["M2"] == before + 1
     assert torch.equal(got, mk.newton_step_plain(inv, sstar, k))
 
 
@@ -930,10 +1038,10 @@ def test_series_small_kernel_matches_plain(d, n_limbs, s0):
     sstar = mk.reversed_key(s, d)
     n_bits = 32 * n_limbs - d
     for assemble in (None, (d, n_limbs)):
-        before = mk.series_small.launches
+        before = counters["M3"]
         got = mk.series_small(sstar, n_bits, assemble)
         torch.cuda.synchronize()
-        assert mk.series_small.launches == before + 1
+        assert counters["M3"] == before + 1
         assert torch.equal(got, mk.series_small_plain(sstar, n_bits, assemble))
     with pytest.raises(ValueError):
         mk.series_small(sstar, 32 * 1025)
@@ -955,21 +1063,22 @@ def test_masks_through_every_plan_on_the_card():
         route = [("route", k) for _, k in mk.mask_plan(d, n_limbs)]
         for plan in (mk.mask_plan(d, n_limbs), mk.mask_plan(d, n_limbs, 0), route,
                      mk.mask_plan(d, n_limbs, 64)[:-1] + route[-1:], mk.mask_plan(d, n_limbs, 1024)):
-            before = mk.series_small.launches
+            before = counters["M3"]
             w = mk.series_mask(sstar, d, n_limbs, plan)
             torch.cuda.synchronize()
             assert np.array_equal(gf2.to_numpy(w), want), (d, n_limbs, plan)
             if all(kind == "M3" for kind, _ in plan):
-                assert mk.series_small.launches == before + 1
+                assert counters["M3"] == before + 1
 
 
 # -- C1, C2, C3: the circuits' glue (csrc/circuit.cu) -------------------------
 
 
-def circuit_wrapper(rec):
-    from homomorph_tpu_torch.models import circuit_kernels as ck
+def circuit_counter(rec):
+    """The launch counter's key of the kernel a recorded program runs."""
+    from homomorph_tpu_torch.experiments import exp_circuit
 
-    return getattr(ck, rec["kernel"])
+    return exp_circuit.SPECS[rec["kernel"]].kernel
 
 
 @pytest.mark.parametrize("path,widest,name", [
@@ -984,11 +1093,11 @@ def test_circuit_kernels_match_plain_at_the_paths_programs(path, widest, name):
 
     on_card((1,), 0)
     rec = exp_circuit.picks(path, widest)[name]
-    wrapper = circuit_wrapper(rec)
-    before = wrapper.launches
+    kernel = circuit_counter(rec)
+    before = counters[kernel]
     bad, err, _, _ = exp_circuit.kernel_case(rec, "cuda", seed=len(name))
     assert (bad, err) == (0, 0)
-    assert wrapper.launches == before + rec["launches"]
+    assert counters[kernel] == before + rec["launches"]
 
 
 def test_a_level_split_across_launches_on_card():
@@ -1001,11 +1110,10 @@ def test_a_level_split_across_launches_on_card():
     for kernel, launches in (("csa_level_in", 3), ("csa_level_out", 2)):
         rec = exp_circuit.described(next(r for r in recs if r["kernel"] == kernel))
         assert rec["launches"] == launches
-        wrapper = circuit_wrapper(rec)
-        before = wrapper.launches
+        before = counters[circuit_counter(rec)]
         bad, _, _, _ = exp_circuit.kernel_case(rec, "cuda", seed=launches)
         assert bad == 0
-        assert wrapper.launches == before + launches
+        assert counters[circuit_counter(rec)] == before + launches
 
 
 @pytest.mark.parametrize("shift", [1, 2, 3])

@@ -24,6 +24,7 @@ from homomorph_tpu.gf2 import poly as jpoly
 from homomorph_tpu_torch.experiments import exp_enc
 from homomorph_tpu_torch.gf2 import encrypt_kernel as tenc
 from homomorph_tpu_torch.gf2 import poly as tpoly
+from homomorph_tpu_torch.utils.profiling import counters
 
 
 def T(arr):
@@ -130,13 +131,11 @@ class TestWrappers:
     def test_cpu_tensors_take_the_plain_versions(self, rng):
         pk, selw, plain = inputs(rng, 33, 8, 2)
         planes = tenc.pk_planes(tenc.pk_columns(T(pk)))
-        before = (tenc.encrypt_words_mma.launches, tenc.encrypt_sel_mma.launches,
-                  tenc.encrypt_words_table.launches)
+        before = (counters["K3"], counters["X1"], counters["K2"])
         tenc.encrypt_words_mma(T(selw), planes, T(plain), 2)
         tenc.encrypt_sel_mma(tpoly.unpack_bits(T(selw), 33, dtype=torch.int8), planes, T(plain), 2)
         tenc.encrypt_words_table(T(selw), T(pk), T(plain), 2)
-        assert before == (tenc.encrypt_words_mma.launches, tenc.encrypt_sel_mma.launches,
-                          tenc.encrypt_words_table.launches)
+        assert before == (counters["K3"], counters["X1"], counters["K2"])
 
     def test_empty_batch(self, rng):
         pk, _, _ = inputs(rng, 33, 1, 2)

@@ -1,12 +1,13 @@
 """The port's profiling and cache utilities
 (``homomorph_tpu_torch.utils.profiling``, ``homomorph_tpu_torch.utils.cache``)
-on the CPU, mirroring ``tests/test_profiling.py``: ``Meter``, the H100 peaks
-and speed-of-light models (the SM count and clock given by hand), ``trace``
-with ``torch.profiler`` on the CPU, and ``enable_compilation_cache``."""
+on the CPU: the H100 peaks and speed-of-light models (the SM count and
+clock given by hand), the device records, the program's spans and counters
+(under ``torch.profiler`` on the CPU, and inside ``tracing()``), and
+``enable_compilation_cache``."""
 
-import json
 import types
 import os
+from collections import Counter
 
 import pytest
 import torch
@@ -15,31 +16,6 @@ import homomorph_tpu_torch as ht
 from homomorph_tpu_torch.utils import cache, profiling
 
 H100 = dict(sms=132, mhz=1980.0)
-
-
-class TestMeter:
-    def test_counters_accumulate(self):
-        m = profiling.Meter()
-        with m.measure("encrypt", items=100):
-            pass
-        with m.measure("encrypt", items=50):
-            pass
-        with m.measure("decrypt", items=7):
-            pass
-        rep = m.report()
-        assert rep["encrypt"]["calls"] == 2
-        assert rep["encrypt"]["items"] == 150
-        assert rep["decrypt"]["items"] == 7
-        assert rep["encrypt"]["items_per_s"] is None or rep["encrypt"]["items_per_s"] > 0
-        m.reset()
-        assert m.report() == {}
-
-    def test_measure_propagates_exceptions_but_records(self):
-        m = profiling.Meter()
-        with pytest.raises(RuntimeError):
-            with m.measure("op"):
-                raise RuntimeError("boom")
-        assert m.report()["op"]["calls"] == 1
 
 
 class TestPeaks:
@@ -103,15 +79,7 @@ class TestSolModels:
         assert (smem, ops) == (3 * pairs * 15 * 4, 3 * pairs * 16)
 
 
-class TestTrace:
-    def test_trace_writes_profile(self, tmp_path):
-        logdir = str(tmp_path / "trace")
-        with profiling.trace(logdir) as d:
-            torch.arange(128) * 2
-        assert d == logdir
-        with open(os.path.join(logdir, "trace.json")) as f:
-            assert "traceEvents" in json.load(f)
-
+class TestDeviceRecords:
     def test_device_time_needs_a_card(self):
         if torch.cuda.is_available():
             pytest.skip("a card is present")
@@ -156,6 +124,255 @@ class TestTrace:
         traces.extend([[]] * 3)
         with pytest.raises(RuntimeError, match="no device time in 3 traces"):
             profiling.device_busy(lambda: None)
+
+
+    def test_record_function_shadows_are_no_device_time(self, monkeypatch):
+        """A ``record_function`` range (a span of the program) leaves a
+        shadow on the device's timeline: it is no kernel and no copy."""
+        import torch.profiler
+        from torch.autograd import DeviceType
+
+        def event(name, us, annotation=False):
+            return types.SimpleNamespace(device_type=DeviceType.CUDA, name=name,
+                                         is_user_annotation=annotation,
+                                         time_range=types.SimpleNamespace(elapsed_us=lambda: us))
+
+        class FakeProfile:
+            def __init__(self, activities):
+                pass
+
+            def __enter__(self):
+                return self
+
+            def __exit__(self, *exc):
+                return False
+
+            def events(self):
+                return [event("compiled.call", 500.0, True), event("k1", 40.0),
+                        event("graph.replay", 300.0, True)]
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+        monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+        assert profiling.device_records(lambda: None, 1) == pytest.approx({"k1": 0.04})
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def tiny_context(params=(256, 16, 1, 16)):
+    ctx = ht.Context(ht.Parameters(*params), source=ht.ThreefrySource(1), device="cpu")
+    ctx.generate_secret_key()
+    ctx.generate_public_key()
+    return ctx
+
+
+class TestCounters:
+    """The registry's arithmetic: eager counts add at once; what is counted
+    while a graph is captured is set aside as its manifest, and each replay
+    adds the manifest once."""
+
+    @pytest.mark.parametrize("replays", [0, 1, 7])
+    def test_totals_are_eager_counts_plus_manifests_times_replays(self, replays):
+        c = profiling.Counters()
+        c.add("K1", 3)
+        c.add("C3", 2)
+        with c.aside() as captured:
+            c.add("K1", 5)
+            c.add("C3")
+            c.add("mask.K1", 4)
+        assert captured == {"K1": 5, "C3": 1, "mask.K1": 4}
+        assert (c["K1"], c["C3"], c["mask.K1"]) == (3, 2, 0)  # a capture launches nothing
+        for _ in range(replays):
+            c.replay(captured)
+        c.add("K1")  # an eager launch after the capture
+        assert c["K1"] == 4 + 5 * replays
+        assert c["C3"] == 2 + replays
+        assert c["mask.K1"] == 4 * replays
+        snap = c.snapshot()
+        assert set(profiling.KERNELS) <= set(snap) and snap["R1"] == 0
+        assert snap["K1"] == c["K1"] and snap.get("mask.K1", 0) == 4 * replays
+
+    def test_aside_restores_on_error_and_nests(self):
+        c = profiling.Counters()
+        with pytest.raises(RuntimeError):
+            with c.aside() as outer:
+                c.add("X1")
+                with c.aside() as inner:
+                    c.add("X1", 2)
+                raise RuntimeError("a capture failed")
+        assert inner == {"X1": 2} and outer == {"X1": 1} and c["X1"] == 0
+
+    def test_cpu_and_meta_calls_launch_nothing(self):
+        from homomorph_tpu_torch.gf2 import kernels as k
+
+        a, b = torch.ones((3, 5), dtype=torch.int32), torch.ones((3, 7), dtype=torch.int32)
+        before = profiling.counters.snapshot()
+        k.clmul_rows(a, b)
+        k.clmul_rows(a.to("meta"), b.to("meta"))
+        after = profiling.counters.snapshot()
+        moved = {key: after[key] - before.get(key, 0) for key in after if after[key] != before.get(key, 0)}
+        assert moved == {}
+
+
+class TestSpans:
+    def test_span_tree_of_an_eager_product_under_the_profiler(self, monkeypatch):
+        """One checked u8 product on the CPU, the route forced at every
+        width: the context's span holds the carry-save levels, the ripple
+        steps and the route's plan, split, leaves and join, every span one
+        request.  Only the spans of ``PROFILER_RANGES`` are ``record_function``
+        ranges in the profiler's events: a compiled call's, not these."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from homomorph_tpu_torch.gf2 import kernels as k
+        from homomorph_tpu_torch.models import HomomorphicAddition, HomomorphicMultiplication
+        from homomorph_tpu_torch.models.compiled import compile_op2
+
+        ctx = tiny_context()
+        a, b = ctx.encrypt([3, 5], ht.U8, batch=True), ctx.encrypt([7, 11], ht.U8, batch=True)
+        add = compile_op2(HomomorphicAddition, ht.U8, ctx.parameters.pk_degree)
+        add(a, b)  # its metadata from meta tensors, before the route is forced
+        monkeypatch.setenv(k.FORCE_KARATSUBA_ENV, "1")
+        monkeypatch.setenv(k.KARATSUBA_MIN_ENV, "4")
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = ctx.apply2(HomomorphicMultiplication, a, b)
+            add(a, b)
+        assert [int(v) for v in ctx.decrypt(out)] == [21, 55]
+        everything = profiling.records()
+        recs = [r for r in everything if r.request == everything[0].request]
+        assert {r.name for r in everything if r not in recs} >= {"compiled.call"}
+        names = Counter(r.name for r in recs)
+        assert names["context.apply"] == 1 and recs[0].name == "context.apply"
+        for name in ("circuit.csa_level", "circuit.ripple", "route.plan", "route.split",
+                     "route.leaves", "route.join"):
+            assert names[name] > 0, name
+        assert set(names) <= {"context.apply", "circuit.csa_level", "circuit.ripple",
+                              "route.plan", "route.split", "route.leaves", "route.join"}
+        assert {r.request for r in recs} == {recs[0].request}
+        by_id = {r.id: r for r in recs}
+        for r in recs[1:]:  # each inside its parent; the circuit's spans inside the call's
+            parent = by_id[r.parent]
+            assert parent.start <= r.start <= r.end <= parent.end
+            assert parent.name in ("context.apply", "circuit.csa_level", "circuit.ripple")
+            assert r.name.startswith("route.") or parent.name == "context.apply"
+        named = {r.name for r in everything}
+        assert Counter(e.name for e in prof.events() if e.name in named) == {"compiled.call": 1}
+
+    def test_off_means_off(self, monkeypatch):
+        """With no profiler and no ``tracing()``, a checked call and a
+        compiled call make no record and never enter ``record_function``."""
+        from homomorph_tpu_torch.models import HomomorphicAddition
+        from homomorph_tpu_torch.models.compiled import compile_op2
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("record_function entered while tracing is off")
+
+        with profiling.tracing():
+            pass  # an empty session: the last one's records are gone
+        monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+        monkeypatch.setattr(torch.profiler, "record_function", refuse)
+        ctx = tiny_context()
+        a, b = ctx.encrypt([3, 5], ht.U8, batch=True), ctx.encrypt([7, 11], ht.U8, batch=True)
+        assert not profiling.tracing_on()
+        out = ctx.apply2(HomomorphicAddition, a, b)
+        fn = compile_op2(HomomorphicAddition, ht.U8, ctx.parameters.pk_degree)
+        assert torch.equal(fn(a, b).limbs, out.limbs)
+        assert [int(v) for v in ctx.decrypt(out)] == [10, 16]
+        assert profiling.records() == []
+        assert profiling.span("x") is profiling.span("y")  # one shared object
+
+    def test_tracing_records_without_the_profiler_and_a_new_session_hides_the_last(
+            self, monkeypatch):
+        """Inside ``tracing()`` the compiled round trip's spans are kept in
+        memory (no ``record_function``): one request a call, the call's
+        span around the bits' copy, the first shape's mask and the keys;
+        reading leaves them, and the next session drops them."""
+        import numpy as np
+
+        from homomorph_tpu_torch import rng as hrng
+        from homomorph_tpu_torch.models import HomomorphicAddition
+        from homomorph_tpu_torch.models.compiled import compile_roundtrip
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("record_function entered without a profiler")
+
+        monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+        ctx = tiny_context((64, 16, 1, 16))
+        fn = compile_roundtrip(ctx, HomomorphicAddition, ht.U8)
+        bits = [np.unpackbits(np.array([[v]], dtype=np.uint8), axis=1, bitorder="little")
+                for v in (9, 30)]
+        with profiling.tracing():
+            assert profiling.tracing_on()
+            for seed in (1, 2):
+                out = fn(hrng.threefry_key(seed), *bits)
+                assert np.packbits(out.numpy().astype(np.uint8), bitorder="little")[0] == 39
+        assert not profiling.tracing_on()
+        recs = profiling.records()
+        first = recs[0].request
+        assert [(r.name, r.request - first) for r in recs
+                if r.name.startswith(("compiled.", "roundtrip."))] == [
+            ("compiled.call", 0), ("roundtrip.bits_in", 0), ("roundtrip.mask", 0),
+            ("roundtrip.keys", 0), ("compiled.call", 1), ("roundtrip.bits_in", 1),
+            ("roundtrip.keys", 1)]
+        calls = [r for r in recs if r.name == "compiled.call"]
+        assert all(r.parent is None and r.seconds > 0 for r in calls)
+        assert all(r.parent in {c.id for c in calls} for r in recs if r.name.startswith("roundtrip"))
+        assert {r.request for r in recs} == {first, first + 1}  # the circuit's spans too
+        assert all(r.counts == {} for r in recs if r.name.startswith("roundtrip."))
+        assert profiling.records() == recs  # reading does not drain
+        with profiling.tracing():
+            pass
+        assert profiling.records() == []
+
+    def test_spans_close_on_error_and_the_ring_keeps_the_newest(self, monkeypatch):
+        from collections import deque
+
+        with profiling.tracing():
+            monkeypatch.setattr(profiling._tracer, "records", deque(maxlen=4))
+            with pytest.raises(ValueError):
+                with profiling.span("outer"):
+                    with profiling.span("inner") as s:
+                        s.add("bytes", 8)
+                        profiling.annotate("bytes", 2)
+                        raise ValueError("boom")
+            for i in range(5):
+                with profiling.span(f"s{i}"):
+                    profiling.annotate("launches", i)
+        recs = profiling.records()
+        assert [r.name for r in recs] == ["s1", "s2", "s3", "s4"]
+        assert [r.counts for r in recs] == [{"launches": i} for i in range(1, 5)]
+        assert len({r.request for r in recs}) == 4 and profiling._tracer.stack == []
+
+    def test_device_spans_read_their_events_when_read(self):
+        """A device span's ``device_ms`` is read from its two events once
+        the records are read (or settled), in the open span's request."""
+        waited = []
+
+        class Event:
+            def __init__(self, t):
+                self.t = t
+
+            def synchronize(self):
+                waited.append(self.t)
+
+            def elapsed_time(self, end):
+                return end.t - self.t
+
+        with profiling.tracing():
+            with profiling.span("compiled.call"):
+                profiling.device_span("roundtrip.decrypt", Event(1.0), Event(3.5))
+            assert waited == []
+        profiling.device_span("ignored", Event(0.0), Event(1.0))  # tracing is off
+        recs = profiling.records()
+        assert [(r.name, r.parent, r.counts) for r in recs] == [
+            ("compiled.call", None, {}), ("roundtrip.decrypt", recs[0].id, {"device_ms": 2.5})]
+        assert recs[1].request == recs[0].request and recs[1].seconds is None
+        assert waited == [3.5]
 
 
 class TestCompilationCache:

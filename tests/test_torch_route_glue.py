@@ -33,6 +33,7 @@ import torch
 from homomorph_tpu.gf2 import kernels as jk
 from homomorph_tpu_torch.gf2 import kernels as k
 from homomorph_tpu_torch.gf2 import poly as gf2
+from homomorph_tpu_torch.utils.profiling import counters
 
 KMINS = (2, 3, 8, 33, 64)
 # odd widths, chunk tails narrower than the smaller operand (17 x 200: a
@@ -229,13 +230,13 @@ def test_forced_route_matches_jax(monkeypatch, La, Lb, kmin):
 def test_cpu_wrappers_compute_the_plain_versions(La, Lb, kmin):
     small, big = operands(La, Lb)
     steps = k.route_plan(small.shape[1], big.shape[1], kmin)
-    counts = (k.route_split.launches, k.route_join.launches)
+    counts = (counters["R1"], counters["R2"])
     leaves = k.route_split(small, big, steps)
     want = k._split_levels(small, big, steps)
     assert all(torch.equal(x, y) for x, y in zip(leaves, want))
     p = k.clmul_plain(*leaves)
     assert torch.equal(k.route_join(p, small.shape[0], steps), k._join_levels(p, small.shape[0], steps))
-    assert (k.route_split.launches, k.route_join.launches) == counts  # CPU calls do not count
+    assert (counters["R1"], counters["R2"]) == counts  # CPU calls do not count
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
