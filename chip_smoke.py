@@ -15,7 +15,11 @@ Phases, in order; any failure exits non-zero before the result line:
    encrypt kernels K2, K3 and X1 at tau 128, 256 and 33, and T1 threefry,
    whose first words must also equal ``jax.random.bits``' (:data:`JAX_BITS`),
    and T1's device-key entry, for three keys eager and in a captured CUDA
-   graph replayed after each rewrite of its key buffer;
+   graph replayed after each rewrite of its key buffer; K1's two thread
+   mappings, the comb and the square path, equal and timed in turns by CUDA
+   events at 1-1,022 limbs (:func:`phase_square_sweep`: the u32 product's
+   widest leaf launches at 32, 41 and 48), the crossover printed beside
+   ``SQUARE_MIN`` in ``csrc/clmul.cu``, and the ``K1.square`` counter;
    K2 also at tau 1 and 300, at L above the key's limbs and at keys whose
    tables the launcher tiles (checked only); beside each K3 and X1 row, its
    share of the bound and of the tensor-core count, and the device time of
@@ -355,6 +359,77 @@ def clmul_rows(ctx, shapes, plain_events=False):
             f"kernel {rows[-1]['ms']} ms by {rows[-1]['ms_by']} (call {rows[-1]['call_ms']} ms), "
             f"plain {rows[-1]['plain_ms']} ms by {rows[-1]['plain_by']}")
     return set_bounds(ctx, rows)
+
+
+# the square path's sweep (L, rows): the u32 product's (d = 2432) widest leaf
+# launches at 32, 41 and 48 limbs; the add's whole-tensor AND at 9; keygen's
+# S*Q_i at 5 (128 rows in set-up: here at 2^20 rows, for the launch); about
+# as many comb pairs as the 48-limb leaves elsewhere
+SQUARE_SWEEP = ((1, 1 << 22), (2, 1 << 22), (5, 1 << 20), (9, 524288), (16, 1 << 20),
+                (24, 1 << 20), (32, 1259712), (41, 49152), (48, 384912), (63, 262144),
+                (128, 65536), (1022, 1024))
+SQUARE_WINDOW_MS = 20.0  # CUDA-event window a timed turn spans at least
+
+
+def square_case(ctx, L, B):
+    """K1's two mappings on [B, L] x [B, L]: the comb of unbalanced products
+    and the square path, equal limb for limb (and to the plain version on
+    the first and last 256 rows), each timed by CUDA events in turns (comb,
+    square, square, comb) over windows of at least SQUARE_WINDOW_MS."""
+    import statistics
+
+    torch = ctx["torch"]
+    from homomorph_tpu_torch.gf2 import kernels as k
+
+    a, b = random_words(ctx, (B, L)), random_words(ctx, (B, L))
+    comb, square = (lambda: k.clmul_mapping(a, b, False)), (lambda: k.clmul_mapping(a, b, True))
+    got, want = square(), comb()
+    torch.cuda.synchronize()
+    bad, _ = compare(torch, got, want)
+    check(bad == 0, f"K1 square path {L}x{L} at B={B}: {bad} limbs differ from the comb")
+    for part in (slice(0, 256), slice(max(0, B - 256), B)):
+        bad, _ = compare(torch, got[part], k.clmul_plain(a[part], b[part]))
+        check(bad == 0, f"K1 square path {L}x{L} at B={B}: {bad} limbs differ from the plain version")
+    del got, want
+    iters = max(1, int(SQUARE_WINDOW_MS / call_ms(torch, comb, 1)))
+    times = {"comb": [], "square": []}
+    for name in ("comb", "square", "square", "comb"):
+        times[name].append(call_ms(torch, comb if name == "comb" else square, iters))
+    comb_ms, square_ms = (statistics.median(times[n]) for n in ("comb", "square"))
+    row = dict(L=L, B=B, iters=iters, comb_ms=times["comb"], square_ms=times["square"],
+               speedup=comb_ms / square_ms, takes_square=k.square_path(L, L),
+               rows_a_block=k.square_layout(L)[0])
+    log(f"[K1 square] {L}x{L} B={B}: comb {comb_ms:.5f} ms, square {square_ms:.5f} ms "
+        f"({row['speedup']:.3f}x; turns {times['comb'][0]:.5f} {times['square'][0]:.5f} "
+        f"{times['square'][1]:.5f} {times['comb'][1]:.5f}), {row['rows_a_block']} rows a block; "
+        f"hm_clmul takes {'the square path' if row['takes_square'] else 'the comb'}; equal")
+    return row
+
+
+def phase_square_sweep(ctx):
+    """K1's phase, the square path: the two mappings timed in turns at
+    SQUARE_SWEEP's widths, the crossover (the least width from which the
+    square path wins at every wider one of the sweep) beside the code's
+    ``SQUARE_MIN``; and the ``K1.square`` counter: one a launch on square
+    operands from the crossover, none on unbalanced ones."""
+    from homomorph_tpu_torch.gf2 import kernels as k
+
+    rows = [square_case(ctx, L, B) for L, B in SQUARE_SWEEP]
+    least = None
+    for r in sorted(rows, key=lambda r: -r["L"]):
+        if r["speedup"] <= 1.0:
+            break
+        least = r["L"]
+    code_min = min((L for L in range(1, 1023) if k.square_path(L, L)), default=None)
+    log(f"[K1 square] measured crossover {least} limbs; SQUARE_MIN in the code {code_min}")
+    for La, Lb in ((32, 32), (48, 48), (9, 256), (48, 64)):
+        a, b = random_words(ctx, (4, La)), random_words(ctx, (4, Lb))
+        before = (counters["K1"], counters["K1.square"])
+        k.clmul_flat(a, b)
+        moved = (counters["K1"] - before[0], counters["K1.square"] - before[1])
+        want = (1, int(La == Lb and code_min is not None and La >= code_min))
+        check(moved == want, f"K1 {La}x{Lb}: counters K1, K1.square moved {moved}, not {want}")
+    return dict(rows=rows, crossover=least, square_min=code_min)
 
 
 def phase_kernels(ctx):
@@ -2390,6 +2465,7 @@ def main(argv=None):
     clocks = {"before phase 3": nvidia_smi(clock_query)}
     t0 = time.perf_counter()
     rows = phase_kernels(ctx)
+    square = phase_square_sweep(ctx)
     clocks["after phase 3"] = nvidia_smi(clock_query)
     log(f"[kernels] phase done in {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
@@ -2403,7 +2479,8 @@ def main(argv=None):
         "clmul": "K1", "encrypt": "K2", "encrypt_v1": "K3", "encrypt_v3": "X1",
         "threefry": "T1", "threefry_dkey": "T1.dkey", "square": "M1", "newton_step": "M2",
         "series_small": "M3", "mask_clmul": "mask.K1", "route_split": "R1", "route_join": "R2",
-        "csa_level_in": "C1", "csa_level_out": "C2", "ripple_step": "C3"}
+        "csa_level_in": "C1", "csa_level_out": "C2", "ripple_step": "C3",
+        "clmul_square": "K1.square"}
 
     def run_path(fn):
         before = launch_counts(ctx)
@@ -2502,6 +2579,10 @@ def main(argv=None):
         for name in names:
             check(paths[path][name] > 0, f"{name} was not launched on the {path} path")
     check(paths["mul_cmp"]["encrypt"] == 0, "K2 ran while pallas_v1 selected K3")
+    for path in ("wide", "u64", "compiled"):  # their routed products' leaves are square
+        check(0 < paths[path]["clmul_square"] <= paths[path]["clmul"],
+              f"K1's square path launched {paths[path]['clmul_square']} of {paths[path]['clmul']} "
+              f"times on the {path} path")
     # the limb-mesh hook is inert without a mesh: K1's launches on the
     # earlier paths, less the mask route's, are those of the runs before
     # either existed
@@ -2573,7 +2654,8 @@ def main(argv=None):
         with open(args.json, "w") as f:
             json.dump(dict(card=card, rows=rows, main=main_stats, bulk=bulk_stats,
                            mulcmp=mul_stats, exp_enc=exp_stats, launches=paths,
-                           route_sweep=sweep, wide=wide_stats, u32_widest=widest,
+                           route_sweep=sweep, square_sweep=square, wide=wide_stats,
+                           u32_widest=widest,
                            verify=verify_stats, masks=mask_stats,
                            mesh=mesh_stats,
                            u64=u64_stats, entry=entry_stats, bench=bench_stats,

@@ -36,6 +36,38 @@
 // window on the INT32 units.  The loads bind at every shape the paths use.
 // Shapes are any Ls, Lg >= 1; the caller passes the smaller operand first
 // (the product is commutative) so each thread loops over at most Ls limbs.
+//
+// The square path (Ls == Lg == L, from SQUARE_MIN limbs): a second thread
+// mapping of the same comb.  Above, a lane of a balanced product walks every
+// limb i of its tile, and output limb m only needs i with m - i in
+// [0, L + 1]: at 32, 41 and 48 limbs 53%, 45% and 52% of its lane-iterations
+// feed an output.  Here a row takes P = L + 2 lanes and every lane walks
+// i = 0 .. L-1 once, in step with its row.  Lane t at step i reads window
+// column j = (t - i) mod P, so it adds into output limb t while i <= t and
+// into limb t + P after (the two are one register: the lane keeps a copy
+// of it at i == t, and the second limb is the XOR of the two).  Every
+// (limb m, limb i) pair is walked once: L (L + 2) - 1 of the L (L + 2)
+// lane-iterations are needed (only lane L - 2's last step feeds limb 2L,
+// which does not exist).  The modulus costs a second copy of the window:
+// each multiple is stored as positions 0 .. 2L+1, columns 2 .. L+1 then
+// 0 .. L+1 (column L + 1 is zero, and stands for column -1), and lane t
+// reads position t - i + L, a run that slides down by one a step.
+//
+// Several rows share a block (`rows`, square_plan: the fewest idle lanes in
+// the last warp, a row), so a warp may hold lanes of two or three rows, each
+// with its own nibble.  The layout keeps their reads in distinct banks: the
+// multiples are [16][rows x row_words] with a multiple's stride a multiple of
+// 32 words and row_words = P (mod 32), so lane (r, t) reads bank
+// (r P + t + L - i) mod 32 = (its thread index + L - i) mod 32 whatever the
+// nibbles: no conflicts.  A row's limbs of s sit at an odd stride, so the
+// rows of a warp read them from distinct banks.  Useful share of lane-iterations, from
+// the design: a row's 99.9%, times the share of live lanes in whole warps:
+// 99.9% at 32 limbs (16 rows, 544 threads), 98.9% at 41 (14 rows, 602 of
+// 608), 99.4% at 48 (7 rows, 350 of 352).  The bound is the old one's,
+// at half the iterations: 15 conflict-free loads a pair, and the funnel
+// shifts, XORs, nibble and address arithmetic (about 40 INT32 operations a
+// step) beside them; staging adds 32 stores a column (two copies), under
+// a tenth of a row's loads from L = 24 up.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -44,6 +76,33 @@ namespace {
 
 constexpr int MAX_MT = 512;  // output limbs (threads) per block
 constexpr int MAX_IC = 64;   // limbs of the smaller operand per staged window
+
+// Column j of the 16 multiples u*g from g[j-1] (g0) and g[j] (g1), stored at
+// col[u * stride]
+__device__ __forceinline__ void store_multiples(uint32_t* col, int stride, uint32_t g0,
+                                                uint32_t g1) {
+    const uint32_t t1 = g1;
+    const uint32_t t2 = __funnelshift_l(g0, g1, 1);
+    const uint32_t t4 = __funnelshift_l(g0, g1, 2);
+    const uint32_t t8 = __funnelshift_l(g0, g1, 3);
+    const uint32_t t3 = t1 ^ t2, t5 = t4 ^ t1, t6 = t4 ^ t2, t7 = t4 ^ t3;
+    col[0 * stride] = 0u;
+    col[1 * stride] = t1;
+    col[2 * stride] = t2;
+    col[3 * stride] = t3;
+    col[4 * stride] = t4;
+    col[5 * stride] = t5;
+    col[6 * stride] = t6;
+    col[7 * stride] = t7;
+    col[8 * stride] = t8;
+    col[9 * stride] = t8 ^ t1;
+    col[10 * stride] = t8 ^ t2;
+    col[11 * stride] = t8 ^ t3;
+    col[12 * stride] = t8 ^ t4;
+    col[13 * stride] = t8 ^ t5;
+    col[14 * stride] = t8 ^ t6;
+    col[15 * stride] = t8 ^ t7;
+}
 
 __global__ void clmul_comb_kernel(const uint32_t* __restrict__ small,
                                   const uint32_t* __restrict__ big,
@@ -77,28 +136,7 @@ __global__ void clmul_comb_kernel(const uint32_t* __restrict__ small,
             const int j = jbase + x;
             const uint32_t g1 = (j >= 0 && j < Lg) ? __ldg(g + j) : 0u;
             const uint32_t g0 = (j >= 1 && j <= Lg) ? __ldg(g + j - 1) : 0u;
-            const uint32_t t1 = g1;
-            const uint32_t t2 = __funnelshift_l(g0, g1, 1);
-            const uint32_t t4 = __funnelshift_l(g0, g1, 2);
-            const uint32_t t8 = __funnelshift_l(g0, g1, 3);
-            const uint32_t t3 = t1 ^ t2, t5 = t4 ^ t1, t6 = t4 ^ t2, t7 = t4 ^ t3;
-            uint32_t* col = T + x;
-            col[0 * stride] = 0u;
-            col[1 * stride] = t1;
-            col[2 * stride] = t2;
-            col[3 * stride] = t3;
-            col[4 * stride] = t4;
-            col[5 * stride] = t5;
-            col[6 * stride] = t6;
-            col[7 * stride] = t7;
-            col[8 * stride] = t8;
-            col[9 * stride] = t8 ^ t1;
-            col[10 * stride] = t8 ^ t2;
-            col[11 * stride] = t8 ^ t3;
-            col[12 * stride] = t8 ^ t4;
-            col[13 * stride] = t8 ^ t5;
-            col[14 * stride] = t8 ^ t6;
-            col[15 * stride] = t8 ^ t7;
+            store_multiples(T + x, stride, g0, g1);
         }
         for (int t = threadIdx.x; t <= c1 - c0; t += MT) S[t] = __ldg(s + c0 + t);
         __syncthreads();
@@ -117,13 +155,120 @@ __global__ void clmul_comb_kernel(const uint32_t* __restrict__ small,
     if (m <= m_hi) out[row * Lo + m] = acc;
 }
 
-}  // namespace
+// Square products below SQUARE_MIN limbs would stay on the comb above: the
+// least width from which the square path beats it on the card, by
+// chip_smoke.py's K1 phase (phase_square_sweep) on an NVIDIA H100 80GB HBM3 at
+// 700 W.  It won at every width of the sweep, 1, 2, 5, 9, 16, 24, 32, 41, 48,
+// 63, 128 and 1,022 limbs (1.6-5.6 times; 1.88 at 32, 1.97 at 41, 1.87 at 48:
+// PERF.md section 6), so every square product up to SQUARE_MAX takes it.
+constexpr int SQUARE_MIN = 1;
+// one row's P = L + 2 lanes in a block of at most 1,024 threads
+constexpr int SQUARE_MAX = 1022;
+// a block's shared memory when it takes more than one row: two blocks an SM
+constexpr int SQUARE_SMEM_ROWS = 113 * 1024;
 
-// small [B, Ls], big [B, Lg] -> out [B, Ls + Lg], all contiguous u32.
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int hm_clmul(const void* small, const void* big, void* out,
-                        long long B, int Ls, int Lg, void* stream) {
+struct Square {
+    int rows;       // rows a block
+    int row_words;  // a row's window in one multiple; = P mod 32
+    int nib_words;  // a multiple's stride: rows x row_words, to a multiple of 32
+    int s_words;    // a row's limbs of s: odd
+    size_t smem;
+};
+
+// The square path's layout at L limbs: the number of rows a block that
+// leaves the fewest idle lanes a row in its last warp (ties to fewer rows),
+// within 1,024 threads and SQUARE_SMEM_ROWS bytes.  False past SQUARE_MAX.
+bool square_plan(int L, Square* q) {
+    if (L < 1 || L > SQUARE_MAX) return false;
+    const int P = L + 2;
+    q->rows = 0;
+    q->row_words = P + 32 * ((L + 31) / 32);
+    q->s_words = L | 1;
+    int idle = 0;
+    for (int rows = 1; rows * P <= 1024; ++rows) {
+        const int nib = (rows * q->row_words + 31) / 32 * 32;
+        const size_t smem = (size_t)(16 * nib + rows * q->s_words) * sizeof(uint32_t);
+        if (rows > 1 && smem > (size_t)SQUARE_SMEM_ROWS) break;
+        const int spare = (rows * P + 31) / 32 * 32 - rows * P;
+        if (q->rows == 0 || spare * q->rows < idle * rows) {
+            q->rows = rows;
+            q->nib_words = nib;
+            q->smem = smem;
+            idle = spare;
+        }
+    }
+    return true;
+}
+
+__global__ void __launch_bounds__(1024)
+clmul_comb_kernel_square(const uint32_t* __restrict__ small, const uint32_t* __restrict__ big,
+                         uint32_t* __restrict__ out, long long B, int L, int rows,
+                         int row_words, int nib_words, int s_words) {
+    extern __shared__ uint32_t sh[];
+    const int P = L + 2;
+    const int r = threadIdx.x / P;  // the block's row (rows and past: idle lanes)
+    const int t = threadIdx.x - r * P;
+    const long long row = (long long)blockIdx.x * rows + r;
+    const bool live = r < rows && row < B;
+    uint32_t* T = sh + r * row_words;  // multiple u's window at T[u * nib_words + pos]
+    uint32_t* S = sh + 16 * nib_words + r * s_words;
+
+    if (live) {
+        // lane t stages column j = t: at position L + j, and at j - 2 for j >= 2
+        const uint32_t* g = big + row * L;
+        const uint32_t g1 = t < L ? __ldg(g + t) : 0u;
+        const uint32_t g0 = (t >= 1 && t <= L) ? __ldg(g + t - 1) : 0u;
+        store_multiples(T + L + t, nib_words, g0, g1);
+        if (t >= 2) store_multiples(T + t - 2, nib_words, g0, g1);
+        if (t < L) S[t] = __ldg(small + row * L + t);
+    }
+    __syncthreads();
+    if (!live) return;
+
+    // position t - i + L at step i, as a byte address: a multiple's word is
+    // then one multiply-add away (nib_bytes), and each nibble one byte permute
+    const char* col = reinterpret_cast<const char*>(T + L + t);
+    const unsigned nib_bytes = 4u * nib_words;
+    uint32_t acc = 0u, low = 0u;
+#pragma unroll 2
+    for (int i = 0; i < L; ++i, col -= 4) {
+        const uint32_t si = S[i];
+        const uint32_t even = si & 0x0F0F0F0Fu, odd = (si >> 4) & 0x0F0F0F0Fu;  // nibbles 0, 2, ..; 1, 3, ..
+        acc ^= *reinterpret_cast<const uint32_t*>(col + __byte_perm(even, 0u, 0x4440u) * nib_bytes);
+#pragma unroll
+        for (int w = 1; w < 8; ++w) {
+            const unsigned nib = __byte_perm(w & 1 ? odd : even, 0u, 0x4440u + (w >> 1));
+            const uint32_t* c = reinterpret_cast<const uint32_t*>(col + nib * nib_bytes);
+            acc ^= __funnelshift_l(c[-1], c[0], 4 * w);
+        }
+        if (i == t) low = acc;  // limb t is whole; limb t + P gathers from here on
+    }
+    uint32_t* o = out + row * 2 * L;
+    if (t < L) {
+        o[t] = low;
+        if (t + P < 2 * L) o[t + P] = acc ^ low;
+    } else if (t < 2 * L) {
+        o[t] = acc;
+    }
+}
+
+int launch(const void* small, const void* big, void* out, long long B, int Ls, int Lg,
+           bool square, cudaStream_t stream) {
     if (B < 1 || Ls < 1 || Lg < 1) return (int)cudaErrorInvalidValue;
+    if (square) {
+        Square q;
+        if (Ls != Lg || !square_plan(Ls, &q)) return (int)cudaErrorInvalidValue;
+        const long long blocks = (B + q.rows - 1) / q.rows;
+        if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+        const int threads = (q.rows * (Ls + 2) + 31) / 32 * 32;
+        const cudaError_t err = cudaFuncSetAttribute(
+            clmul_comb_kernel_square, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q.smem);
+        if (err != cudaSuccess) return (int)err;
+        clmul_comb_kernel_square<<<(unsigned int)blocks, threads, q.smem, stream>>>(
+            (const uint32_t*)small, (const uint32_t*)big, (uint32_t*)out, B, Ls, q.rows,
+            q.row_words, q.nib_words, q.s_words);
+        return (int)cudaGetLastError();
+    }
     const int Lo = Ls + Lg;
     // output tiles of at most MAX_MT limbs, balanced, in whole warps
     const int n_mtiles = (Lo + MAX_MT - 1) / MAX_MT;
@@ -134,7 +279,29 @@ extern "C" int hm_clmul(const void* small, const void* big, void* out,
     const size_t smem = (size_t)(16 * (MT + IC) + IC) * sizeof(uint32_t);
     const long long blocks = B * n_mtiles;
     if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;  // grid x limit
-    clmul_comb_kernel<<<(unsigned int)blocks, MT, smem, (cudaStream_t)stream>>>(
+    clmul_comb_kernel<<<(unsigned int)blocks, MT, smem, stream>>>(
         (const uint32_t*)small, (const uint32_t*)big, (uint32_t*)out, Ls, Lg, n_mtiles, IC);
     return (int)cudaGetLastError();
+}
+
+bool takes_square(int Ls, int Lg) { return Ls == Lg && Ls >= SQUARE_MIN && Ls <= SQUARE_MAX; }
+
+}  // namespace
+
+// small [B, Ls], big [B, Lg] -> out [B, Ls + Lg], all contiguous u32, by the
+// square path where hm_clmul_square says so, else by the comb above.
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int hm_clmul(const void* small, const void* big, void* out,
+                        long long B, int Ls, int Lg, void* stream) {
+    return launch(small, big, out, B, Ls, Lg, takes_square(Ls, Lg), (cudaStream_t)stream);
+}
+
+// 1 where hm_clmul takes the square path at these widths, else 0
+extern "C" int hm_clmul_square(int Ls, int Lg) { return takes_square(Ls, Lg) ? 1 : 0; }
+
+// One mapping, named: the square path (square != 0; any Ls == Lg up to
+// SQUARE_MAX) or the comb above.  For measuring the crossover and for tests.
+extern "C" int hm_clmul_mapping(const void* small, const void* big, void* out,
+                                long long B, int Ls, int Lg, int square, void* stream) {
+    return launch(small, big, out, B, Ls, Lg, square != 0, (cudaStream_t)stream);
 }

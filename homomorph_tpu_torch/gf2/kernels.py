@@ -10,13 +10,20 @@ kernel's wrapper:
   windowed comb (Lopez-Dahab) that stages the 16 multiples ``u*g`` of the
   wider operand in shared memory and adds one funnel-shifted multiple per
   nibble of the smaller one, one thread per output limb (see the note in
-  that file); its bound is the comb's shared-memory loads;
+  that file); its bound is the comb's shared-memory loads.  Square
+  products (every leaf of the route) take its square path, which the
+  kernel picks from the widths alone (:func:`square_path`): the same comb,
+  ``L + 2`` lanes a row each walking every limb once, so no lane walks a
+  limb pair its output does not need; such a launch also counts
+  ``K1.square``;
 * on a CPU tensor it computes :func:`clmul_plain`, the 32-plane sweep of
   :func:`homomorph_tpu_torch.gf2.poly.clmul`, chunked over the batch.
 
 :func:`clmul_comb_plain` follows the kernel's decomposition step by step in
-torch (the multiples, then the nibble walk with funnel shifts), so the CPU
-tests check its indexing against the JAX package; no path calls it.
+torch (the multiples, then the nibble walk with funnel shifts), and
+:func:`clmul_square_plain` the square path's (its blocks' shared memory, each
+lane's steps and window positions), so the CPU tests check their indexing
+against the JAX package; no path calls them.
 
 **The Karatsuba route** (counterpart of ``_karatsuba_flat`` and of the
 chunk branch of ``_clmul_flat``, ``kernels.py:212-225, 356-387``).  When
@@ -70,6 +77,7 @@ batches fill the machine, is what the stacked pieces and levels do here.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
 
@@ -81,6 +89,7 @@ from ..utils.profiling import counters, span
 
 __all__ = [
     "clmul", "clmul_rows", "clmul_flat", "clmul_plain", "clmul_comb_plain",
+    "clmul_square_plain", "square_layout", "square_path", "clmul_mapping",
     "karatsuba_min", "route_plan", "route_split", "route_join", "split_plan", "split_layout",
     "join_launches", "ascent_layout", "join_plans", "leaf_rows", "route_split_plain",
     "route_join_plain", "join_pieces_plain",
@@ -108,18 +117,29 @@ limb_hook = None
 
 
 def _kernel():
+    """``csrc/clmul.cu``'s library, its entries typed."""
     global _fn
     if _fn is None:
         from .cuda_build import library
 
-        fn = library("clmul").hm_clmul
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _fn = fn
+        lib = library("clmul")
+        operands = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+        lib.hm_clmul.argtypes = operands + [ctypes.c_void_p]
+        lib.hm_clmul_mapping.argtypes = operands + [ctypes.c_int, ctypes.c_void_p]
+        lib.hm_clmul_square.argtypes = [ctypes.c_int, ctypes.c_int]
+        for fn in (lib.hm_clmul, lib.hm_clmul_mapping, lib.hm_clmul_square):
+            fn.restype = ctypes.c_int
+        _fn = lib
     return _fn
+
+
+@functools.lru_cache(maxsize=256)
+def square_path(Ls: int, Lg: int) -> bool:
+    """Whether K1 takes its square path at these widths (``csrc/clmul.cu``
+    decides from the widths alone: ``Ls == Lg`` from its measured
+    ``SQUARE_MIN``); builds the kernel on first use."""
+    return bool(_kernel().hm_clmul_square(Ls, Lg))
 
 
 def clmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -773,6 +793,89 @@ def clmul_comb_plain(af: torch.Tensor, bf: torch.Tensor) -> torch.Tensor:
     return out[:, : Ls + Lg].contiguous()  # limb Ls+Lg only ever gets zeros
 
 
+def square_layout(L: int) -> "tuple[int, int, int, int]":
+    """The square path's block layout at ``L`` limbs, as ``csrc/clmul.cu``'s
+    ``square_plan`` makes it: ``(rows, row_words, nib_words, s_words)``, the
+    rows a block (the fewest idle lanes in the last warp, a row, within
+    1,024 threads and, past one row, 113 KB), a row's window in one
+    multiple (``L + 2`` mod 32), a multiple's stride (a multiple of 32) and
+    a row's limbs of the smaller operand (odd)."""
+    P = L + 2
+    row_words = P + 32 * -(-L // 32)
+    s_words = L | 1
+    best = None
+    for rows in range(1, 1024 // P + 1):
+        nib_words = -(-rows * row_words // 32) * 32
+        if rows > 1 and (16 * nib_words + rows * s_words) * 4 > 113 * 1024:
+            break
+        spare = -(-rows * P // 32) * 32 - rows * P
+        if best is None or spare * best[0] < best[1] * rows:
+            best = (rows, spare, nib_words)
+    return best[0], row_words, best[2], s_words
+
+
+def clmul_square_plain(af: torch.Tensor, bf: torch.Tensor) -> torch.Tensor:
+    """The square path's comb in torch: flat [B, L] x [B, L] -> [B, 2L],
+    walked as ``csrc/clmul.cu``'s ``clmul_comb_kernel_square`` walks it.
+
+    Each block's shared memory is a flat tensor laid out by
+    :func:`square_layout`; thread ``(r, t)`` of a block (row ``r``, lane
+    ``t < L + 2``) stages column ``t`` of the 16 multiples at positions
+    ``L + t`` and, for ``t >= 2``, ``t - 2``, then at each step ``i`` reads
+    position ``t - i + L`` (:func:`square_addresses`), adding into output
+    limb ``t`` until ``i == t`` and into limb ``t + L + 2`` after."""
+    B, L = af.shape
+    if bf.shape != af.shape:
+        raise ValueError(f"the square path takes [B, L] x [B, L], got {tuple(af.shape)} and {tuple(bf.shape)}")
+    rows, row_words, nib_words, s_words = square_layout(L)
+    P = L + 2
+    blocks = -(-B // rows)
+    dev = af.device
+    pad = (0, 0, 0, blocks * rows - B)
+    s = F.pad(af, pad).view(blocks, rows, L)
+    g = F.pad(bf, pad).view(blocks, rows, L)
+    tid = torch.arange(rows * P, device=dev)
+    r, t = tid // P, tid % P
+    sh = torch.zeros((blocks, 16 * nib_words + rows * s_words), dtype=gf2.LIMB_DTYPE, device=dev)
+    gp = F.pad(g, (1, 2))  # gp[..., j + 1] = g[j] for j = -1 .. L + 1
+    g0, g1 = gp[:, r, t], gp[:, r, t + 1]  # g[t - 1], g[t]
+    t2, t4, t8 = (_funnel_l(g0, g1, n) for n in (1, 2, 3))
+    u = torch.arange(16, device=dev)[:, None]
+    for bit, mult in ((1, g1), (2, t2), (4, t4), (8, t8)):
+        m = torch.where((u & bit) != 0, mult[:, None, :], 0)  # [blocks, 16, threads]
+        at = r * row_words + u * nib_words
+        sh[:, at + L + t] ^= m
+        twice = t >= 2  # columns 2 .. L + 1 have a second copy
+        sh[:, (at + t - 2)[:, twice]] ^= m[:, :, twice]
+    lanes = t < L
+    sh[:, 16 * nib_words + r[lanes] * s_words + t[lanes]] = s[:, r[lanes], t[lanes]]
+
+    acc = torch.zeros((blocks, rows * P), dtype=gf2.LIMB_DTYPE, device=dev)
+    low = torch.zeros_like(acc)
+    for i in range(L):
+        si = sh[:, 16 * nib_words + r * s_words + i]
+        for w in range(8):
+            at = square_addresses(L, r, t, i, gf2.srl(si, 4 * w) & 15, nib_words, row_words)
+            hi = sh.gather(1, at)
+            acc ^= hi if w == 0 else _funnel_l(sh.gather(1, at - 1), hi, 4 * w)
+        low = torch.where(t == i, acc, low)
+
+    out = torch.zeros((blocks, rows, 2 * L), dtype=gf2.LIMB_DTYPE, device=dev)
+    out[:, r[lanes], t[lanes]] = low[:, lanes]
+    top = lanes & (t + P < 2 * L)
+    out[:, r[top], t[top] + P] = (acc ^ low)[:, top]
+    mid = (t >= L) & (t < 2 * L)
+    out[:, r[mid], t[mid]] = acc[:, mid]
+    return out.view(blocks * rows, 2 * L)[:B].contiguous()
+
+
+def square_addresses(L: int, r, t, i: int, nib, nib_words: int, row_words: int):
+    """The shared-memory word that thread ``(r, t)`` of the square path reads
+    at step ``i`` for a nibble ``nib``: multiple ``nib``'s window of row
+    ``r``, position ``t - i + L`` (the funnel's low word is the one below)."""
+    return nib.long() * nib_words + r * row_words + t - i + L
+
+
 def _check(af: torch.Tensor, bf: torch.Tensor) -> None:
     if af.dtype != gf2.LIMB_DTYPE or bf.dtype != gf2.LIMB_DTYPE:
         raise TypeError(f"clmul takes int32 limbs, got {af.dtype} and {bf.dtype}")
@@ -790,7 +893,8 @@ def clmul_flat(af: torch.Tensor, bf: torch.Tensor) -> torch.Tensor:
     """The kernel's wrapper: flat [B, La] x [B, Lb] -> [B, La+Lb] int32.
 
     A CPU tensor gets :func:`clmul_plain`; a CUDA tensor launches the
-    kernel on the current stream (and counts the launch) or raises.  A
+    kernel on the current stream (and counts the launch as ``K1``, and as
+    ``K1.square`` too where it takes the square path) or raises.  A
     tensor on PyTorch's ``meta`` device gets an empty output of the
     product's shape and counts nothing: the compiled pipelines read an
     operation's output metadata that way, with no device work."""
@@ -809,12 +913,35 @@ def clmul_flat(af: torch.Tensor, bf: torch.Tensor) -> torch.Tensor:
         return out
     with torch.cuda.device(af.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(
+        err = _kernel().hm_clmul(
             small.data_ptr(), big.data_ptr(), out.data_ptr(),
             B, small.shape[1], big.shape[1], stream,
         )
     if err:
         raise RuntimeError(f"clmul kernel launch failed: cudaError {err}")
     counters.add("K1")
+    if square_path(small.shape[1], big.shape[1]):
+        counters.add("K1.square")
+    return out
+
+
+def clmul_mapping(af: torch.Tensor, bf: torch.Tensor, square: bool) -> torch.Tensor:
+    """K1 through one thread mapping, named: the square path (``square``:
+    any ``La == Lb`` up to the kernel's ``SQUARE_MAX``) or the comb of
+    unbalanced products, on CUDA tensors, whatever :func:`clmul_flat` would
+    take.  It counts no launch: the crossover measurement and the card
+    tests call it; no path does."""
+    _check(af, bf)
+    if af.device.type != "cuda":
+        raise ValueError(f"clmul_mapping launches on cuda, not {af.device}")
+    small, big = (af, bf) if af.shape[1] <= bf.shape[1] else (bf, af)
+    out = torch.empty((af.shape[0], af.shape[1] + bf.shape[1]), dtype=gf2.LIMB_DTYPE,
+                      device=af.device)
+    with torch.cuda.device(af.device):
+        err = _kernel().hm_clmul_mapping(
+            small.data_ptr(), big.data_ptr(), out.data_ptr(), af.shape[0], small.shape[1],
+            big.shape[1], int(square), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"clmul kernel launch failed: cudaError {err}")
     return out
 

@@ -292,9 +292,10 @@ KERNELS = ("K1", "R1", "R2", "C1", "C2", "C3", "K2", "K3", "X1", "T1", "T1.dkey"
 
 class Counters:
     """The program's counters, by key: each kernel's launches
-    (:data:`KERNELS`; a CPU or ``meta`` call launches nothing) and
+    (:data:`KERNELS`; a CPU or ``meta`` call launches nothing),
     ``mask.K1`` (the share of K1's launches the decrypt masks' route steps
-    make).
+    make) and ``K1.square`` (the share of K1's launches that take its
+    square path).
 
     A count made eagerly adds at once.  A capture launches nothing: what is
     counted while a graph is captured is set aside (:meth:`aside`) as the

@@ -66,6 +66,84 @@ def test_clmul_kernel_matches_the_comb_mirror(B, La, Lb):
     assert torch.equal(got, k.clmul_plain(a, b))
 
 
+@pytest.mark.parametrize("L", range(1, 64))
+def test_clmul_square_path_matches_plain_and_its_mirror(L):
+    """Every square width a leaf or a direct product can have below the
+    route: clmul_flat (the square path wherever K1 takes it, counted as
+    ``K1.square``) and the square mapping launched by name, over two blocks
+    of rows and a partial third, against the plain sweep and the square
+    path's torch mirror; all-ones rows too."""
+    B = 2 * k.square_layout(L)[0] + 3
+    a, b = on_card((B, L), 60 + L), on_card((B, L), 160 + L)
+    a[0], b[0] = -1, -1
+    before = (counters["K1"], counters["K1.square"])
+    got = k.clmul_flat(a, b)
+    torch.cuda.synchronize()
+    assert (counters["K1"] - before[0], counters["K1.square"] - before[1]) == (1, int(k.square_path(L, L)))
+    want = k.clmul_plain(a, b)
+    assert torch.equal(got, want)
+    assert torch.equal(k.clmul_mapping(a, b, True), want)
+    assert torch.equal(k.clmul_square_plain(a, b), want)
+
+
+@pytest.mark.parametrize("B,L", [(1259712, 32), (384912, 48), (49152, 41)])
+def test_clmul_square_path_at_the_u32_products_widest_leaf_launches(B, L):
+    """The u32 product's (d = 2432) widest K1 launches at each leaf width:
+    the square path against the plain sweep, the comb of unbalanced
+    products and, in chunks of rows, the square path's mirror."""
+    a, b = on_card((B, L), 7 * L), on_card((B, L), 7 * L + 1)
+    got = k.clmul_flat(a, b)
+    torch.cuda.synchronize()
+    assert k.square_path(L, L)
+    assert torch.equal(got, k.clmul_plain(a, b))
+    assert torch.equal(got, k.clmul_mapping(a, b, False))
+    for r0 in range(0, B, 65536):
+        part = slice(r0, r0 + 65536)
+        assert torch.equal(got[part], k.clmul_square_plain(a[part], b[part]))
+
+
+@pytest.mark.parametrize("B,La,Lb", [(4, 9, 256), (5, 48, 64), (6, 5, 9), (3, 96, 192), (7, 2, 1)])
+def test_unbalanced_products_stay_on_the_comb(B, La, Lb):
+    a, b = on_card((B, La), La), on_card((B, Lb), Lb)
+    before = (counters["K1"], counters["K1.square"])
+    got = k.clmul_flat(a, b)
+    torch.cuda.synchronize()
+    assert (counters["K1"] - before[0], counters["K1.square"] - before[1]) == (1, 0)
+    assert not k.square_path(La, Lb)
+    assert torch.equal(got, k.clmul_mapping(a, b, False))
+    assert torch.equal(got, k.clmul_plain(a, b))
+    with pytest.raises(RuntimeError, match="cudaError"):
+        k.clmul_mapping(a, b, True)  # the square mapping takes La == Lb only
+
+
+def test_the_u32_product_takes_the_square_path_in_every_product():
+    """The checked u32 product at d = 2432 on 16 pairs as a CUDA graph, as
+    the benchmark's ``mul_graph`` replays it: its 85 routed products each
+    count one ``K1.square`` (every leaf is square), the graph holds 419 work
+    nodes as before the square path, and the products decrypt right."""
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch.experiments.common import CHECK_SEED, context
+    from homomorph_tpu_torch.models import HomomorphicMultiplication
+    from homomorph_tpu_torch.models.compiled import compile_op2
+
+    on_card((1,), 0)
+    ctx = context((2432, 128, 1, 128), CHECK_SEED, "cuda")
+    fn = compile_op2(HomomorphicMultiplication, ht.U32, ctx.parameters.pk_degree)
+    rng = np.random.default_rng(19)
+    xs = [int(v) for v in rng.integers(0, 2**32, size=16, dtype=np.uint64)]
+    ys = [int(v) for v in rng.integers(0, 2**32, size=16, dtype=np.uint64)]
+    a, b = ctx.encrypt(xs, ht.U32, batch=True), ctx.encrypt(ys, ht.U32, batch=True)
+    got = fn(a, b)
+    (manifest,) = fn.graphed.manifests
+    assert manifest["K1"] == manifest["K1.square"] == 85
+    assert fn.graphed.launches == [419]
+    before = counters["K1.square"]
+    got = fn(a, b)
+    torch.cuda.synchronize()
+    assert counters["K1.square"] == before + 85
+    assert [int(v) for v in ctx.decrypt(got)] == [x * y % 2**32 for x, y in zip(xs, ys)]
+
+
 @pytest.mark.parametrize(
     "B,La,Lb,kmin",
     [(64, 64, 64, 64), (9, 130, 129, 33), (2, 257, 256, 2), (4, 1000, 1000, 100),

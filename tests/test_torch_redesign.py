@@ -9,6 +9,11 @@
 * ``clmul_comb_plain`` follows K1's 4-bit comb (the 16 multiples of the
   wider operand, the nibble walk with funnel shifts); it is held against
   ``homomorph_tpu.gf2.kernels.clmul``.
+* ``clmul_square_plain`` follows K1's square path (a row's ``L + 2`` lanes
+  each walking every limb once, the window stored twice, several rows a
+  block); it is held against ``homomorph_tpu.gf2.kernels.clmul`` and the
+  plain sweep at every square width up to 64, and its layout's reads
+  against the banks of the card's shared memory.
 
 Inputs come from numpy with a seed; parity is bit-exact (integer GF(2)
 values, tolerance 0).  ``tests/test_torch_cuda.py`` holds the kernels
@@ -102,6 +107,77 @@ class TestClmulComb:
         want = np.asarray(jk.clmul(jnp.asarray(a), jnp.asarray(b)))
         got = tk.clmul_comb_plain(T(a), T(b))
         assert np.array_equal(tpoly.to_numpy(got), want)
+
+
+class TestClmulSquare:
+    @pytest.mark.parametrize(
+        "L,B", [(L, 70) for L in range(1, 65)] + [(L, 200) for L in (9, 32, 41, 48, 63)]
+    )
+    def test_matches_jax_and_the_sweep(self, L, B):
+        """Random rows, all-ones rows and single-bit rows, over several blocks
+        of rows with the last one partial; the JAX product is taken at 64
+        limbs (the operands zero-padded: one compile for every width)."""
+        rng = np.random.default_rng(L * 1000 + B)
+        a = rng.integers(0, 2**32, size=(B, L), dtype=np.uint32)
+        b = rng.integers(0, 2**32, size=(B, L), dtype=np.uint32)
+        a[0] = b[0] = np.uint32(0xFFFFFFFF)
+        a[1], b[1] = 0, 0
+        a[1, -1], b[1, L // 2] = np.uint32(1 << 31), np.uint32(1 << (L % 32))
+        a[2] = 0
+        a[2, 0] = 1  # a single bit against a random row
+        b[3] = 0
+        b[3, -1] = np.uint32(1 << 31)
+        pad = ((0, 0), (0, 64 - L))
+        want = np.asarray(jk.clmul(jnp.asarray(np.pad(a, pad)), jnp.asarray(np.pad(b, pad))))
+        assert not want[:, 2 * L:].any()
+        got = tk.clmul_square_plain(T(a), T(b))
+        assert np.array_equal(tpoly.to_numpy(got), want[:, : 2 * L])
+        assert np.array_equal(tpoly.to_numpy(tk.clmul_plain(T(a), T(b))), want[:, : 2 * L])
+
+    def test_refusals_off_the_card(self):
+        a, b = T(np.ones((2, 3), np.uint32)), T(np.ones((2, 4), np.uint32))
+        with pytest.raises(ValueError, match="square"):
+            tk.clmul_square_plain(a, b)
+        with pytest.raises(ValueError, match="cuda"):
+            tk.clmul_mapping(a, a, True)
+        before = counters["K1.square"]
+        assert np.array_equal(tpoly.to_numpy(tk.clmul_flat(a, a)),
+                              tpoly.to_numpy(tk.clmul_square_plain(a, a)))
+        assert counters["K1.square"] == before  # a CPU call launches nothing
+
+    @pytest.mark.parametrize("L", [1, 2, 3, 5, 9, 16, 30, 32, 33, 41, 48, 63, 64, 100, 255, 1022])
+    def test_a_warps_reads_hit_distinct_banks(self, L):
+        """At any step and any nibbles, the 32 lanes of a warp (of one, two or
+        more rows) read 32 distinct banks, for both words of the funnel; the
+        staging stores do too, and the rows' limbs of the smaller operand lie
+        in distinct banks.  The block fits 1,024 threads and 227 KB."""
+        import torch
+
+        rows, row_words, nib_words, s_words = tk.square_layout(L)
+        P = L + 2
+        assert rows * P <= 1024 and (16 * nib_words + rows * s_words) * 4 <= 232448
+        tid = torch.arange(rows * P)
+        r, t = tid // P, tid % P
+        gen = torch.Generator().manual_seed(L)
+
+        def distinct_a_warp(words, live=None):
+            live = torch.ones_like(words, dtype=torch.bool) if live is None else live
+            for w0 in range(0, len(words), 32):
+                banks = words[w0 : w0 + 32][live[w0 : w0 + 32]] % 32
+                assert len(banks.unique()) == len(banks)
+
+        first = torch.ones_like(t, dtype=torch.bool)
+        first[1:] = r[1:] != r[:-1]
+        first[::32] = True  # each row's first lane in each warp
+        for i in sorted({0, 1, L // 2, L - 1}):
+            nib = torch.randint(0, 16, (rows,), generator=gen)[r]
+            at = tk.square_addresses(L, r, t, i, nib, nib_words, row_words)
+            distinct_a_warp(at)
+            distinct_a_warp(at - 1)
+            distinct_a_warp(16 * nib_words + r * s_words + i, first)  # one word a row
+        u = int(torch.randint(0, 16, (1,), generator=gen))
+        distinct_a_warp(u * nib_words + r * row_words + L + t)
+        distinct_a_warp(u * nib_words + r * row_words + t - 2, t >= 2)
 
 
 def _smoke():
