@@ -147,7 +147,8 @@ def clmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     Same contract as :func:`homomorph_tpu_torch.gf2.poly.clmul`, with the
     leading dims broadcast (keygen multiplies a [tau, Lq] operand by an
-    [Ls] one).
+    [Ls] one): an operand whose rows are broadcast is copied to every row,
+    and the limbs written count as ``clmul.expand``.
 
     While a limb mesh is registered, :data:`limb_hook` is set and the
     product is first offered to the limb-sharded path, as the JAX
@@ -164,6 +165,9 @@ def clmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if b.shape[:-1] != lead:
         lead = torch.broadcast_shapes(lead, b.shape[:-1])
     batch = math.prod(lead)
+    for x, L in ((a, La), (b, Lb)):
+        if math.prod(x.shape[:-1]) != batch and x.device.type != "meta":
+            counters.add("clmul.expand", batch * L)  # the broadcast rows' copy below
     af = a.expand(*lead, La).reshape(batch, La).contiguous()
     bf = b.expand(*lead, Lb).reshape(batch, Lb).contiguous()
     return clmul_rows(af, bf).reshape(*lead, La + Lb)

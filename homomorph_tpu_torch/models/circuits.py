@@ -13,7 +13,10 @@ tracked noise carry over unchanged:
   Subtraction and negation are the adder with a complemented operand.
 * Comparators: the log-depth tree ``_lt_tree`` (two wide clmuls per
   level) for ``lt``/``gt``/``le``/``ge``, the mux ``select``, ``min_`` and
-  ``max_``, and the AND-reduction tree of ``eq``.
+  ``max_``, and the AND-reduction tree of ``eq``.  The tree and the mux
+  are device regions (``circuit.lt_tree``, ``circuit.select``:
+  :func:`~homomorph_tpu_torch.utils.profiling.device_region`), timed on
+  the card inside a compiled graph too.
 * Multipliers: all ``n*n`` partial products in one broadcast clmul, then
   the Dadda carry-save tree of :mod:`.csaplan` (each level's products
   grouped by operand widths, one clmul launch per group) and a two-row
@@ -54,6 +57,7 @@ from .. import device as _device
 from ..cipher import Ciphered, CipheredBit
 from ..gf2 import kernels as gf2k
 from ..gf2 import poly as gf2
+from ..utils.profiling import device_region
 from . import circuit_kernels as _ck
 from . import csaplan as _csaplan
 
@@ -422,42 +426,43 @@ def _lt_tree(a: Ciphered, b: Ciphered) -> CipheredBit:
     ``eq_i = a_i XNOR b_i``; a high/low pair merges as
     ``lt' = lt_hi ^ eq_hi * lt_lo`` and ``eq' = eq_hi * eq_lo`` (disjoint
     events, so OR == XOR).  An odd leftover lane passes through."""
-    na = gf2.xor_const_bit(a.limbs, 1)
-    lt_l = gf2k.clmul(na, b.limbs)  # [..., n, 2L]
-    lt_b = a.bound + b.bound
-    lt_n = a.noise + b.noise
-    lt_l = gf2.fit_limbs(lt_l, gf2.bucket(gf2.limbs_for(lt_b)))
-    eq_l = gf2.xor_const_bit(gf2.xor(a.limbs, b.limbs), 1)
-    eq_b = max(a.bound, b.bound)
-    eq_n = max(a.noise, b.noise)
+    with device_region("circuit.lt_tree", a.limbs.device):
+        na = gf2.xor_const_bit(a.limbs, 1)
+        lt_l = gf2k.clmul(na, b.limbs)  # [..., n, 2L]
+        lt_b = a.bound + b.bound
+        lt_n = a.noise + b.noise
+        lt_l = gf2.fit_limbs(lt_l, gf2.bucket(gf2.limbs_for(lt_b)))
+        eq_l = gf2.xor_const_bit(gf2.xor(a.limbs, b.limbs), 1)
+        eq_b = max(a.bound, b.bound)
+        eq_n = max(a.noise, b.noise)
 
-    n = lt_l.shape[-2]
-    while n > 1:
-        half = n // 2
-        # lanes are LSB-first: pair (lo=2j, hi=2j+1) keeps significance order
-        lt_lo, lt_hi = lt_l[..., 0::2, :][..., :half, :], lt_l[..., 1::2, :]
-        eq_lo, eq_hi = eq_l[..., 0::2, :][..., :half, :], eq_l[..., 1::2, :]
-        prod = gf2k.clmul(eq_hi, lt_lo)
-        new_lt_b = max(lt_b, eq_b + lt_b)
-        new_lt_n = max(lt_n, eq_n + lt_n)
-        Ll = gf2.bucket(gf2.limbs_for(new_lt_b))
-        lt_new = gf2.fit_limbs(
-            gf2.xor(gf2.pad_limbs(lt_hi, prod.shape[-1]), prod), Ll
-        )
-        eq_new = gf2k.clmul(eq_hi, eq_lo)
-        new_eq_b = 2 * eq_b
-        new_eq_n = 2 * eq_n
-        eq_new = gf2.fit_limbs(eq_new, gf2.bucket(gf2.limbs_for(new_eq_b)))
-        if n % 2:  # leftover (most-significant) lane passes through
-            odd_lt = gf2.pad_limbs(lt_l[..., -1:, :], lt_new.shape[-1])
-            odd_eq = gf2.pad_limbs(eq_l[..., -1:, :], eq_new.shape[-1])
-            lt_new = torch.cat([lt_new, odd_lt], dim=-2)
-            eq_new = torch.cat([eq_new, odd_eq], dim=-2)
-        lt_l, eq_l = lt_new, eq_new
-        lt_b, eq_b = new_lt_b, new_eq_b
-        lt_n, eq_n = new_lt_n, new_eq_n
         n = lt_l.shape[-2]
-    return CipheredBit(lt_l[..., 0, :], lt_b, noise=lt_n)
+        while n > 1:
+            half = n // 2
+            # lanes are LSB-first: pair (lo=2j, hi=2j+1) keeps significance order
+            lt_lo, lt_hi = lt_l[..., 0::2, :][..., :half, :], lt_l[..., 1::2, :]
+            eq_lo, eq_hi = eq_l[..., 0::2, :][..., :half, :], eq_l[..., 1::2, :]
+            prod = gf2k.clmul(eq_hi, lt_lo)
+            new_lt_b = max(lt_b, eq_b + lt_b)
+            new_lt_n = max(lt_n, eq_n + lt_n)
+            Ll = gf2.bucket(gf2.limbs_for(new_lt_b))
+            lt_new = gf2.fit_limbs(
+                gf2.xor(gf2.pad_limbs(lt_hi, prod.shape[-1]), prod), Ll
+            )
+            eq_new = gf2k.clmul(eq_hi, eq_lo)
+            new_eq_b = 2 * eq_b
+            new_eq_n = 2 * eq_n
+            eq_new = gf2.fit_limbs(eq_new, gf2.bucket(gf2.limbs_for(new_eq_b)))
+            if n % 2:  # leftover (most-significant) lane passes through
+                odd_lt = gf2.pad_limbs(lt_l[..., -1:, :], lt_new.shape[-1])
+                odd_eq = gf2.pad_limbs(eq_l[..., -1:, :], eq_new.shape[-1])
+                lt_new = torch.cat([lt_new, odd_lt], dim=-2)
+                eq_new = torch.cat([eq_new, odd_eq], dim=-2)
+            lt_l, eq_l = lt_new, eq_new
+            lt_b, eq_b = new_lt_b, new_eq_b
+            lt_n, eq_n = new_lt_n, new_eq_n
+            n = lt_l.shape[-2]
+        return CipheredBit(lt_l[..., 0, :], lt_b, noise=lt_n)
 
 
 def lt(a: Ciphered, b: Ciphered) -> Ciphered:
@@ -486,17 +491,19 @@ def ge(a: Ciphered, b: Ciphered) -> Ciphered:
 
 def select(cond: CipheredBit, a: Ciphered, b: Ciphered) -> Ciphered:
     """Homomorphic mux ``cond ? a : b``: ``out_i = b_i ^ cond * (a_i ^
-    b_i)``, one batched clmul over all lanes."""
+    b_i)``, one batched clmul over all lanes (the condition's one row
+    copied to every lane)."""
     a, b = a.densify(), b.densify()
-    x = gf2.xor(a.limbs, b.limbs)
-    prod = gf2k.clmul(cond.limbs[..., None, :], x)
-    bound = max(b.bound, cond.bound + max(a.bound, b.bound))
-    noise = max(b.noise, cond.noise + max(a.noise, b.noise))
-    out = gf2.xor(gf2.pad_limbs(b.limbs, prod.shape[-1]), prod)
-    return Ciphered(
-        gf2.fit_limbs(out, gf2.bucket(gf2.limbs_for(bound))), bound, a.desc,
-        noise=noise,
-    )
+    with device_region("circuit.select", a.limbs.device):
+        x = gf2.xor(a.limbs, b.limbs)
+        prod = gf2k.clmul(cond.limbs[..., None, :], x)
+        bound = max(b.bound, cond.bound + max(a.bound, b.bound))
+        noise = max(b.noise, cond.noise + max(a.noise, b.noise))
+        out = gf2.xor(gf2.pad_limbs(b.limbs, prod.shape[-1]), prod)
+        return Ciphered(
+            gf2.fit_limbs(out, gf2.bucket(gf2.limbs_for(bound))), bound, a.desc,
+            noise=noise,
+        )
 
 
 def min_(a: Ciphered, b: Ciphered) -> Ciphered:

@@ -49,8 +49,14 @@ replay adds the manifest to the counters.  Each call is a span,
 ``compiled.call``, whose record carries ``launches``: every node of the
 replayed graph that runs work on the card (:func:`graph_launches`; torch's
 kernels and copies as well as the port's), read from the driver at
-capture.  Its inner spans are ``graph.copy_in``, ``graph.replay`` and
-``graph.clone`` (``graph.capture`` at a capture); the round trip's add
+capture, and, where the graph copies a broadcast operand, ``expand_limbs``:
+the manifest's ``clmul.expand``, the limbs a replay writes for it.  Its
+inner spans are ``graph.copy_in``, ``graph.replay`` and ``graph.clone``
+(``graph.capture`` at a capture), and after each replay a device span of
+every :func:`~homomorph_tpu_torch.utils.profiling.device_region` the
+capture recorded (the comparator's ``circuit.lt_tree`` and the mux's
+``circuit.select``), with the card's milliseconds between its two timing
+events; the round trip's add
 ``roundtrip.bits_in`` (the host arrays' copies to the card),
 ``roundtrip.keys`` and ``roundtrip.mask`` (the first shape's mask), and
 ``roundtrip.decrypt``, the card's time of the decrypt stage between two
@@ -140,7 +146,9 @@ class Graphed:
         entry = self._graphs.get(key)
         if entry is None:
             entry = self._graphs[key] = self._capture(inputs, dev)
-        graph, static_in, static_out, manifest, launches = entry
+        graph, static_in, static_out, manifest, launches, regions = entry
+        if regions:
+            profiling.settle()  # the last replay's events are recorded again now
         with span("graph.copy_in"):
             for buf, x in zip(static_in, inputs):
                 buf.copy_(x)
@@ -148,6 +156,10 @@ class Graphed:
             graph.replay()
         profiling.counters.replay(manifest)
         profiling.annotate("launches", launches)
+        if "clmul.expand" in manifest:
+            profiling.annotate("expand_limbs", manifest["clmul.expand"])
+        for name, events in regions:
+            profiling.device_span(name, *events)
         with span("graph.clone"):
             return static_out.clone()
 
@@ -163,12 +175,13 @@ class Graphed:
             # first replay
             graph = torch.cuda.CUDAGraph(keep_graph=True)
             try:
-                with profiling.counters.aside() as captured, torch.cuda.graph(graph):
+                with profiling.counters.aside() as captured, profiling.regions() as regions, \
+                        torch.cuda.graph(graph):
                     static_out = self._fn(*static_in)
             except RuntimeError as err:
                 raise RuntimeError(f"CUDA graph capture of {self._name} failed: {err}") from err
             graph.instantiate()
-        return graph, static_in, static_out, captured, graph_launches(graph)
+        return graph, static_in, static_out, captured, graph_launches(graph), regions
 
     @property
     def manifests(self) -> "list[dict[str, int]]":

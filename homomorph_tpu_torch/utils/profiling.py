@@ -16,8 +16,9 @@ kernels (``chip_smoke.py`` reads its bounds from here):
 * :func:`device_records` / :func:`device_busy` - device time by record
   name from ``torch.profiler``'s device records.
 * :func:`span`, :func:`tracing`, :func:`records` - the program's spans,
-  kept in memory while tracing is on; :data:`counters` - its launches by
-  kernel, a graph's replays included.
+  kept in memory while tracing is on; :func:`device_region` - a stage's
+  card time between two CUDA events, inside a captured graph too;
+  :data:`counters` - its launches by kernel, a graph's replays included.
 
 Nothing here holds a TPU number.  The peaks need a card (or the SM count
 and clock given by hand); the device-time functions raise without one.
@@ -55,6 +56,8 @@ __all__ = [
     "span",
     "annotate",
     "device_span",
+    "device_region",
+    "regions",
     "settle",
     "tracing",
     "tracing_on",
@@ -294,8 +297,9 @@ class Counters:
     """The program's counters, by key: each kernel's launches
     (:data:`KERNELS`; a CPU or ``meta`` call launches nothing),
     ``mask.K1`` (the share of K1's launches the decrypt masks' route steps
-    make) and ``K1.square`` (the share of K1's launches that take its
-    square path).
+    make), ``K1.square`` (the share of K1's launches that take its
+    square path) and ``clmul.expand`` (the limbs the clmul dispatcher
+    writes to copy an operand whose rows are broadcast, on the CPU too).
 
     A count made eagerly adds at once.  A capture launches nothing: what is
     counted while a graph is captured is set aside (:meth:`aside`) as the
@@ -381,6 +385,8 @@ class _Tracer:
         self.ids = 0
         self.requests = 0
         self.pending: list = []  # (record, start event, end event)
+        # the region lists of the graph captures open now, innermost last
+        self.captures: "list[list]" = []
 
     def begin(self) -> None:
         self.records.clear()
@@ -496,6 +502,62 @@ def device_span(name: str, start, end) -> None:
     if not (_tracer.blocks or _profiler_on()):
         return
     _tracer.pending.append((_tracer.open(name), start, end))
+
+
+class _Region:
+    """Two timing events around a block, on the current stream: kept by the
+    capture that records them (``capture``), or eagerly a :func:`device_span`."""
+
+    __slots__ = ("name", "events", "capture")
+
+    def __init__(self, name: str, capture: "list | None"):
+        self.name, self.capture = name, capture
+        # external: each record is a node of its own in a captured graph
+        self.events = tuple(torch.cuda.Event(enable_timing=True, external=capture is not None)
+                            for _ in range(2))
+
+    def __enter__(self):
+        self.events[0].record()
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        if exc_type is None:
+            self.events[1].record()
+            if self.capture is None:
+                device_span(self.name, *self.events)
+            else:
+                self.capture.append((self.name, self.events))
+        return False
+
+
+def device_region(name: str, device: torch.device):
+    """The card's time of a ``with`` block's work on ``device``, as a record
+    of ``name`` with a ``device_ms`` count.
+
+    While a CUDA graph is captured inside :func:`regions` (a compiled
+    callable's capture), the graph records two timing events around the
+    block and the capture keeps ``(name, events)``: the callable emits a
+    :func:`device_span` of them after each replay.  Eagerly on the card
+    while tracing is on, the events are recorded and left as a device span
+    to settle.  Off the card it is :func:`span` of ``name``.  Otherwise
+    (tracing off, or a capture no :func:`regions` keeps) it does nothing."""
+    if device.type != "cuda":
+        return span(name)
+    if torch.cuda.is_current_stream_capturing():
+        return _Region(name, _tracer.captures[-1]) if _tracer.captures else _OFF
+    return _Region(name, None) if tracing_on() else _OFF
+
+
+@contextlib.contextmanager
+def regions():
+    """The :func:`device_region` blocks a graph capture inside this block
+    records, yielded as a list of ``(name, (start, end))`` filled then."""
+    found: list = []
+    _tracer.captures.append(found)
+    try:
+        yield found
+    finally:
+        _tracer.captures.pop()
 
 
 def settle() -> None:

@@ -795,7 +795,8 @@ def test_a_replay_counts_its_manifest_as_the_profiler_sees_it():
         assert {key: n - before.get(key, 0) for key, n in after.items()
                 if n != before.get(key, 0)} == manifest
         calls = [r for r in profiling.records() if r.name == "compiled.call"]
-        assert [r.counts for r in calls] == [{"launches": launches}]
+        assert [r.counts for r in calls] == [  # the partial products' broadcast operands
+            {"launches": launches, "expand_limbs": manifest["clmul.expand"]}]
         assert {r.name for r in profiling.records() if r.parent == calls[0].id} == {
             "graph.copy_in", "graph.replay", "graph.clone"}
     assert [int(v) for v in ctx.decrypt(out)] == [21, 55]
@@ -833,6 +834,83 @@ def test_the_round_trip_times_its_decrypt_on_the_card():
     got = np.packbits(out.cpu().numpy().astype(np.uint8), axis=1, bitorder="little")
     assert (got.reshape(-1) == (xs + ys).astype(np.uint8)).all()
 
+
+def test_the_compiled_u32_max_times_its_tree_and_its_mux_on_the_card():
+    """The checked u32 max at d = 128 as a CUDA graph, as the benchmark's
+    ``max_graph`` replays it: inside ``tracing()`` each call's request holds
+    one ``circuit.lt_tree`` and one ``circuit.select`` record with the
+    card's milliseconds, together no more than the call's own device time;
+    the call carries ``expand_limbs``, the mux's 384-limb condition copied
+    to each of the 32 lanes of every pair; the maxima decrypt right."""
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch.experiments.common import CHECK_SEED, context
+    from homomorph_tpu_torch.models import HomomorphicMaximum
+    from homomorph_tpu_torch.models.compiled import compile_op2
+    from homomorph_tpu_torch.utils import profiling
+
+    on_card((1,), 0)
+    B = 2048
+    ctx = context((128, 128, 1, 128), CHECK_SEED, "cuda")
+    fn = compile_op2(HomomorphicMaximum, ht.U32, ctx.parameters.pk_degree)
+    rng = np.random.default_rng(20)
+    xs = [int(v) for v in rng.integers(0, 2**32, size=B, dtype=np.uint64)]
+    ys = [int(v) for v in rng.integers(0, 2**32, size=B, dtype=np.uint64)]
+    xs[:3], ys[:3] = [0, 2**32 - 1, 77], [0, 5, 77]
+    a, b = ctx.encrypt(xs, ht.U32, batch=True), ctx.encrypt(ys, ht.U32, batch=True)
+    fn(a, b)  # the capture, tracing off
+    (manifest,) = fn.graphed.manifests
+    assert manifest["clmul.expand"] == B * 32 * 384
+    spans = []
+    with profiling.tracing():
+        for _ in range(3):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(a, b)
+            end.record()
+            end.synchronize()
+            spans.append(start.elapsed_time(end))
+    recs = profiling.records()
+    calls = [r for r in recs if r.name == "compiled.call"]
+    assert len(calls) == 3
+    for call, call_ms in zip(calls, spans):
+        assert call.counts["expand_limbs"] == B * 32 * 384
+        mine = [r for r in recs if r.request == call.request and r.name.startswith("circuit.")]
+        assert sorted(r.name for r in mine) == ["circuit.lt_tree", "circuit.select"]
+        assert all(r.parent == call.id and r.counts["device_ms"] > 0 for r in mine)
+        assert sum(r.counts["device_ms"] for r in mine) <= call_ms
+    assert [int(v) for v in ctx.decrypt(out)] == [max(x, y) for x, y in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("op_name,params,pairs,launches", [
+    ("HomomorphicAddition", (128, 128, 1, 128), 16384, 63),
+    ("HomomorphicMultiplication", (2432, 128, 1, 128), 16, 419),
+])
+def test_the_compiled_u32_add_and_product_hold_no_region(op_name, params, pairs, launches):
+    """The benchmark's other graphs gain no node from the regions: their
+    replays launch 63 and 419 work nodes as before, and their calls hold
+    no region record."""
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch import models
+    from homomorph_tpu_torch.experiments.common import CHECK_SEED, context
+    from homomorph_tpu_torch.models.compiled import compile_op2
+    from homomorph_tpu_torch.utils import profiling
+
+    on_card((1,), 0)
+    ctx = context(params, CHECK_SEED, "cuda")
+    fn = compile_op2(getattr(models, op_name), ht.U32, ctx.parameters.pk_degree)
+    rng = np.random.default_rng(21)
+    xs, ys = ([int(v) for v in rng.integers(0, 2**32, size=pairs, dtype=np.uint64)]
+              for _ in range(2))
+    a, b = ctx.encrypt(xs, ht.U32, batch=True), ctx.encrypt(ys, ht.U32, batch=True)
+    fn(a, b)
+    assert fn.graphed.launches == [launches]
+    with profiling.tracing():
+        fn(a, b)
+        torch.cuda.synchronize()
+    recs = profiling.records()
+    (call,) = [r for r in recs if r.name == "compiled.call"]
+    assert call.counts["launches"] == launches
+    assert not [r for r in recs if r.name in ("circuit.lt_tree", "circuit.select")]
 
 def test_eager_sync_refuses_capture(monkeypatch):
     import homomorph_tpu_torch as ht

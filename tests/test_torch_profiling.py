@@ -375,6 +375,118 @@ class TestSpans:
         assert waited == [3.5]
 
 
+
+class TestDeviceRegions:
+    """``device_region``: a host span off the card; on the card (its
+    events faked here) two timing events kept by the capture that records
+    them, or eagerly a device span; and ``clmul.expand``, the limbs the
+    clmul dispatcher writes to copy a broadcast operand."""
+
+    def test_off_the_card_a_region_is_a_host_span(self):
+        cpu = torch.device("cpu")
+        with profiling.tracing():
+            with profiling.span("compiled.call"):
+                with profiling.device_region("circuit.select", cpu):
+                    pass
+        recs = profiling.records()
+        assert [(r.name, r.parent, r.counts) for r in recs] == [
+            ("compiled.call", None, {}), ("circuit.select", recs[0].id, {})]
+        assert recs[1].seconds >= 0 and recs[1].request == recs[0].request
+        assert profiling.device_region("x", cpu) is profiling.span("y")  # tracing off: nothing
+
+    def test_a_capture_keeps_its_regions_and_an_eager_region_is_a_device_span(self, monkeypatch):
+        clock = iter(range(1, 100))
+
+        class Event:
+            def __init__(self, enable_timing=False, external=False):
+                self.timing, self.external, self.t = enable_timing, external, None
+
+            def record(self):
+                self.t = next(clock)
+
+            def synchronize(self):
+                pass
+
+            def elapsed_time(self, end):
+                return float(end.t - self.t)
+
+        capturing = [True]
+        monkeypatch.setattr(torch.cuda, "Event", Event)
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+        cuda = torch.device("cuda")
+        off = profiling.span("off")
+        assert profiling.device_region("circuit.lt_tree", cuda) is off  # no capture keeps it
+        with profiling.regions() as found:
+            with profiling.device_region("circuit.lt_tree", cuda):
+                with profiling.device_region("circuit.select", cuda):
+                    pass
+        assert [(n, s.t, e.t) for n, (s, e) in found] == [  # kept as each closes
+            ("circuit.select", 2, 3), ("circuit.lt_tree", 1, 4)]
+        assert all(ev.timing and ev.external for _, evs in found for ev in evs)
+        assert profiling._tracer.captures == []
+        capturing[0] = False
+        assert profiling.device_region("circuit.select", cuda) is off  # tracing off
+        with profiling.tracing():
+            with profiling.span("compiled.call"):
+                with profiling.device_region("circuit.select", cuda):
+                    pass
+        recs = profiling.records()
+        assert [(r.name, r.parent, r.counts) for r in recs] == [
+            ("compiled.call", None, {}), ("circuit.select", recs[0].id, {"device_ms": 1.0})]
+
+    @pytest.mark.parametrize("a_shape,b_shape,expanded", [
+        ((5, 1, 384), (5, 32, 9), 5 * 32 * 384),  # the mux's condition against its lanes
+        ((5, 32, 9), (5, 1, 384), 5 * 32 * 384),
+        ((1, 9), (4, 3, 9), 4 * 3 * 9),
+        ((2, 1, 7), (1, 3, 5), 2 * 3 * 7 + 2 * 3 * 5),
+        ((5, 32, 9), (5, 32, 9), 0),
+        ((6, 24), (6, 24), 0),
+    ])
+    def test_clmul_counts_the_limbs_it_writes_to_expand_a_broadcast_operand(
+            self, a_shape, b_shape, expanded):
+        from homomorph_tpu_torch.gf2 import kernels as k
+
+        gen = torch.Generator().manual_seed(5)
+
+        def limbs(shape):
+            return torch.randint(-2**31, 2**31, shape, generator=gen, dtype=torch.int32)
+
+        a, b = limbs(a_shape), limbs(b_shape)
+        before = profiling.counters["clmul.expand"]
+        got = k.clmul(a, b)
+        assert profiling.counters["clmul.expand"] - before == expanded
+        lead = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+        want = k.clmul(a.expand(*lead, a.shape[-1]).clone(), b.expand(*lead, b.shape[-1]).clone())
+        assert torch.equal(got, want)
+        before = profiling.counters["clmul.expand"]
+        k.clmul(a.to("meta"), b.to("meta"))  # writes nothing
+        assert profiling.counters["clmul.expand"] == before
+
+    def test_a_compiled_max_on_the_cpu_holds_the_tree_and_the_mux(self):
+        """Off the card the compiled u8 max runs eagerly: inside
+        ``tracing()`` its call's request holds one host span of the tree and
+        one of the mux, the mux's inside its call; the maxima decrypt."""
+        from homomorph_tpu_torch.models import HomomorphicAddition, HomomorphicMaximum
+        from homomorph_tpu_torch.models.compiled import compile_op2
+
+        ctx = tiny_context()
+        xs, ys = [3, 200, 7, 255], [40, 13, 7, 0]
+        a, b = ctx.encrypt(xs, ht.U8, batch=True), ctx.encrypt(ys, ht.U8, batch=True)
+        fn = compile_op2(HomomorphicMaximum, ht.U8, ctx.parameters.pk_degree)
+        add = compile_op2(HomomorphicAddition, ht.U8, ctx.parameters.pk_degree)
+        fn(a, b), add(a, b)  # the first calls derive their metadata on the meta device
+        with profiling.tracing():
+            out = fn(a, b)
+            add(a, b)
+        assert [int(v) for v in ctx.decrypt(out)] == [max(x, y) for x, y in zip(xs, ys)]
+        recs = profiling.records()
+        calls = [r for r in recs if r.name == "compiled.call"]
+        assert len(calls) == 2
+        regions = [(r.name, r.request) for r in recs
+                   if r.name in ("circuit.lt_tree", "circuit.select")]
+        assert regions == [("circuit.lt_tree", calls[0].request),
+                           ("circuit.select", calls[0].request)]
+
 class TestCompilationCache:
     def test_enable_is_idempotent_and_creates_dir(self, tmp_path, monkeypatch):
         monkeypatch.setattr(cache, "_enabled", None)
