@@ -24,7 +24,9 @@ Phases, in order; any failure exits non-zero before the result line:
    tables the launcher tiles (checked only); beside each K3 and X1 row, its
    share of the bound and of the tensor-core count, and the device time of
    ``torch._int_mm`` on the bare count product (a yardstick the port never
-   calls);
+   calls); D1 (``csrc/decrypt.cu``) at the decrypts of fresh ciphertexts,
+   the round trip's sum and the u32 and u64 products, under a random mask
+   and all ones (:func:`decipher_rows`);
 4. replay of the interop fixtures (``tests/fixtures/interop_v1.json``):
    keygen and recorded-stream encryption on the card must give the
    fixture's bytes;
@@ -172,6 +174,7 @@ from homomorph_tpu_torch.experiments.common import (  # noqa: E402
 )
 from homomorph_tpu_torch.utils.profiling import (  # noqa: E402
     counters,
+    DECRYPT_OPS_PER_LIMB,
     SQUARE_OPS_PER_LIMB,
     THREEFRY_ALU_OPS_PER_WORD,
     bound,
@@ -179,6 +182,7 @@ from homomorph_tpu_torch.utils.profiling import (  # noqa: E402
     clmul_bytes,
     clmul_comb_work,
     clmul_ops,
+    decrypt_sol,
     device_records,
     encrypt_lookup_bytes,
     square_bytes,
@@ -529,6 +533,53 @@ def phase_kernels(ctx):
         f"jax.random.bits; kernel {rows[-1]['ms']} ms by {rows[-1]['ms_by']} (call "
         f"{rows[-1]['call_ms']} ms), plain {rows[-1]['plain_ms']} ms by {rows[-1]['plain_by']}")
     rows += set_bounds(ctx, [threefry_device_key(ctx, shape, t1_work)])
+    rows += decipher_rows(ctx)
+    return rows
+
+
+#: (label, shape of the limbs) of D1's rows: fresh u32 ciphertexts at
+#: d = 128 (9 limbs), the round trip's sum ([pairs, 32, 384]), the u32
+#: product at d = 2432 and the u64 product's one row
+DECIPHER_SHAPES = (("ciphertexts", (65536, 32, 9)), ("sum", (65536, 32, 384)),
+                   ("u32-product", (512, 98304)), ("u64-product", (1, 3145728)))
+
+
+def decipher_rows(ctx):
+    """D1 against the torch expression at :data:`DECIPHER_SHAPES`, on the
+    same random limbs under a random mask and under all ones, timed as in
+    phase 3; its bound is ``decrypt_sol``'s (one read of the limbs, one
+    word a row written, an AND and an XOR a limb)."""
+    torch = ctx["torch"]
+    from homomorph_tpu_torch.gf2 import poly as gf2
+
+    rows = []
+    for label, shape in DECIPHER_SHAPES:
+        L, n = shape[-1], 1
+        for k in shape[:-1]:
+            n *= k
+        c, w = random_words(ctx, shape), random_words(ctx, (L,))
+        bad = err = 0
+        for mask in (w, torch.full_like(w, -1)):
+            got = gf2.decipher_bits(c, mask)
+            torch.cuda.synchronize()
+            b, e = compare(torch, got, gf2.decipher_bits_plain(c, mask))
+            bad, err = bad + b, max(err, e)
+        check(bad == 0, f"decipher {shape}: {bad} mismatches")
+        row = set_bounds(ctx, [dict(
+            kernel="decipher", label=label, shape="x".join(map(str, shape)), mismatches=bad,
+            max_abs_err=err, **timed(torch, lambda: gf2.decipher_bits(c, w),
+                                     lambda: gf2.decipher_bits_plain(c, w)),
+            work=[(n * L * DECRYPT_OPS_PER_LIMB, "int32_ops")], old_ops=n * L * DECRYPT_OPS_PER_LIMB,
+            old_rate="int32_ops", bytes=n * (L + 1) * 4)])[0]
+        sol_ms = decrypt_sol(n, L, ctx["peaks"]) * 1e3
+        check(abs(row["bound_ms"] - sol_ms) <= 1e-9 * sol_ms,
+              f"decipher {shape}: bound {row['bound_ms']} ms, decrypt_sol {sol_ms} ms")
+        log(f"[kernels] decipher {label} {row['shape']}: mismatches {bad}, kernel {row['ms']} ms by "
+            f"{row['ms_by']} (call {row['call_ms']} ms), plain {row['plain_ms']} ms by "
+            f"{row['plain_by']}, bound {row['bound_ms']:.5f} ms ({row['bound_ms'] / row['ms']:.1%})")
+        rows.append(row)
+        del c, w
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2480,7 +2531,7 @@ def main(argv=None):
         "threefry": "T1", "threefry_dkey": "T1.dkey", "square": "M1", "newton_step": "M2",
         "series_small": "M3", "mask_clmul": "mask.K1", "route_split": "R1", "route_join": "R2",
         "csa_level_in": "C1", "csa_level_out": "C2", "ripple_step": "C3",
-        "clmul_square": "K1.square"}
+        "clmul_square": "K1.square", "decipher": "D1"}
 
     def run_path(fn):
         before = launch_counts(ctx)
@@ -2560,21 +2611,22 @@ def main(argv=None):
     # phase 10 also runs the route, M1 and K1, at every class)
     circuit = ("csa_level_in", "csa_level_out", "ripple_step")
     needs = {"add": ("clmul", "encrypt", "threefry", "series_small", "csa_level_in",
-                     "ripple_step"),
-             "mul_cmp": ("clmul", "encrypt_v1", "threefry", "series_small") + circuit,
+                     "ripple_step", "decipher"),
+             "mul_cmp": ("clmul", "encrypt_v1", "threefry", "series_small", "decipher") + circuit,
              "exp_enc": ("encrypt", "encrypt_v1", "encrypt_v3", "threefry"),
              "wide": ("clmul", "encrypt", "threefry", "series_small", "newton_step",
-                      "route_split", "route_join") + circuit,
-             "verify": ("clmul", "encrypt", "threefry", "series_small") + circuit,
+                      "route_split", "route_join", "decipher") + circuit,
+             "verify": ("clmul", "encrypt", "threefry", "series_small", "decipher") + circuit,
              "masks": ("clmul", "square", "newton_step", "series_small", "mask_clmul"),
-             "mesh": ("clmul", "encrypt", "encrypt_v3", "threefry", "series_small") + circuit,
+             "mesh": ("clmul", "encrypt", "encrypt_v3", "threefry", "series_small",
+                      "decipher") + circuit,
              "u64": ("clmul", "encrypt", "series_small", "newton_step", "route_split",
-                     "route_join") + circuit,
-             "entry": ("clmul", "encrypt", "encrypt_v3", "threefry", "series_small"),
+                     "route_join", "decipher") + circuit,
+             "entry": ("clmul", "encrypt", "encrypt_v3", "threefry", "series_small", "decipher"),
              "bench": ("clmul", "encrypt", "threefry", "series_small", "newton_step",
-                       "route_split", "route_join") + circuit,
+                       "route_split", "route_join", "decipher") + circuit,
              "compiled": ("clmul", "encrypt", "encrypt_v1", "threefry_dkey", "route_split",
-                          "route_join") + circuit}
+                          "route_join", "decipher") + circuit}
     for path, names in needs.items():
         for name in names:
             check(paths[path][name] > 0, f"{name} was not launched on the {path} path")
@@ -2631,6 +2683,9 @@ def main(argv=None):
                           "homomorph_tpu/models/circuits.py:765", "u16-busiest"),
         "ripple_step": ("homomorph_tpu_torch/csrc/circuit.cu",
                         "homomorph_tpu/models/circuits.py:844", "u16-busiest"),
+        # not a Pallas kernel: XLA's fusion of c & w, the XOR fold and the parity
+        "decipher": ("homomorph_tpu_torch/csrc/decrypt.cu", "homomorph_tpu/gf2/poly.py:383",
+                     "sum"),
     }
     kernels = []
     for name, (source, replaces, label) in meta.items():

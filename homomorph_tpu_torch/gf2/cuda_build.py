@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "build", "library", "build_logs"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("clmul", "encrypt", "encrypt_mma", "threefry", "mask", "route", "circuit")
+SOURCES = ("clmul", "encrypt", "encrypt_mma", "threefry", "mask", "route", "circuit", "decrypt")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -459,10 +459,20 @@ def decipher_bits(c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Batched decrypt: parity(popcount(c & w)) over the limb axis.
 
     ``c``: [..., L] ciphered-bit limbs; ``w``: [L] mask from
-    :func:`decrypt_mask`.  Returns int32 0/1 with shape [...].  Torch has
-    no popcount: the limbs are XOR-folded to one word, then the word's 32
-    bits are folded to one.
+    :func:`decrypt_mask`.  Returns int32 0/1 with shape [...].  On a CUDA
+    tensor this is the kernel D1, one read of ``c``; elsewhere
+    :func:`decipher_bits_plain`
+    (:func:`~homomorph_tpu_torch.gf2.decrypt_kernel.decipher` chooses).
     """
+    from .decrypt_kernel import decipher  # lazily: it imports this module
+
+    return decipher(c, w)
+
+
+def decipher_bits_plain(c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The torch expression of :func:`decipher_bits`: D1's plain version.
+    Torch has no popcount: the limbs are XOR-folded to one word, then the
+    word's 32 bits are folded to one."""
     return parity32(xor_fold(c & w))
 
 

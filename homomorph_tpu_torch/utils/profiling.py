@@ -290,7 +290,8 @@ def device_busy(fn, reps: int = 2) -> "tuple[float, dict[str, float]]":
 
 #: the kernels' launch counters, by the ids of PERF.md's kernel table;
 #: ``T1.dkey`` is T1's entry that reads its key from a device buffer
-KERNELS = ("K1", "R1", "R2", "C1", "C2", "C3", "K2", "K3", "X1", "T1", "T1.dkey", "M1", "M2", "M3")
+KERNELS = ("K1", "R1", "R2", "C1", "C2", "C3", "K2", "K3", "X1", "T1", "T1.dkey", "M1", "M2", "M3",
+           "D1")
 
 
 class Counters:

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1, R1, R2, K2, K3, X1, T1, M1, M2, M3, C1, C2, C3)
+"""The port's CUDA kernels (K1, R1, R2, K2, K3, X1, T1, M1, M2, M3, C1, C2, C3, D1)
 against their plain torch versions (and K1 and K2 against the torch mirrors of their
 designs), on the card.
 
@@ -1337,3 +1337,127 @@ def test_compiled_u32_product_equals_eager_under_a_graph():
             assert (got.bound, got.noise) == (other.bound, other.noise)
         assert [int(v) for v in ctx.decrypt(got)] == [x * y % 2**32 for x, y in zip(xs, ys)]
     assert fn.graphed.graphs == 1
+
+
+def card_limbs(shape, seed):
+    """Random int32 limbs made on the card (the round trip's 3.2 GB sum is
+    too large to draw on the host)."""
+    on_card((1,), 0)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(-2**31, 2**31, shape, generator=g, dtype=torch.int64,
+                         device="cuda").to(torch.int32)
+
+
+@pytest.mark.parametrize("rows,L", [(1, 1), (2**21, 9), (4097, 33), (2**21, 384), (1023, 385),
+                                    (512, 98304), (1, 3145728)])
+def test_decipher_kernel_matches_plain(rows, L):
+    """D1 bit for bit against the torch expression at the paths' widths
+    (sub-warp groups, a warp a row, rows cut into tasks), one launch each."""
+    from homomorph_tpu_torch.gf2 import decrypt_kernel as dk
+
+    c, w = card_limbs((rows, L), 40 + L), card_limbs((L,), 41 + L)
+    before = counters["D1"]
+    got = gf2.decipher_bits(c, w)
+    torch.cuda.synchronize()
+    assert counters["D1"] == before + 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == (rows,)
+    assert torch.equal(got, gf2.decipher_bits_plain(c, w))
+    assert torch.equal(dk.decipher(c, torch.full_like(w, -1)),
+                       gf2.decipher_bits_plain(c, torch.full_like(w, -1)))
+
+
+@pytest.mark.parametrize("name", ["wider rows, aligned", "wider rows, unaligned", "every other row",
+                                  "batch of two dims", "unaligned mask", "permuted batch",
+                                  "limbs not contiguous", "broadcast mask", "empty", "no limbs"])
+def test_decipher_kernel_on_views(name):
+    """D1 reads rows in place wherever they lie one stride apart, aligned
+    or not; a permuted batch or limbs that are not contiguous are copied
+    and launch D1 too, as does a mask that broadcasts; an empty batch and
+    rows of no limbs launch nothing."""
+    L = 385
+    wide, wl = card_limbs((1023, 400), 50), card_limbs((L + 1,), 51)[1:]
+    c, w, launches = {
+        "wider rows, aligned": (wide[:, 8:8 + L], wl, 1),
+        "wider rows, unaligned": (wide[:, 3:3 + L], wl, 1),
+        "every other row": (wide[::2, :384], wl[:384], 1),
+        "batch of two dims": (wide[:1020, :L].reshape(4, 255, L), wl, 1),
+        "unaligned mask": (wide[:, :L], wl, 1),
+        "permuted batch": (wide[:1020].reshape(4, 255, 400)[..., :L].transpose(0, 1), wl, 1),
+        "limbs not contiguous": (wide[:L, :300].t(), wl, 1),
+        "broadcast mask": (wide[:, :L], wl[:1], 1),
+        "empty": (wide[:0, :L], wl, 0),
+        "no limbs": (wide[:, :0], wl[:0], 0),
+    }[name]
+    before = counters["D1"]
+    got = gf2.decipher_bits(c, w)
+    torch.cuda.synchronize()
+    assert counters["D1"] == before + launches
+    assert got.dtype == torch.int32 and tuple(got.shape) == tuple(c.shape[:-1])
+    assert torch.equal(got, gf2.decipher_bits_plain(c.contiguous(), w.contiguous()))
+
+
+def test_decipher_kernel_refuses_other_dtypes():
+    """On the card D1 takes int32 limbs and mask alone, and a mask on the
+    limbs' device: anything else raises and launches nothing."""
+    c, w = card_limbs((64, 9), 52), card_limbs((9,), 53)
+    before = counters["D1"]
+    for args in ((c.to(torch.int64), w), (c, w.to(torch.int64)), (c, w.cpu()),
+                 (c, w.reshape(1, 9))):
+        with pytest.raises((TypeError, ValueError)):
+            gf2.decipher_bits(*args)
+    assert counters["D1"] == before
+
+
+@pytest.mark.parametrize("rows,L", [(65536, 384), (4097, 33), (64, 384), (512, 98304)])
+def test_decipher_kernel_replays_in_a_cuda_graph(rows, L):
+    """D1 captured in a CUDA graph (with its memset node where rows are cut
+    into tasks) and replayed on new limbs equals eager."""
+    from homomorph_tpu_torch.gf2 import decrypt_kernel as dk
+
+    c, w = card_limbs((rows, L), 60 + L), card_limbs((L,), 61 + L)
+    plan = dk.decipher_plan(rows, L, L % 4 == 0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gf2.decipher_bits(c, w)  # warm-up: builds, loads and asks the occupancy
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gf2.decipher_bits(c, w)
+    for seed in (1, 2):
+        c.copy_(card_limbs((rows, L), 70 + seed))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, gf2.decipher_bits(c, w))
+        assert torch.equal(out, gf2.decipher_bits_plain(c, w))
+    assert (plan.split > 1) == (rows < 65536)
+
+
+def test_the_round_trip_at_the_cells_shape_decrypts_through_d1():
+    """The compiled u32 add's round trip at the benchmark's 65,536 pairs
+    (a [65,536, 32, 384] sum) decrypts to the plaintext sums, and each
+    replay counts one D1 launch, its graph's only decrypt: 68 work nodes,
+    where the torch expression made 91."""
+    import homomorph_tpu_torch as ht
+    from homomorph_tpu_torch import rng as hrng
+    from homomorph_tpu_torch.experiments.common import CHECK_SEED, context
+    from homomorph_tpu_torch.models import HomomorphicAddition
+    from homomorph_tpu_torch.models.compiled import compile_roundtrip
+
+    on_card((1,), 0)
+    ctx = context((128, 128, 1, 128), CHECK_SEED, "cuda")
+    fn = compile_roundtrip(ctx, HomomorphicAddition, ht.U32)
+    rng = np.random.default_rng(22)
+    xs, ys = (rng.integers(0, 2**32, size=65536, dtype=np.uint64).astype(np.uint32)
+              for _ in range(2))
+    bits = [np.unpackbits(v.view(np.uint8).reshape(-1, 4), axis=1, bitorder="little")
+            .astype(np.int32) for v in (xs, ys)]
+    for seed in (1, 2):
+        before = counters["D1"]
+        out = fn(hrng.threefry_key(seed), *bits)
+        torch.cuda.synchronize()
+        got = np.packbits(out.cpu().numpy().astype(np.uint8), axis=1, bitorder="little")
+        assert (got.view("<u4").reshape(-1) == xs + ys).all()
+    (manifest,) = fn.graphed.manifests
+    assert manifest["D1"] == 1 and counters["D1"] == before + 1
+    assert fn.graphed.launches == [68]
