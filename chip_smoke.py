@@ -52,11 +52,9 @@ Phases, in order; any failure exits non-zero before the result line:
 5c. the wide path (:func:`phase_wide`): checked u16 multiplication of 512
    pairs at ``Parameters(1024, 128, 1, 128)`` and u32 of 8 pairs at
    ``(2432, 128, 1, 128)``, decrypted and asserted, 2 and 1 of their rows
-   again with the route off (direct K1) and equal limb for limb; the u32
-   product once more with ``HOMOMORPH_TPU_TORCH_EAGER_SYNC=1``; the sum of
-   8 u8 operands, the u32 popcount, the u8 clamp, the i8 shifts, rotates
-   and ``abs_``, and the u32 add through the carry scan, each decrypted and
-   asserted;
+   again with the route off (direct K1) and equal limb for limb; the sum
+   of 8 u8 operands, the u32 popcount, the u8 clamp, the i8 shifts, rotates
+   and ``abs_``, each decrypted and asserted;
 3b. K1 at the busiest shapes phase 5b's multiplication and ``lt`` launched
    it with, every distinct ``lt`` launch shape timed, and at the busiest
    launch of the u16 product and the widest of the u32 product (phase 5c),
@@ -135,9 +133,7 @@ Phases, in order; any failure exits non-zero before the result line:
    add (2,048 pairs) and the u32 product (8 pairs) against eager limb for
    limb and decrypted, and the u32 add's encrypt -> add -> decrypt round
    trip under a new key each call: first call, replays, eager and one
-   replay's device time; the u32 add through the carry scan
-   (``HOMOMORPH_TPU_TORCH_CARRY_SCAN=1``) against eager, and the round trip
-   through K3 (``HOMOMORPH_TPU_TORCH_ENC_IMPL=pallas_v1``), each replay
+   replay's device time; and the round trip through K3 (``HOMOMORPH_TPU_TORCH_ENC_IMPL=pallas_v1``), each replay
    against the same function run eagerly on its keys; their launches are
    those counted at warm-up and capture (a replay must count none);
 8. one JSON line of kernels (launches counted over the paths: phases 5-6,
@@ -1080,33 +1076,20 @@ def threshold_scan(ctx, c, ea, eb, prod):
 
 def phase_wide(ctx):
     """Phase 5c: u16 and u32 multiplication, sum, popcount, clamp, shifts,
-    rotates, ``abs_`` and the scanned add."""
+    rotates and ``abs_``."""
     import numpy as np
 
     import homomorph_tpu_torch as ht
-    from homomorph_tpu_torch.gf2 import kernels as k
-    from homomorph_tpu_torch.models import (
-        HomomorphicAddition, HomomorphicMultiplication, HomomorphicPopCount, HomomorphicSum,
-        circuits,
-    )
+    from homomorph_tpu_torch.models import HomomorphicPopCount, HomomorphicSum, circuits
 
-    torch, dev, seed = ctx["torch"], ctx["dev"], ctx["seed"] + 40
+    torch, seed = ctx["torch"], ctx["seed"] + 40
     out = {}
     out["u16"], ctx["u16_inputs"], ctx["u16_shapes"] = wide_mul(
         ctx, ht, "u16", ht.Parameters(1024, 128, 1, 128), 512, ht.U16, 16, 2, seed)
     out["u32"], (c32, a32, b32, p32), ctx["u32_shapes"] = wide_mul(
         ctx, ht, "u32", ht.Parameters(2432, 128, 1, 128), 8, ht.U32, 32, 1, seed + 1)
-    torch.cuda.reset_peak_memory_stats()
-    synced, sync_ms = with_env(circuits.EAGER_SYNC_ENV, "1", lambda: stage(
-        torch, lambda: c32.apply2(HomomorphicMultiplication, a32, b32)))
-    sync_peak = torch.cuda.max_memory_allocated() / 1e9
-    check(torch.equal(synced.limbs, p32.limbs), "u32 with EAGER_SYNC differs")
-    out["u32_eager_sync"] = dict(mul_ms=sync_ms, peak_gb=sync_peak)
-    log(f"[wide] u32 with HOMOMORPH_TPU_TORCH_EAGER_SYNC=1: {sync_ms:.3f} ms, peak "
-        f"{sync_peak:.3f} GB (without: {out['u32']['mul_ms']:.3f} ms, "
-        f"{out['u32']['peak_gb']:.3f} GB); same limbs")
     ctx["u32_inputs"] = (c32, a32, b32)
-    del synced, p32
+    del p32
 
     # the N-ary sum and the popcount, checked, at the u16 product's parameters
     rng = np.random.default_rng(seed + 2)
@@ -1137,7 +1120,7 @@ def phase_wide(ctx):
     del ops8, e32, sm, pc, cl, lo, hi
 
     # the plaintext-amount remaps and abs_ on i8, at the add path's parameters
-    c, ca, cb = ctx["add_inputs"]
+    c = ctx["add_inputs"][0]
     i8 = rng.integers(-128, 128, size=n)
     i8[:2] = (-128, 127)
     e8 = c.encrypt(i8.tolist(), ht.I8, batch=True)
@@ -1162,27 +1145,6 @@ def phase_wide(ctx):
     log(f"[wide] Parameters(128, 128, 1, 128), {n} i8: " + ", ".join(
         f"{name} {ms:.3f} ms" for name, ms in remap_ms.items()) + "; all right")
 
-    # the u32 add through the carry scan, against the ripple's polynomials
-    xs = np.array(c.decrypt(ca).tolist(), dtype=np.uint64)
-    ys = np.array(c.decrypt(cb).tolist(), dtype=np.uint64)
-    before = counters["K1"]
-    scan, scan_ms = with_env(circuits.CARRY_SCAN_ENV, "1", lambda: stage(
-        torch, lambda: c.apply2(HomomorphicAddition, ca, cb)))
-    scan_launches = counters["K1"] - before
-    ripple, ripple_ms = stage(torch, lambda: c.apply2(HomomorphicAddition, ca, cb))
-    got = np.array(c.decrypt(scan).tolist(), dtype=np.uint64)
-    check(np.array_equal(got, (xs + ys) % (1 << 32)), "scanned u32 add wrong")
-    from homomorph_tpu_torch.gf2 import poly as gf2
-
-    L = max(scan.num_limbs, ripple.num_limbs)
-    check(torch.equal(gf2.pad_limbs(scan.limbs[:4], L), gf2.pad_limbs(ripple.limbs[:4], L)),
-          "scanned add: polynomials differ from the ripple's on 4 rows")
-    out["scan_add"] = dict(pairs=len(xs), scan_ms=scan_ms, ripple_ms=ripple_ms,
-                           scan_k1_launches=scan_launches, scan_limbs=scan.num_limbs,
-                           ripple_limbs=ripple.num_limbs)
-    log(f"[wide] u32 add through the carry scan, {len(xs)} pairs: {scan_ms:.3f} ms "
-        f"({scan_launches} K1 launches, L={scan.num_limbs}) against the ripple's "
-        f"{ripple_ms:.3f} ms (L={ripple.num_limbs}); right, same polynomials on 4 rows")
     return out
 
 
@@ -1897,8 +1859,8 @@ def mask_kernel_rows(ctx, keys):
 #: before the decrypt masks moved to the card: the mask route's own K1
 #: launches (the counter ``mask.K1``, the ``mask_clmul`` count of each
 #: path) are taken off each path's K1 count before the check
-K1_EARLIER_PATHS = {"add": 36, "mul_cmp": 47, "exp_enc": 1, "wide": 429, "verify": 39,
-                    "compiled": 378}
+K1_EARLIER_PATHS = {"add": 36, "mul_cmp": 47, "exp_enc": 1, "wide": 302, "verify": 39,
+                    "compiled": 356}
 
 # Phase 10b: the meshes of the bulk encrypt (four places on the one card)
 MESH_BULK = (((128, 128, 64, 128), 1 << 21, ((4, 1), (2, 2), (1, 4))),
@@ -2404,26 +2366,6 @@ def phase_compiled(ctx):
         f"the bits on the card; {len(outs)} calls under {len(outs)} keys decrypt to the "
         f"{len(xs)} sums")
 
-    # the u32 add through the carry scan: capturable since the scan takes its
-    # positions as views (no host-to-device index copy)
-    from homomorph_tpu_torch.models import circuits
-
-    def scan_case():
-        fn = compile_op2(HomomorphicAddition, ht.U32, c.parameters.pk_degree)
-        stats, first, last, eager = compiled_case(
-            ctx, "add_u32_scan", fn.graphed, lambda: fn(ca, cb),
-            lambda: c.apply2(HomomorphicAddition, ca, cb),
-            lambda: _derive_meta(HomomorphicAddition.unsafe_apply, c.parameters.pk_degree, ht.U32,
-                                 ca.limbs.shape, cb.limbs.shape))
-        for got in (first, last):
-            check(torch.equal(got.limbs, eager.limbs) and (got.bound, got.noise) == (
-                eager.bound, eager.noise), "compiled add_u32_scan: limbs or metadata differ")
-        got = np.array(c.decrypt(last).tolist(), dtype=np.uint64)
-        check(np.array_equal(got, (xs + ys) % (1 << 32)), "compiled add_u32_scan: decrypts wrong")
-        stats["pairs"] = len(got)
-        return stats
-
-    out["add_u32_scan"] = with_env(circuits.CARRY_SCAN_ENV, "1", scan_case)
     out["roundtrip_add_u32_k3"] = with_env(
         enc.ENC_IMPL_ENV, "pallas_v1", lambda: roundtrip_k3(ctx, bits_a, bits_b, want))
     return out

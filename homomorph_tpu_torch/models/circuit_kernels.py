@@ -39,6 +39,10 @@ kernel (and counts the launch) or raises; on a ``cpu`` tensor it runs its
 plain version, the same program in torch ops (:func:`xor_rows_plain`); on a
 ``meta`` tensor, which holds no values, it checks the program and computes
 nothing (the outputs' shapes are the plan's).  There is no other path.
+A plan's programs at a row count and its inputs' row strides are made and
+prepared (their launches' words laid out) once, and kept in one bounded
+cache (:func:`_programs_at`), whichever runner asks: the tree, the two-row
+ripple or the add.  A program passed in as an array is prepared at each call.
 
 Memory: a level's outputs live in one buffer for each level at which they
 die, so a buffer is freed with its last bit, as each bit was before; the
@@ -50,7 +54,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-import weakref
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -137,36 +141,27 @@ def _split(spec: Spec, prog: np.ndarray):
 
 
 class _Prepared(NamedTuple):
-    """A program checked at a row count: the extent each slot's tensor must
-    have, and each launch's words with the pointers left to fill
-    (``words[pos] = pointer of slot[...] + off``)."""
+    """A program checked at a row count: the program, the extent each
+    slot's tensor must have, and each launch's words with the pointers left
+    to fill (``words[pos] = pointer of slot[...] + off``)."""
 
-    prog: object     # a weak reference to the program
+    prog: np.ndarray
     spec: Spec
     rows: int
     need: np.ndarray
     calls: tuple  # (words, pos, slot, off) a launch
 
 
-#: programs the plans made (read-only arrays), prepared once a row count
-_prepared: dict = {}
-
-
 def _prepare(spec: Spec, prog, rows: int) -> _Prepared:
     """Check a program's fields and lay out its launches' words (the C
     entry's: ops, rows, then per op each source's pointer, stride and
-    width and each destination's pointer, stride, width and mask).  A
-    read-only program (every plan's) is prepared once for each row count."""
+    width and each destination's pointer, stride, width and mask)."""
     name = spec.entry[3:]
     if not isinstance(prog, np.ndarray) or prog.dtype != np.int64 or prog.ndim != 2 \
             or prog.shape[1] != spec.fields:
         raise ValueError(f"{name} takes an int64 program of [ops, {spec.fields}]")
     if rows < 0:
         raise ValueError(f"{name} takes rows >= 0, got {rows}")
-    cached = None if prog.flags.writeable else _prepared.get(id(prog))
-    if (cached is not None and cached.prog() is prog and cached.spec == spec
-            and cached.rows == rows):
-        return cached
     src, dst = _split(spec, prog)
     need: dict = {}
     for f in (src, dst):
@@ -201,13 +196,7 @@ def _prepare(spec: Spec, prog, rows: int) -> _Prepared:
         offs = np.concatenate([sf[..., 1], df[..., 1]], axis=1)[used]
         pos = (2 + np.arange(n)[:, None] * per_op + at[None, :])[used]
         launches.append((words, pos, slots, 4 * offs))
-    out = _Prepared(None, spec, rows, needs, tuple(launches))
-    if not prog.flags.writeable:
-        if len(_prepared) > 4096:
-            _prepared.clear()
-        out = out._replace(prog=weakref.ref(prog))
-        _prepared[id(prog)] = out
-    return out
+    return _Prepared(prog, spec, rows, needs, tuple(launches))
 
 
 def _check(spec: Spec, prep: _Prepared, tensors) -> "torch.device | None":
@@ -257,9 +246,13 @@ def xor_rows_plain(spec: Spec, prog: np.ndarray, tensors, rows: int) -> None:
             view.copy_(acc)
 
 
-def _run(spec: Spec, prog: np.ndarray, tensors, rows: int) -> None:
-    prep = _prepare(spec, prog, rows)
+def _run(spec: Spec, prog, tensors, rows: int) -> None:
+    prep = prog if isinstance(prog, _Prepared) else _prepare(spec, prog, rows)
+    if prep.spec != spec or prep.rows != rows:
+        raise ValueError(f"{spec.entry[3:]}: a program prepared for "
+                         f"{prep.spec.entry[3:]} at {prep.rows} rows, run at {rows}")
     dev = _check(spec, prep, tensors)
+    prog = prep.prog
     if rows == 0 or prog.shape[0] == 0:
         return
     if dev.type == "meta":  # no values to compute: the outputs' shapes are the caller's
@@ -283,20 +276,21 @@ def _run(spec: Spec, prog: np.ndarray, tensors, rows: int) -> None:
             counters.add(spec.kernel)
 
 
-def csa_level_in(prog: np.ndarray, tensors, rows: int) -> None:
+def csa_level_in(prog: "np.ndarray | _Prepared", tensors, rows: int) -> None:
     """C1's wrapper (``hm_csa_level_in``): a level's compressors, ops of 3
     sources and 5 destinations (:func:`tree_plan`), in launches of at most
-    ``CSA_IN.ops``."""
+    ``CSA_IN.ops``.  ``prog`` is an int64 program or one prepared at
+    ``rows`` (:func:`_prepare`); so too for C2 and C3."""
     _run(CSA_IN, prog, tensors, rows)
 
 
-def csa_level_out(prog: np.ndarray, tensors, rows: int) -> None:
+def csa_level_out(prog: "np.ndarray | _Prepared", tensors, rows: int) -> None:
     """C2's wrapper (``hm_csa_level_out``): a level's carries, ops of 2
     sources and 1 destination, in launches of at most ``CSA_OUT.ops``."""
     _run(CSA_OUT, prog, tensors, rows)
 
 
-def ripple_step(prog: np.ndarray, tensors, rows: int) -> None:
+def ripple_step(prog: "np.ndarray | _Prepared", tensors, rows: int) -> None:
     """C3's wrapper (``hm_ripple_step``): one step of a carry chain, one op
     of 3 sources (prod, g, the next x) and 2 destinations (the carry, the
     next output lane)."""
@@ -387,7 +381,6 @@ class Level(NamedTuple):
     c2: tuple
     buffers: tuple   # ((key, limbs a row), ...) of the level's outputs
     dead: tuple      # slot keys dropped after the level
-    sync: bool       # an output wider than 8,192 limbs
 
 
 class Step(NamedTuple):
@@ -425,7 +418,6 @@ class Ripple(NamedTuple):
 class TreePlan(NamedTuple):
     levels: tuple
     ripple: Ripple
-    programs: dict   # (rows, input strides) -> instantiated programs
 
 
 def tree_plan(plan, inputs: "tuple[tuple[int, int, int, int], ...]") -> TreePlan:
@@ -515,13 +507,12 @@ def _tree_plan(n, levels, final_cols, inputs) -> TreePlan:
         out_levels.append(Level(
             c1=tuple(c1), groups=groups, opnd=opnd, c2=tuple(c2),
             buffers=tuple(bufs.items()),
-            dead=tuple(dead), sync=any(meta[s].width > 8192 for s in sums)))
+            dead=tuple(dead)))
     A = [where[c[0]] if len(c) > 0 else None for c in final]
     B = [where[c[1]] if len(c) > 1 else None for c in final]
     mA = [meta[c[0]] if len(c) > 0 else None for c in final]
     mB = [meta[c[1]] if len(c) > 1 else None for c in final]
-    return TreePlan(levels=tuple(out_levels),
-                    ripple=_ripple(A, B, mA, mB, None, None), programs={})
+    return TreePlan(levels=tuple(out_levels), ripple=_ripple(A, B, mA, mB, None, None))
 
 
 def ripple_plan(A: tuple, B: tuple, cin: "Bit | None" = None) -> Ripple:
@@ -657,7 +648,6 @@ class AddPlan(NamedTuple):
     steps: tuple
     lanes: tuple
     width: int
-    programs: dict
 
 
 def add_plan(n: int, a: Bit, b: Bit, cin: "Bit | None") -> AddPlan:
@@ -715,7 +705,7 @@ def _add_plan(n, a: Bit, b: Bit, cin) -> AddPlan:
         dsts = [(_loc(("carry", i + 1), keep), 3) if keep else None, (out(i + 1), 7)]
         steps.append(Step(i, x_op, c_op, (srcs, dsts), keep))
     return AddPlan(c1=tuple(c1), xs=n * Lx, steps=tuple(steps), lanes=tuple(lanes),
-                   width=width, programs={})
+                   width=width)
 
 
 # --------------------------------------------------------------------------
@@ -723,9 +713,10 @@ def _add_plan(n, a: Bit, b: Bit, cin) -> AddPlan:
 # --------------------------------------------------------------------------
 
 
-def _program(spec: Spec, ops, rows: int, strides: dict) -> "tuple[np.ndarray, tuple]":
-    """(program, slot keys) of symbolic ops at ``rows`` rows; ``strides``
-    gives the row stride of each slot whose locations leave it open."""
+def _program(spec: Spec, ops, rows: int, strides: dict) -> "tuple[_Prepared, tuple]":
+    """(program prepared at ``rows`` rows, slot keys) of symbolic ops;
+    ``strides`` gives the row stride of each slot whose locations leave it
+    open."""
     keys: dict = {}
     out = np.zeros((len(ops), spec.fields), dtype=np.int64)
     for r, (srcs, dsts) in enumerate(ops):
@@ -737,14 +728,53 @@ def _program(spec: Spec, ops, rows: int, strides: dict) -> "tuple[np.ndarray, tu
             d = dsts[j] if j < len(dsts) else None
             row += [-1, 0, 0, 0, 0] if d is None else _fields(d[0], keys, rows, strides) + [d[1]]
         out[r] = row
-    out.flags.writeable = False  # prepared once a row count (_prepare)
-    return out, tuple(keys)
+    return _prepare(spec, out, rows), tuple(keys)
 
 
 def _fields(loc, keys: dict, rows: int, strides: dict) -> list:
     key, rows_off, limbs_off, stride, width = loc
     slot = keys.setdefault(key, len(keys))
     return [slot, rows_off * rows + limbs_off, strides[key] if stride is None else stride, width]
+
+
+def _add_programs(plan, rows: int, strides: dict):
+    """An add's (or a ripple's) first C1 and one C3 a step."""
+    return (_program(CSA_IN, plan.c1, rows, strides),
+            [_program(RIPPLE, [s.op], rows, strides) for s in plan.steps])
+
+
+def _ripple_programs(rp: Ripple, rows: int, strides: dict):
+    """A ripple's first C1, one C3 a step and the C1 that stacks its lanes."""
+    return (*_add_programs(rp, rows, strides), _program(CSA_IN, rp.stack, rows, strides))
+
+
+def _tree_programs(tp: TreePlan, rows: int, strides: dict):
+    """A tree's ``(C1, C2)`` a level and its ripple's programs."""
+    return ([(_program(CSA_IN, lv.c1, rows, strides), _program(CSA_OUT, lv.c2, rows, strides))
+             for lv in tp.levels], _ripple_programs(tp.ripple, rows, strides))
+
+
+#: every runner's programs, least recently used first: (id(plan), rows, input
+#: strides) -> (plan, programs); an entry holds its plan, so its id names no other
+_programs: OrderedDict = OrderedDict()
+_PROGRAMS_KEPT = 256
+
+
+def _programs_at(plan, rows: int, strides: dict, make):
+    """``make(plan, rows, strides)``, the runner's programs of its plan,
+    made and prepared once for each row count and input strides.  A plan
+    comes from its own ``lru_cache``, so one shape gives one plan object,
+    and the key is its identity: nothing here hashes a plan."""
+    key = (id(plan), rows, tuple(strides.values()))
+    hit = _programs.get(key)
+    if hit is not None:
+        _programs.move_to_end(key)
+        return hit[1]
+    progs = make(plan, rows, strides)
+    _programs[key] = (plan, progs)
+    if len(_programs) > _PROGRAMS_KEPT:
+        _programs.popitem(last=False)
+    return progs
 
 
 # --------------------------------------------------------------------------
@@ -832,8 +862,8 @@ class TreeState(NamedTuple):
 
 def tree_start(bits: "dict[int, CipheredBit]", plan, batch: tuple) -> TreeState:
     """The tree's input bits in their slots, with the plan
-    (:func:`tree_plan`) and its programs at these rows (made once and kept
-    on the plan)."""
+    (:func:`tree_plan`) and its programs at these rows
+    (:func:`_programs_at`)."""
     rows = math.prod(batch)
     env, strides, inputs = {}, {}, []
     for bid in sorted(bits):
@@ -843,20 +873,14 @@ def tree_start(bits: "dict[int, CipheredBit]", plan, batch: tuple) -> TreeState:
         strides[("in", bid)] = s
         inputs.append((bid, t.shape[-1], bit.bound, bit.noise))
     tp = tree_plan(plan, tuple(inputs))
-    key = (rows, tuple(strides.values()))
-    progs = tp.programs.get(key)
-    if progs is None:
-        progs = tp.programs[key] = (
-            [(_program(CSA_IN, lv.c1, rows, strides), _program(CSA_OUT, lv.c2, rows, strides))
-             for lv in tp.levels], _ripple_programs(tp.ripple, rows, strides))
-    return TreeState(env, tp, progs, rows, batch, t.device)
+    return TreeState(env, tp, _programs_at(tp, rows, strides, _tree_programs), rows, batch,
+                     t.device)
 
 
-def tree_level(state: TreeState, li: int, sync=None) -> TreeState:
+def tree_level(state: TreeState, li: int) -> TreeState:
     """Level ``li``: one C1 launch (sums, operand rows), the grouped clmuls,
-    one C2 launch (carries); then the bits that die here are dropped.
-    ``sync(device)`` runs after it if its sums pass 8,192 limbs.  A span,
-    ``circuit.csa_level``."""
+    one C2 launch (carries); then the bits that die here are dropped.  A
+    span, ``circuit.csa_level``."""
     with span("circuit.csa_level"):
         env, rows, dev = dict(state.env), state.rows, state.device
         lv = state.plan.levels[li]
@@ -874,8 +898,6 @@ def tree_level(state: TreeState, li: int, sync=None) -> TreeState:
             del env[("prod", g)]
         for k in lv.dead:
             del env[k]
-        if sync is not None and lv.sync:
-            sync(dev)
         return state._replace(env=env)
 
 
@@ -885,22 +907,14 @@ def tree_ripple(state: TreeState) -> Lanes:
                        state.batch, state.device)
 
 
-def run_tree(bits: "dict[int, CipheredBit]", plan, batch: tuple, sync=None) -> Lanes:
+def run_tree(bits: "dict[int, CipheredBit]", plan, batch: tuple) -> Lanes:
     """Run a carry-save plan (``models/csaplan.py``) and its final ripple on
     live bits: :func:`tree_level` a level (one C1 launch, the grouped
-    clmuls, one C2 launch), then :func:`tree_ripple`.  ``sync(device)``
-    runs after each level whose sums pass 8,192 limbs
-    (``HOMOMORPH_TPU_TORCH_EAGER_SYNC``)."""
+    clmuls, one C2 launch), then :func:`tree_ripple`."""
     state = tree_start(bits, plan, batch)
     for li in range(len(state.plan.levels)):
-        state = tree_level(state, li, sync)
+        state = tree_level(state, li)
     return tree_ripple(state)
-
-
-def _ripple_programs(rp: Ripple, rows: int, strides: dict):
-    return (_program(CSA_IN, rp.c1, rows, strides),
-            [_program(RIPPLE, [s.op], rows, strides) for s in rp.steps],
-            _program(CSA_IN, rp.stack, rows, strides))
 
 
 def _operand(env, key_or_loc, rows):
@@ -915,6 +929,27 @@ def _operand(env, key_or_loc, rows):
     return t.reshape(rows, t.shape[-1])
 
 
+def _chain(steps, progs, env: dict, rows: int, dev, lanes: "tuple | None" = None) -> None:
+    """A carry chain, a step at a time, each in a span, ``circuit.ripple``:
+    its clmul ``x * carry``, the next carry's buffer, one C3 launch, then
+    the old carry and the product dropped.  With ``lanes`` (each output
+    lane's Bit) a step's output lane is a tensor of its own, made before
+    its launch (the ripple); without, the steps write into the stacked
+    output already in ``env`` (the add)."""
+    for step, (prog, keys) in zip(steps, progs):
+        with span("circuit.ripple"):
+            if step.x is not None:
+                env[("step",)] = _product_rows(_operand(env, step.x, rows),
+                                               _operand(env, step.carry, rows))
+            if step.keep:
+                env[("carry", step.i + 1)] = _empty(rows * step.keep, dev).view(rows, step.keep)
+            if lanes is not None:
+                env[("lane", step.i + 1)] = _empty(rows * lanes[step.i + 1].width, dev)
+            ripple_step(prog, [env[k] for k in keys], rows)
+            env.pop(("carry", step.i), None)
+            env.pop(("step",), None)
+
+
 def _ripple_run(rp: Ripple, progs, env, rows, batch, dev) -> Lanes:
     (p1, k1), steps, (p3, k3) = progs
     n = len(rp.lanes)
@@ -926,17 +961,7 @@ def _ripple_run(rp: Ripple, progs, env, rows, batch, dev) -> Lanes:
     prods = [_product_rows(U, V) for U, V in _operand_views(env.pop(("gop",)), rp.groups, rows)]
     env.update((("gprod", g), P) for g, P in enumerate(prods))
     del prods
-    for step, (prog, keys) in zip(rp.steps, steps):
-        with span("circuit.ripple"):
-            if step.x is not None:
-                env[("step",)] = _product_rows(_operand(env, step.x, rows),
-                                               _operand(env, step.carry, rows))
-            if step.keep:
-                env[("carry", step.i + 1)] = _empty(rows * step.keep, dev).view(rows, step.keep)
-            env[("lane", step.i + 1)] = _empty(rows * rp.lanes[step.i + 1].width, dev)
-            ripple_step(prog, [env[k] for k in keys], rows)
-            env.pop(("carry", step.i), None)
-            env.pop(("step",), None)
+    _chain(rp.steps, steps, env, rows, dev, rp.lanes)
     for k in [k for k in env if k[0] != "lane"]:  # freed before the output is made
         del env[k]
     out = torch.empty(batch + (n, rp.width), dtype=gf2.LIMB_DTYPE, device=dev)
@@ -966,8 +991,8 @@ def run_ripple(A, B, batch: tuple, carry_in: "CipheredBit | None" = None) -> Lan
         cin = (t.shape[-1], carry_in.bound, carry_in.noise)
     dev = next(iter(env.values())).device
     rp = ripple_plan(tuple(meta["a"]), tuple(meta["b"]), cin)
-    progs = _ripple_programs(rp, rows, strides)
-    return _ripple_run(rp, progs, env, rows, batch, dev)
+    return _ripple_run(rp, _programs_at(rp, rows, strides, _ripple_programs), env, rows, batch,
+                       dev)
 
 
 def run_add(a: torch.Tensor, b: torch.Tensor, a_bit: Bit, b_bit: Bit,
@@ -987,12 +1012,7 @@ def run_add(a: torch.Tensor, b: torch.Tensor, a_bit: Bit, b_bit: Bit,
         env[("cin",)], strides[("cin",)] = t, s
         cin = Bit(t.shape[-1], carry_in.bound, carry_in.noise)
     ap = add_plan(n, a_bit, b_bit, cin)
-    key = (rows, tuple(strides.values()))
-    progs = ap.programs.get(key)
-    if progs is None:
-        progs = ap.programs[key] = (_program(CSA_IN, ap.c1, rows, strides),
-                                    [_program(RIPPLE, [s.op], rows, strides) for s in ap.steps])
-    (p1, k1), steps = progs
+    (p1, k1), steps = _programs_at(ap, rows, strides, _add_programs)
     dev = a.device
     out = torch.empty(batch + (n, ap.width), dtype=gf2.LIMB_DTYPE, device=dev)
     env[("out",)] = out.view(-1)
@@ -1000,16 +1020,7 @@ def run_add(a: torch.Tensor, b: torch.Tensor, a_bit: Bit, b_bit: Bit,
     csa_level_in(p1, [env[k] for k in k1], rows)
     if n > 1:
         env[("g",)] = _product_rows(a, b).view(-1)
-    for step, (prog, keys) in zip(ap.steps, steps):
-        with span("circuit.ripple"):
-            if step.x is not None:
-                env[("step",)] = _product_rows(_rows_view(env[("x",)], step.x, rows),
-                                               _operand(env, step.carry, rows))
-            if step.keep:
-                env[("carry", step.i + 1)] = _empty(rows * step.keep, dev).view(rows, step.keep)
-            ripple_step(prog, [env[k] for k in keys], rows)
-            env.pop(("carry", step.i), None)
-            env.pop(("step",), None)
+    _chain(ap.steps, steps, env, rows, dev)
     return Lanes(out, ap.lanes)
 
 

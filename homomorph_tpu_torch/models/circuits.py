@@ -34,26 +34,15 @@ tracked noise carry over unchanged:
 Degree classes: a fresh ciphered bit has bound ``B0 = d + dp``; AND adds
 bounds; the carry bound grows by ``B0`` per position, so lane ``i`` of a sum
 has bound ``<= (i+1)*B0``.
-
-Knobs, read at each eager call; a compiled callable keeps the value it was
-captured with (:mod:`.compiled`; the JAX package snapshots its carry-scan
-knob at import; the results are the same either way):
-``HOMOMORPH_TPU_TORCH_CARRY_SCAN=1`` evaluates the adder's carries by the
-blocked prefix scan (:func:`_affine_carry_scan`), and
-``HOMOMORPH_TPU_TORCH_EAGER_SYNC=1`` synchronizes the card after any
-carry-save level whose outputs exceed 8,192 limbs (:func:`_csa_accumulate`);
-under a CUDA graph capture (:mod:`.compiled`) it raises instead.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Sequence
 
 import torch
 
 from .. import codec as _codec
-from .. import device as _device
 from ..cipher import Ciphered, CipheredBit
 from ..gf2 import kernels as gf2k
 from ..gf2 import poly as gf2
@@ -93,10 +82,6 @@ __all__ = [
     "sum_many",
     "popcount",
 ]
-
-CARRY_SCAN_ENV = "HOMOMORPH_TPU_TORCH_CARRY_SCAN"
-EAGER_SYNC_ENV = "HOMOMORPH_TPU_TORCH_EAGER_SYNC"
-
 
 # --------------------------------------------------------------------------
 # Whole-tensor gates (common.rs:5-35)
@@ -180,32 +165,13 @@ def add(a: Ciphered, b: Ciphered, carry_in: CipheredBit | None = None) -> Cipher
     whole-tensor AND.  The glue runs from a plan
     (:func:`~.circuit_kernels.run_add`): one C1 launch (the ``x`` lanes and
     output lane 0), then one C3 launch a step, which writes its carry and
-    the next output lane straight into the stacked output.  With
-    ``HOMOMORPH_TPU_TORCH_CARRY_SCAN=1`` and 16 or more lanes, the carries
-    come from :func:`_affine_carry_scan` instead.
+    the next output lane straight into the stacked output.
     """
     a, b = a.densify(), b.densify()
-    n = len(a)
-    if not (_use_carry_scan() and n >= 16):
-        return _ck.run_add(
-            a.limbs, b.limbs, _ck.Bit(a.num_limbs, a.bound, a.noise),
-            _ck.Bit(b.num_limbs, b.bound, b.noise), carry_in,
-        ).ciphered(a.desc)
-    x_all = gate_xor(a, b)
-    g_all = gate_and(a, b)
-    x_limbs = gf2.fit_limbs(x_all.limbs, gf2.limbs_for(x_all.bound))
-    carries = _affine_carry_scan(
-        g_all.limbs[..., : n - 1, :],
-        g_all.bound,
-        x_limbs[..., : n - 1, :],
-        x_all.bound,
-        carry_in if carry_in is not None
-        else CipheredBit.zero(a.batch_shape, device=a.limbs.device),
-        g_noise=g_all.noise,
-        m_noise=x_all.noise,
-    )
-    out = [x_all[i].xor(c) for i, c in enumerate(carries)]
-    return Ciphered.new_from_raw(out, a.desc)
+    return _ck.run_add(
+        a.limbs, b.limbs, _ck.Bit(a.num_limbs, a.bound, a.noise),
+        _ck.Bit(b.num_limbs, b.bound, b.noise), carry_in,
+    ).ciphered(a.desc)
 
 
 def add_per_op(a: Ciphered, b: Ciphered, carry_in: CipheredBit | None = None) -> Ciphered:
@@ -239,125 +205,6 @@ def add_per_op(a: Ciphered, b: Ciphered, carry_in: CipheredBit | None = None) ->
             gf2.xor(gf2.fit_limbs(prod, Lc), gs[i].limbs), nb, noise=nn
         )
     return Ciphered.new_from_raw(out, a.desc)
-
-
-_SCAN_BLOCK = 8  # carry-scan block size (sequential stages ~ 2*log2(K) + n/K)
-
-
-def _use_carry_scan() -> bool:
-    """The opt-in knob for the prefix-scan carries (see :func:`add`):
-    ``HOMOMORPH_TPU_TORCH_CARRY_SCAN=1``, read at each eager call; a
-    compiled callable keeps the value it was captured with."""
-    return os.environ.get(CARRY_SCAN_ENV, "0") == "1"
-
-
-def _affine_carry_scan(
-    g: torch.Tensor,
-    g_bound: int,
-    m: torch.Tensor,
-    m_bound: int,
-    carry0: CipheredBit,
-    g_noise: int = 4,
-    m_noise: int = 6,
-) -> list[CipheredBit]:
-    """All carries of ``c_{p+1} = g_p ^ m_p * c_p`` by a blocked prefix scan.
-
-    ``g``/``m``: [..., P, L] lane tensors for positions 0..P-1; returns the
-    P+1 carries ``c_0..c_P``.  Three phases on the position axis, so each
-    clmul takes B*P rows where the ripple takes B:
-
-    1. a segmented Hillis-Steele scan inside each block of
-       :data:`_SCAN_BLOCK` positions (log2(K) rounds of 2 batched clmuls):
-       position p ends up holding the composition of the affine maps from
-       its block's start through p;
-    2. ceil(P/K) sequential steps over the block summaries give the carry
-       entering each block;
-    3. one batched clmul fills every interior carry as
-       ``Gpref ^ Mpref * C_block``.
-
-    Composing (G2, M2) after (G1, M1) gives ``(G2 ^ M2*G1, M2*M1)``, and
-    GF(2)[X] is commutative and associative, so the scan is
-    polynomial-identical to the ripple of the same recurrence: with
-    ``m = x = a ^ b`` (what :func:`add` passes), the x-form ripple
-    ``c' = g ^ x*c``.  The reference's recurrence (common.rs:43-53)
-    expands to ``c' = g ^ x*(g^1)*c``; the two differ by ``x*g*c``, which
-    decrypts to 0, so the scan is only boolean-equal to it.  The clmuls go
-    through the dispatcher, so wide ones take the Karatsuba route.
-    """
-    P = g.shape[-2]
-    K = _SCAN_BLOCK
-    n_blocks = -(-P // K)
-    gb, gn = g_bound, g_noise
-    mb, mn = m_bound, m_noise
-
-    def blocks(t: torch.Tensor) -> torch.Tensor:
-        # [..., P, L] -> [..., n_blocks, K, L], zero positions beyond P: every
-        # position set below is a view, so no index tensor is copied to the
-        # card and a CUDA graph can capture the scan
-        t = torch.nn.functional.pad(t, (0, 0, 0, n_blocks * K - P))
-        return t.reshape(t.shape[:-2] + (n_blocks, K, t.shape[-1]))
-
-    Gp, Mp = blocks(g), blocks(m)
-
-    # -- phase 1: segmented Hillis-Steele scan over each K-block -----------
-    # round r updates offsets r..K-1 of every block from offsets 0..K-1-r;
-    # the padded positions compute values nothing reads
-    r = 1
-    while r < min(K, P):
-        G_at, M_at = Gp[..., r:, :], Mp[..., r:, :]
-        G_pv, M_pv = Gp[..., : K - r, :], Mp[..., : K - r, :]
-        new_gb, new_mb = gb + mb, 2 * mb
-        new_gn, new_mn = gn + mn, 2 * mn
-        Gn = gf2.xor(G_at, gf2k.clmul(M_at, G_pv))
-        Mn = gf2k.clmul(M_at, M_pv)
-        Lg = gf2.bucket(gf2.limbs_for(new_gb))
-        Lm = gf2.bucket(gf2.limbs_for(new_mb))
-        # write back at offsets r..K-1; the others keep their values
-        Gp = gf2.pad_limbs(Gp, Lg).clone()
-        Gp[..., r:, :] = gf2.fit_limbs(Gn, Lg)
-        Mp = gf2.pad_limbs(Mp, Lm).clone()
-        Mp[..., r:, :] = gf2.fit_limbs(Mn, Lm)
-        gb, mb = new_gb, new_mb
-        gn, mn = new_gn, new_mn
-        r *= 2
-
-    # -- phase 2: sequential chain over block summaries ---------------------
-    # when K divides P, carry c_P is itself a block-entry carry (t == 0
-    # below) and needs one more chain step
-    n_chain = n_blocks - 1 + (1 if P % K == 0 else 0)
-    Cs: list[CipheredBit] = [carry0]  # carry entering each block
-    for blk in range(n_chain):
-        # the last position of block blk
-        Gb = CipheredBit(Gp[..., blk, K - 1, :], gb, noise=gn)
-        Mb = CipheredBit(Mp[..., blk, K - 1, :], mb, noise=mn)
-        Cs.append(Gb.xor(Mb.and_(Cs[-1])))
-
-    # -- phase 3: batched fill of interior carries --------------------------
-    # c_{bK+t} for t in 1..K-1 (and the last partial block): the prefix maps
-    # at positions bK..bK+K-2 times the block-entry carry, batched over
-    # (blocks, offsets)
-    entry = Cs[:n_blocks]
-    Lc = max(c.num_limbs for c in entry)
-    C_stack = torch.stack([c.pad_to(Lc).limbs for c in entry], dim=-2)  # [..., nb, Lc]
-    cb = max(c.bound for c in entry)
-    cn = max(c.noise for c in entry)
-
-    # offsets 0..K-2 of every block (those beyond P are unused)
-    Gsel, Msel = Gp[..., : K - 1, :], Mp[..., : K - 1, :]
-    prod = gf2k.clmul(Msel, C_stack[..., :, None, :])  # [..., nb, K-1, *]
-    fill = gf2.xor(Gsel, prod)
-    fill_bound = max(gb, mb + cb)
-    fill_noise = max(gn, mn + cn)
-    fill = gf2.fit_limbs(fill, gf2.bucket(gf2.limbs_for(fill_bound)))
-
-    out: list[CipheredBit] = []
-    for p in range(P + 1):
-        blk, t = divmod(p, K)
-        if t == 0:
-            out.append(Cs[blk])
-        else:
-            out.append(CipheredBit(fill[..., blk, t - 1, :], fill_bound, noise=fill_noise))
-    return out
 
 
 # --------------------------------------------------------------------------
@@ -684,23 +531,9 @@ def _csa_accumulate(
     :func:`~.circuit_kernels.tree_plan`, made once per shape.  A level's
     outputs share one buffer for each level at which they die, so the
     caching allocator reuses their memory as each bit dies, as the
-    liveness set of the per-op glue did.  With
-    ``HOMOMORPH_TPU_TORCH_EAGER_SYNC=1`` the card is synchronized after any
-    level whose sums exceed 8,192 limbs.
+    liveness set of the per-op glue did.
     """
-    sync = None
-    if os.environ.get(EAGER_SYNC_ENV, "0") == "1":
-        if _device.capturing():
-            raise RuntimeError(
-                f"{EAGER_SYNC_ENV}=1 synchronizes the card inside the operation, which a "
-                "CUDA graph capture cannot hold: unset it to compile this operation"
-            )
-
-        def sync(dev):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-
-    return _ck.run_tree(bits, plan, batch, sync)
+    return _ck.run_tree(bits, plan, batch)
 
 
 def _ripple_add_rows(
@@ -949,12 +782,6 @@ def _csa_accumulate_per_op(
             if op.z is not None:
                 needed.add(op.z)
         live_after.insert(0, needed)
-    sync = os.environ.get(EAGER_SYNC_ENV, "0") == "1"
-    if sync and _device.capturing():
-        raise RuntimeError(
-            f"{EAGER_SYNC_ENV}=1 synchronizes the card inside the operation, which a "
-            "CUDA graph capture cannot hold: unset it to compile this operation"
-        )
 
     for li, level in enumerate(plan.levels):
         pairs: list[tuple[CipheredBit, CipheredBit, object]] = []
@@ -987,9 +814,6 @@ def _csa_accumulate_per_op(
         keep = live_after[li + 1]
         for bid in [k for k in bits if k not in keep]:
             del bits[bid]
-        outs = [bits[op.sum] for op in level if op.sum in bits]
-        if sync and any(b.num_limbs > 8192 for b in outs) and outs[0].limbs.is_cuda:
-            torch.cuda.synchronize(outs[0].limbs.device)
     A = [bits[c[0]] if len(c) > 0 else None for c in plan.final_cols]
     B = [bits[c[1]] if len(c) > 1 else None for c in plan.final_cols]
     return _ck.Lanes.stack(_ripple_add_rows_per_op(A, B, batch))

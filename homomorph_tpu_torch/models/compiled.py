@@ -22,18 +22,16 @@ comes from running the operation on tensors of PyTorch's ``meta`` device,
 the counterpart of ``jax.eval_shape``: shapes only, no device work (the
 clmul wrapper returns an empty product there and counts no launch).
 
-Three things a graph cannot hold, and what happens to them:
+Two things a graph cannot hold, and what happens to them:
 
 * scalar kernel arguments are baked in at capture, so T1's key would be
   the capture key at every replay: :func:`compile_roundtrip` draws its
   selection words through T1's device-key entry
   (:func:`~homomorph_tpu_torch.prng.random_bits_device_key`) and writes the
   call's split keys into the buffer it reads before each replay;
-* ``HOMOMORPH_TPU_TORCH_EAGER_SYNC=1`` synchronizes the card inside the
-  multipliers: under capture they raise and name the variable;
 * the routing knobs (``HOMOMORPH_TPU_TORCH_KARATSUBA_MIN``,
-  ``HOMOMORPH_TPU_TORCH_FORCE_KARATSUBA``, ``HOMOMORPH_TPU_TORCH_ENC_IMPL``
-  and ``HOMOMORPH_TPU_TORCH_CARRY_SCAN``) and the limb mesh registered with
+  ``HOMOMORPH_TPU_TORCH_FORCE_KARATSUBA`` and
+  ``HOMOMORPH_TPU_TORCH_ENC_IMPL``) and the limb mesh registered with
   :func:`~homomorph_tpu_torch.parallel.limbmul.set_default_limb_mesh` are
   read when a graph is captured, and a replay keeps the route, kernel and
   limb sharding it was captured with, as the JAX package's knobs and its

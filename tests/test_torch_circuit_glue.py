@@ -16,6 +16,8 @@ Every comparison is bit for bit (tolerance 0).  Inputs come from numpy
 generators with fixed seeds.
 """
 
+from collections import OrderedDict
+
 import jax
 import numpy as np
 import pytest
@@ -326,17 +328,46 @@ def test_the_paths_programs_fit_their_launches(path):
         assert len(ck.launch_chunks(c2[0], ck.CSA_OUT.ops)) == 2
 
 
-def test_programs_are_made_once_per_rows():
-    """A tree's programs are kept on its plan for each row count."""
-    rng = np.random.default_rng(9)
-    plan = csaplan.csa_plan(4)
-    bits = input_bits(rng, input_ids("mul", 4), (2,))
-    state = ck.tree_start(dict(bits), plan, (2,))
-    again = ck.tree_start(dict(bits), plan, (2,))
-    assert again.plan is state.plan and again.programs is state.programs
-    other = ck.tree_start({i: ht.CipheredBit(b.limbs[:1], b.bound, noise=b.noise)
-                           for i, b in bits.items()}, plan, (1,))
-    assert other.plan is state.plan and other.programs is not state.programs
+def run_stacked_add(bits, batch):
+    """``run_add`` of the first five bits against the last five, each side
+    padded to one width and stacked into lanes."""
+    sides = []
+    for side in (bits[:5], bits[5:]):
+        L = max(b.num_limbs for b in side)
+        sides.append((torch.stack([b.pad_to(L).limbs for b in side], -2),
+                      ck.Bit(L, max(b.bound for b in side), max(b.noise for b in side))))
+    (a, a_bit), (b, b_bit) = sides
+    return ck.run_add(a, b, a_bit, b_bit)
+
+
+RUNNERS = {
+    "tree": lambda bits, batch: ck.run_tree(dict(zip(input_ids("mul", 4), bits)),
+                                            csaplan.csa_plan(4), batch),
+    "add": run_stacked_add,
+    "ripple": lambda bits, batch: ck.run_ripple(bits[:5], bits[5:], batch),
+}
+
+
+@pytest.mark.parametrize("kind", list(RUNNERS))
+def test_programs_are_made_once_per_rows(kind, monkeypatch):
+    """Every runner's programs are made once for each row count: a second
+    call at the same rows makes none, another row count makes its own from
+    the same plan (the cache's key is the plan's identity)."""
+    made = []
+    program = ck._program
+    monkeypatch.setattr(ck, "_programs", OrderedDict(), raising=False)
+    monkeypatch.setattr(ck, "_program", lambda *args: made.append(args) or program(*args))
+    bits = list(input_bits(np.random.default_rng(9), range(10), (2,)).values())
+    run = RUNNERS[kind]
+    first = run(bits, (2,))
+    assert made
+    made.clear()
+    again = run(bits, (2,))
+    assert not made and torch.equal(again.limbs, first.limbs)
+    run([ht.CipheredBit(b.limbs[:1], b.bound, noise=b.noise) for b in bits], (1,))
+    assert made
+    (plan, _), (other, _) = ck._programs.values()
+    assert other is plan
 
 
 def good_program():
@@ -357,6 +388,7 @@ BAD = {
     "destination past its tensor": lambda p, t: (_set(p, 11, 5), t, ValueError),
     "mask past the sources": lambda p, t: (_set(p, 12, 4), t, ValueError),
     "no tensor": lambda p, t: (p, [], ValueError),
+    "prepared at other rows": lambda p, t: (ck._prepare(ck.CSA_OUT, p, 1), t, ValueError),
 }
 
 
@@ -389,6 +421,8 @@ def test_each_wrapper_takes_its_own_fields(wrapper):
     prog, t = good_program()
     with pytest.raises(ValueError):
         wrapper(prog, t, 2)
+    with pytest.raises(ValueError):
+        wrapper(ck._prepare(ck.CSA_OUT, prog, 2), t, 2)
 
 
 def test_lanes_come_back_at_their_own_widths():

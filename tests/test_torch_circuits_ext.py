@@ -1,7 +1,7 @@
 """The port's remaining circuits against the JAX package, on the CPU:
 ``sum_many``, ``popcount``, the shifts and rotates, ``abs_``, ``clamp``,
-the opt-in carry scan, and the ``HomomorphicSum`` / ``HomomorphicPopCount``
-markers.
+the ripple adder's full carries, and the ``HomomorphicSum`` /
+``HomomorphicPopCount`` markers.
 
 The same ciphertexts (the JAX package's, carried over as wire bytes) go
 through both circuit libraries: limbs, ``bound``, ``noise``, ``zero_lanes``
@@ -9,23 +9,19 @@ and shape must be identical (tolerance 0), and the result must decrypt to
 the plaintext answer.
 """
 
-import numpy as np
 import pytest
 from test_torch_circuits import encrypt_both, make_pair, same_cipher, wrap8
 
 import homomorph_tpu as hm
 import homomorph_tpu_torch as ht
-from homomorph_tpu.cipher import CipheredBit as JBit
 from homomorph_tpu.models import circuits as jcirc
 from homomorph_tpu.models import numbers as jnum
-from homomorph_tpu_torch.cipher import CipheredBit as TBit
-from homomorph_tpu_torch.gf2 import poly as tpoly
 from homomorph_tpu_torch.models import circuits as tcirc
 from homomorph_tpu_torch.models import numbers as tnum
 
 MUL = (160, 16, 1, 16)  # d/delta 160: u8 sum of 8 (73), u32 popcount (65)
 SMALL = (64, 16, 1, 16)
-SCAN32 = (256, 16, 1, 16)  # the JAX suite's u32 scan parameters
+WIDE32 = (256, 16, 1, 16)  # d/delta 256: a u32 add whose carries run the whole chain
 
 U8_X = [0, 1, 6, 13, 99, 250, 255, 170]
 I8_X = [-6, -128, 127, -1, 0, 5, -77, 64]
@@ -40,11 +36,6 @@ def mul_pair():
 @pytest.fixture(scope="module")
 def small_pair():
     return make_pair(SMALL, 17)
-
-
-def same_bit(tb, jb):
-    assert np.array_equal(tpoly.to_numpy(tb.limbs), np.asarray(jb.limbs))
-    assert (tb.bound, tb.noise) == (jb.bound, jb.noise)
 
 
 class TestSumAndPopcount:
@@ -141,78 +132,25 @@ class TestAbsAndClamp:
         assert [int(v) for v in tctx.decrypt(tc)] == [min(max(x, lo), hi) for x in xs]
 
 
-class TestCarryScan:
-    @pytest.fixture
-    def scan_on(self, monkeypatch):
-        monkeypatch.setattr(jcirc, "_CARRY_SCAN", True)
-        monkeypatch.setenv(tcirc.CARRY_SCAN_ENV, "1")
+class TestRippleAdder:
+    """Adds whose carries run the whole chain, and a subtraction with its
+    trivial-one carry in, against the JAX package's default adder (the
+    same ripple)."""
 
-    @pytest.mark.parametrize("desc,params,xs,ys", [
-        ("U16", SMALL, [1000, 0xFFFF, 0, 40000], [2000, 1, 0, 40000]),
-        ("U32", SCAN32, U32_X[:4], [0, 1, 1, 987654321]),
+    @pytest.mark.parametrize("op,desc,params,seed,xs,ys", [
+        ("add", "U16", SMALL, 23, [1000, 0xFFFF, 0, 40000], [2000, 1, 0, 40000]),
+        ("add", "U32", WIDE32, 23, U32_X[:4], [0, 1, 1, 987654321]),
+        ("sub", "U16", (128, 16, 1, 16), 24, [5000, 3], [4999, 7]),
     ])
-    def test_add_matches_jax_and_the_ripple(self, scan_on, monkeypatch, desc, params, xs, ys):
-        jctx, tctx = make_pair(params, 23)
+    def test_matches_jax(self, op, desc, params, seed, xs, ys):
+        jctx, tctx = make_pair(params, seed)
         (ja, ta), (jb, tb) = encrypt_both(jctx, xs, desc), encrypt_both(jctx, ys, desc)
-        scan = tcirc.add(ta, tb)
-        same_cipher(scan, jcirc.add(ja, jb))
+        tc = getattr(tcirc, op)(ta, tb)
+        same_cipher(tc, getattr(jcirc, op)(ja, jb))
+        sign = 1 if op == "add" else -1
         mask = (1 << (16 if desc == "U16" else 32)) - 1
-        assert [int(v) for v in tctx.decrypt(scan)] == [(x + y) & mask for x, y in zip(xs, ys)]
-        # the scan is polynomial-identical to the x-form ripple
-        monkeypatch.delenv(tcirc.CARRY_SCAN_ENV)
-        ripple = tcirc.add(ta, tb)
-        L = max(scan.num_limbs, ripple.num_limbs)
-        assert np.array_equal(tpoly.to_numpy(tpoly.pad_limbs(scan.limbs, L)),
-                              tpoly.to_numpy(tpoly.pad_limbs(ripple.limbs, L)))
-
-    def test_sub_with_carry_in_matches_jax(self, scan_on):
-        jctx, tctx = make_pair((128, 16, 1, 16), 24)
-        (ja, ta), (jb, tb) = encrypt_both(jctx, [5000, 3], "U16"), encrypt_both(jctx, [4999, 7], "U16")
-        tc = tcirc.sub(ta, tb)
-        same_cipher(tc, jcirc.sub(ja, jb))
-        assert [int(v) for v in tctx.decrypt(tc)] == [1, (3 - 7) & 0xFFFF]
-
-    @pytest.mark.parametrize("P", [7, 8, 9, 17])
-    def test_affine_scan_matches_jax_at_block_boundaries(self, small_pair, P):
-        """The scan called directly on the reference's m-form maps (as
-        tests/test_carry_scan.py calls it), at P around the block size."""
-        jctx, _ = small_pair
-        n = P + 1
-        ja, ta = encrypt_both(jctx, [(1 << n) - 1, 0x5A5A5A5A], "U32")
-        jb, tb = encrypt_both(jctx, [1, 0x0F0F0F0F], "U32")
-
-        def maps(a, b, stack):
-            xs = [a[i].xor(b[i]) for i in range(n)]
-            gs = [a[i].and_(b[i]) for i in range(n)]
-            ms = [xs[i].and_(gs[i].not_()) for i in range(n)]
-            L = max(m.num_limbs for m in ms)
-            return (stack([g.pad_to(L).limbs for g in gs[:P]]), gs[0].bound,
-                    stack([m.pad_to(L).limbs for m in ms[:P]]), ms[0].bound)
-
-        import jax.numpy as jnp
-        import torch
-
-        jout = jcirc._affine_carry_scan(*maps(ja, jb, lambda t: jnp.stack(t, axis=-2)),
-                                        JBit.zero(ja.batch_shape))
-        tout = tcirc._affine_carry_scan(*maps(ta, tb, lambda t: torch.stack(t, dim=-2)),
-                                        TBit.zero(ta.batch_shape, device="cpu"))
-        assert len(tout) == len(jout) == P + 1
-        for tb_, jb_ in zip(tout, jout):
-            same_bit(tb_, jb_)
-
-    def test_knob_is_read_at_each_call(self, monkeypatch):
-        monkeypatch.delenv(tcirc.CARRY_SCAN_ENV, raising=False)
-        assert not tcirc._use_carry_scan()
-        monkeypatch.setenv(tcirc.CARRY_SCAN_ENV, "1")
-        assert tcirc._use_carry_scan()
-
-
-class TestEagerSync:
-    def test_knob_leaves_the_cpu_product_unchanged(self, mul_pair, monkeypatch):
-        jctx, _ = mul_pair
-        (ja, ta), (jb, tb) = encrypt_both(jctx, U8_X, "U8"), encrypt_both(jctx, U8_X[::-1], "U8")
-        monkeypatch.setenv(tcirc.EAGER_SYNC_ENV, "1")
-        same_cipher(tcirc.mul_unsigned(ta, tb), jcirc.mul_unsigned(ja, jb))
+        assert [int(v) for v in tctx.decrypt(tc)] == [(x + sign * y) & mask
+                                                      for x, y in zip(xs, ys)]
 
 
 NEW_MARKERS = ["Sum", "PopCount"]

@@ -3,8 +3,8 @@ the CPU, where a compiled callable runs its operation eagerly (graphs exist
 only on the card: ``tests/test_torch_cuda.py``).  The six cases of
 ``tests/test_compiled.py``, each held against eager and against the JAX
 package's compiled limbs or bits for the same keys and inputs (bit-exact);
-the output metadata that the ``meta`` device gives against eager's; the
-noise-declaration refusals; and the eager-sync knob under capture.
+the output metadata that the ``meta`` device gives against eager's; and the
+noise-declaration refusals.
 """
 
 import jax
@@ -49,20 +49,26 @@ def u8_bits(values):
 
 
 class TestCompiledOps:
-    def test_compile_op2_matches_eager(self):
-        jctx, tctx = make_ctxs(1)
-        ja, ta = encrypt_both(jctx, tctx, [10, 200], hm.U8, ht.U8)
-        jb, tb = encrypt_both(jctx, tctx, [32, 100], hm.U8, ht.U8)
-        fn = compile_op2(tmodels.HomomorphicAddition, ht.U8, tctx.parameters.pk_degree)
+    @pytest.mark.parametrize("desc,seed,params,xs,ys", [
+        ("U8", 1, (64, 16, 1, 16), [10, 200], [32, 100]),
+        ("U32", 11, (256, 16, 1, 16), [1, 0xFFFFFFFF, 123456789], [0xFFFFFFFF, 1, 987654321]),
+    ])
+    def test_compile_op2_matches_eager(self, desc, seed, params, xs, ys):
+        jctx, tctx = make_ctxs(seed, params)
+        jd, td = getattr(hm, desc), getattr(ht, desc)
+        ja, ta = encrypt_both(jctx, tctx, xs, jd, td)
+        jb, tb = encrypt_both(jctx, tctx, ys, jd, td)
+        fn = compile_op2(tmodels.HomomorphicAddition, td, tctx.parameters.pk_degree)
         got = fn(ta, tb)
         want = circuits.add(ta, tb)
         assert torch.equal(got.limbs, want.limbs)
         assert (got.bound, got.noise) == (want.bound, want.noise)
-        jfn = jcompiled.compile_op2(hm.models.HomomorphicAddition, hm.U8,
+        jfn = jcompiled.compile_op2(hm.models.HomomorphicAddition, jd,
                                     jctx.parameters.pk_degree)
         jgot = jfn(ja, jb)
         assert same_limbs(got, jgot) and (got.bound, got.noise) == (jgot.bound, jgot.noise)
-        assert [int(v) for v in tctx.decrypt(got)] == [42, (200 + 100) & 0xFF]
+        mask = (1 << (8 if desc == "U8" else 32)) - 1
+        assert [int(v) for v in tctx.decrypt(got)] == [(x + y) & mask for x, y in zip(xs, ys)]
 
     def test_compile_op2_reuse_across_calls(self):
         _, tctx = make_ctxs(2)
@@ -188,58 +194,3 @@ def test_roundtrip_validates_the_operation():
     _, tctx = make_ctxs(9, (32, 8, 2, 8))  # d/delta = 16 < the u8 add's 17
     with pytest.raises(ht.InvalidParametersError):
         compile_roundtrip(tctx, tmodels.HomomorphicAddition, ht.U8)
-
-
-def test_eager_sync_raises_under_capture(monkeypatch):
-    """With ``HOMOMORPH_TPU_TORCH_EAGER_SYNC=1`` the multiplier would
-    synchronize inside a graph capture: it raises and names the variable
-    (the capture is simulated here; the card test captures for real)."""
-    from homomorph_tpu_torch import device
-
-    _, tctx = make_ctxs(10, (160, 16, 1, 16))
-    a, b = tctx.encrypt([3], ht.U8, batch=True), tctx.encrypt([5], ht.U8, batch=True)
-    monkeypatch.setenv(circuits.EAGER_SYNC_ENV, "1")
-    assert int(tctx.decrypt(circuits.mul_unsigned(a, b))[0]) == 15  # not capturing: runs
-    monkeypatch.setattr(device, "capturing", lambda: True)
-    with pytest.raises(RuntimeError, match=circuits.EAGER_SYNC_ENV):
-        circuits.mul_unsigned(a, b)
-
-
-class TestCarryScanCompiled:
-    """The opt-in carry scan inside a compiled add: on the CPU the callable
-    runs eagerly and equals the JAX package's jitted scan, and the scan
-    makes no tensor from host data, which a CUDA graph capture could not
-    hold (the card test captures it for real)."""
-
-    @pytest.fixture
-    def scan_on(self, monkeypatch):
-        from homomorph_tpu.models import circuits as jcirc
-
-        monkeypatch.setattr(jcirc, "_CARRY_SCAN", True)
-        monkeypatch.setenv(circuits.CARRY_SCAN_ENV, "1")
-
-    def test_compile_op2_add_matches_jax(self, scan_on):
-        jctx, tctx = make_ctxs(11, (256, 16, 1, 16))
-        xs, ys = [1, 0xFFFFFFFF, 123456789], [0xFFFFFFFF, 1, 987654321]
-        ja, ta = encrypt_both(jctx, tctx, xs, hm.U32, ht.U32)
-        jb, tb = encrypt_both(jctx, tctx, ys, hm.U32, ht.U32)
-        got = compile_op2(tmodels.HomomorphicAddition, ht.U32, tctx.parameters.pk_degree)(ta, tb)
-        jfn = jcompiled.compile_op2(hm.models.HomomorphicAddition, hm.U32,
-                                    jctx.parameters.pk_degree)
-        assert same_limbs(got, jfn(ja, jb))
-        assert [int(v) for v in tctx.decrypt(got)] == [(x + y) % (1 << 32) for x, y in zip(xs, ys)]
-
-    @pytest.mark.parametrize("desc", ["U16", "U32"])
-    def test_scan_makes_no_tensor_from_host_data(self, scan_on, monkeypatch, desc):
-        _, tctx = make_ctxs(12, (256, 16, 1, 16))
-        d = getattr(ht, desc)
-        a, b = tctx.encrypt([3, 9], d, batch=True), tctx.encrypt([5, 7], d, batch=True)
-        want = circuits.add(a, b)
-
-        def refuse(*args, **kwargs):
-            raise AssertionError("the carry scan made a tensor from host data")
-
-        monkeypatch.setattr(torch, "tensor", refuse)
-        monkeypatch.setattr(torch, "as_tensor", refuse)
-        got = circuits.add(a, b)
-        assert torch.equal(got.limbs, want.limbs)

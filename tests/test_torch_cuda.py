@@ -705,28 +705,6 @@ def test_compiled_roundtrip_through_k3_replays_equal_eager(monkeypatch):
     assert graphed.graphs == 1
 
 
-def test_compiled_add_through_the_carry_scan(monkeypatch):
-    """``compile_op2`` of a u32 add under ``HOMOMORPH_TPU_TORCH_CARRY_SCAN=1``
-    captures (the scan's positions are views, no host-to-device copy): each
-    replay equals the scan run eagerly, limb for limb, and decrypts right."""
-    import homomorph_tpu_torch as ht
-    from homomorph_tpu_torch.models import HomomorphicAddition, circuits
-    from homomorph_tpu_torch.models.compiled import compile_op2
-
-    ctx = card_context(ht.Parameters(256, 16, 1, 16), 16)
-    monkeypatch.setenv(circuits.CARRY_SCAN_ENV, "1")
-    fn = compile_op2(HomomorphicAddition, ht.U32, ctx.parameters.pk_degree)
-    rng = np.random.default_rng(17)
-    for _ in range(3):
-        xs, ys = (rng.integers(0, 2**32, size=256, dtype=np.uint64).tolist() for _ in range(2))
-        a, b = ctx.encrypt(xs, ht.U32, batch=True), ctx.encrypt(ys, ht.U32, batch=True)
-        got, want = fn(a, b), HomomorphicAddition.unsafe_apply(a, b)
-        assert torch.equal(got.limbs, want.limbs)
-        assert (got.bound, got.noise) == (want.bound, want.noise)
-        assert [int(v) for v in ctx.decrypt(got)] == [(x + y) % (1 << 32) for x, y in zip(xs, ys)]
-    assert fn.graphed.graphs == 1
-
-
 PROGRAM_KERNEL_EXCLUDED = ("Memcpy", "Memset", "at::", "void at::")
 
 
@@ -911,18 +889,6 @@ def test_the_compiled_u32_add_and_product_hold_no_region(op_name, params, pairs,
     (call,) = [r for r in recs if r.name == "compiled.call"]
     assert call.counts["launches"] == launches
     assert not [r for r in recs if r.name in ("circuit.lt_tree", "circuit.select")]
-
-def test_eager_sync_refuses_capture(monkeypatch):
-    import homomorph_tpu_torch as ht
-    from homomorph_tpu_torch.models import HomomorphicMultiplication, circuits
-    from homomorph_tpu_torch.models.compiled import compile_op2
-
-    ctx = card_context(ht.Parameters(160, 16, 1, 16), 9)
-    a, b = ctx.encrypt([3, 5], ht.U8, batch=True), ctx.encrypt([7, 11], ht.U8, batch=True)
-    fn = compile_op2(HomomorphicMultiplication, ht.U8, ctx.parameters.pk_degree)
-    monkeypatch.setenv(circuits.EAGER_SYNC_ENV, "1")
-    with pytest.raises(RuntimeError, match=circuits.EAGER_SYNC_ENV):
-        fn(a, b)
 
 
 def test_run_verification_on_card():
