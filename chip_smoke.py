@@ -20,6 +20,9 @@ Phases, in order; any failure exits non-zero before the result line:
    events at 1-1,022 limbs (:func:`phase_square_sweep`: the u32 product's
    widest leaf launches at 32, 41 and 48), the crossover printed beside
    ``SQUARE_MIN`` in ``csrc/clmul.cu``, and the ``K1.square`` counter;
+   the square path at each ``k`` (output columns a lane) it has, the best
+   beside the code's ``SQUARE_COLUMNS``, one step's instructions from the
+   library's SASS, and the ``K1.square.tiled`` counter;
    K2 also at tau 1 and 300, at L above the key's limbs and at keys whose
    tables the launcher tiles (checked only); beside each K3 and X1 row, its
    share of the bound and of the tensor-core count, and the device time of
@@ -369,67 +372,219 @@ SQUARE_SWEEP = ((1, 1 << 22), (2, 1 << 22), (5, 1 << 20), (9, 524288), (16, 1 <<
                 (24, 1 << 20), (32, 1259712), (41, 49152), (48, 384912), (63, 262144),
                 (128, 65536), (1022, 1024))
 SQUARE_WINDOW_MS = 20.0  # CUDA-event window a timed turn spans at least
+# the scan that SQUARE_COLUMNS in csrc/clmul.cu is read from: every width to 64
+# and some above, each at about the 32-limb leaf launch's limb pairs
+SQUARE_SCAN = (*range(1, 65), 72, 80, 96, 128, 160, 192, 256, 320, 384, 512, 640, 768, 1022)
+SQUARE_SCAN_PAIRS = 1259712 * 32 * 32
 
 
-def square_case(ctx, L, B):
-    """K1's two mappings on [B, L] x [B, L]: the comb of unbalanced products
-    and the square path, equal limb for limb (and to the plain version on
-    the first and last 256 rows), each timed by CUDA events in turns (comb,
-    square, square, comb) over windows of at least SQUARE_WINDOW_MS."""
+def square_step_sass(lib):
+    """The hot loop of each instance of K1's square path in the built
+    ``clmul`` library (``cuobjdump -sass``): for each ``k``, the loop with
+    the most shared loads, its steps a trip (its loads over the ``8 k + 8``
+    of one step: ``S[i]``, ``k`` words for nibble 0, ``k + 1`` for each
+    other), and its instructions a step by class: ``lds``, ``alu`` (the
+    per-thread integer ops: ``IMAD``, ``IADD3``, ``LOP3``, ``SHF``, ``PRMT``,
+    ``ISETP``, ``SEL``, ...), of it ``imad``, and ``other`` (branches,
+    uniform-datapath ops).  An unnamed instance (no ``<k>``) is k = 1.  None
+    where ``cuobjdump`` is missing or finds no loop."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    funcs, name = {}, None  # each function's (address, instruction text), labels at their address
+    for line in text.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            funcs[name] = ([], {})
+        elif name is not None:
+            label = re.match(r"\s*(\.L_x_\d+):", line)
+            inst = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if label:
+                funcs[name][1][label.group(1)] = len(funcs[name][0])
+            elif inst:
+                funcs[name][0].append((int(inst.group(1), 16), inst.group(2)))
+    out = {}
+    for name, (items, labels) in funcs.items():
+        if "clmul_comb_kernel_square" not in name:
+            continue
+        m = re.search(r"clmul_comb_kernel_squareILi(\d+)E", name)
+        K = int(m.group(1)) if m else 1
+        best = None
+        for n, (addr, text_) in enumerate(items):
+            target = re.search(r"BRA\s+(?:`\(?(\.L_x_\d+)\)?`?|(0x[0-9a-f]+))", text_)
+            if not target:
+                continue
+            if target.group(1):
+                start = labels.get(target.group(1), n)
+            else:
+                start = next((j for j, (a2, _) in enumerate(items) if a2 == int(target.group(2), 16)), n)
+            if start >= n:
+                continue
+            ops = [re.sub(r"^@!?U?P\w+\s+", "", x).split()[0].split(".")[0] for _, x in items[start:n + 1]]
+            lds = sum(op == "LDS" for op in ops)
+            if best is None or lds > best[0]:
+                best = (lds, ops)
+        if best is None or not best[0]:
+            continue
+        lds, ops = best
+        steps = max(1, round(lds / (8 * K + 8)))
+        other = [op for op in ops if op != "LDS" and (op.startswith(("U", "BRA", "BAR", "NOP"))
+                                                    or op in ("EXIT", "BSSY", "BSYNC", "WARPSYNC"))]
+        alu = len(ops) - lds - len(other)
+        hist = {}
+        for op in ops:
+            hist[op] = hist.get(op, 0) + 1
+        out[K] = dict(steps_a_trip=steps, lds=lds / steps, alu=alu / steps,
+                      imad=sum(op == "IMAD" for op in ops) / steps, other=len(other) / steps,
+                      ops=hist)
+    return out or None
+
+
+def square_case(ctx, L, B, sass=None):
+    """K1's mappings on [B, L] x [B, L]: the comb of unbalanced products and
+    the square path at each ``k`` it has, equal limb for limb (and to the
+    plain version on the first and last 256 rows), each timed by CUDA
+    events in turns (comb, k ascending, k descending, comb) over windows of
+    at least SQUARE_WINDOW_MS; beside each ``k`` its bound: the larger of
+    its shared loads (``8 k + 8`` words a lane-step) and, where ``sass``
+    gives them, its ALU instructions a lane-step, over the card's rates."""
     import statistics
 
     torch = ctx["torch"]
     from homomorph_tpu_torch.gf2 import kernels as k
 
     a, b = random_words(ctx, (B, L)), random_words(ctx, (B, L))
-    comb, square = (lambda: k.clmul_mapping(a, b, False)), (lambda: k.clmul_mapping(a, b, True))
-    got, want = square(), comb()
+    comb = lambda: k.clmul_mapping(a, b, False)  # noqa: E731
+    runs = {K: (lambda K=K: k.clmul_mapping(a, b, True, K)) for K in k.SQUARE_KS}
+    want = comb()
+    for K, fn in runs.items():
+        bad, _ = compare(torch, fn(), want)
+        check(bad == 0, f"K1 square path {L}x{L} at B={B}, k={K}: {bad} limbs differ from the comb")
+    got = k.clmul_flat(a, b)
     torch.cuda.synchronize()
     bad, _ = compare(torch, got, want)
-    check(bad == 0, f"K1 square path {L}x{L} at B={B}: {bad} limbs differ from the comb")
+    check(bad == 0, f"K1 {L}x{L} at B={B}: {bad} limbs of hm_clmul differ from the comb")
     for part in (slice(0, 256), slice(max(0, B - 256), B)):
         bad, _ = compare(torch, got[part], k.clmul_plain(a[part], b[part]))
         check(bad == 0, f"K1 square path {L}x{L} at B={B}: {bad} limbs differ from the plain version")
     del got, want
     iters = max(1, int(SQUARE_WINDOW_MS / call_ms(torch, comb, 1)))
-    times = {"comb": [], "square": []}
-    for name in ("comb", "square", "square", "comb"):
-        times[name].append(call_ms(torch, comb if name == "comb" else square, iters))
-    comb_ms, square_ms = (statistics.median(times[n]) for n in ("comb", "square"))
-    row = dict(L=L, B=B, iters=iters, comb_ms=times["comb"], square_ms=times["square"],
-               speedup=comb_ms / square_ms, takes_square=k.square_path(L, L),
-               rows_a_block=k.square_layout(L)[0])
-    log(f"[K1 square] {L}x{L} B={B}: comb {comb_ms:.5f} ms, square {square_ms:.5f} ms "
-        f"({row['speedup']:.3f}x; turns {times['comb'][0]:.5f} {times['square'][0]:.5f} "
-        f"{times['square'][1]:.5f} {times['comb'][1]:.5f}), {row['rows_a_block']} rows a block; "
-        f"hm_clmul takes {'the square path' if row['takes_square'] else 'the comb'}; equal")
+    order = ["comb", *k.SQUARE_KS, *reversed(k.SQUARE_KS), "comb"]
+    times = {name: [] for name in ("comb", *k.SQUARE_KS)}
+    for name in order:
+        times[name].append(call_ms(torch, comb if name == "comb" else runs[name], iters))
+    med = {name: statistics.median(v) for name, v in times.items()}
+    best = min(k.SQUARE_KS, key=lambda K: med[K])
+    code_k = k.square_columns(L, L)
+    peaks = ctx["peaks"]
+    bounds = {}
+    for K in k.SQUARE_KS:
+        lane_steps = B * -(-(L + 2) // K) * L
+        loads_ms = lane_steps * (8 * K + 8) * 4 / peaks["smem_bw"] * 1e3
+        alu = (sass or {}).get(K, {}).get("alu")
+        alu_ms = lane_steps * alu / peaks["int32_ops"] * 1e3 if alu else None
+        bounds[K] = dict(loads_ms=loads_ms, alu_ms=alu_ms,
+                         share=max(loads_ms, alu_ms or 0.0) / med[K])
+    row = dict(L=L, B=B, iters=iters, comb_ms=times["comb"],
+               k_ms={K: times[K] for K in k.SQUARE_KS}, best_k=best, code_k=code_k,
+               speedup=med["comb"] / med[code_k] if code_k else None,
+               speedup_k1=med["comb"] / med[1], bounds=bounds,
+               rows_a_block={K: k.square_layout(L, K)[0] for K in k.SQUARE_KS})
+    log(f"[K1 square] {L}x{L} B={B}: comb {med['comb']:.5f} ms; "
+        + "; ".join(f"k={K} {med[K]:.5f} ms ({row['rows_a_block'][K]} rows a block, "
+                    f"loads bound {bounds[K]['loads_ms']:.5f}"
+                    + (f", ALU bound {bounds[K]['alu_ms']:.5f}" if bounds[K]["alu_ms"] else "")
+                    + f", {bounds[K]['share']:.1%})" for K in k.SQUARE_KS)
+        + f"; best k={best}, hm_clmul takes "
+        + (f"k={code_k} ({row['speedup']:.3f}x the comb)" if code_k else "the comb") + "; equal")
     return row
 
 
-def phase_square_sweep(ctx):
-    """K1's phase, the square path: the two mappings timed in turns at
-    SQUARE_SWEEP's widths, the crossover (the least width from which the
-    square path wins at every wider one of the sweep) beside the code's
-    ``SQUARE_MIN``; and the ``K1.square`` counter: one a launch on square
-    operands from the crossover, none on unbalanced ones."""
+def square_scan(ctx):
+    """Each ``k`` of the square path at every width of SQUARE_SCAN (rows for
+    about SQUARE_SCAN_PAIRS limb pairs, 1,024 to 2^22), equal to the comb
+    and timed in turns (k ascending, then descending) over windows of at
+    least 10 ms: the fastest ``k`` at each width beside the code's, and the
+    runs of widths the fastest make (``SQUARE_COLUMNS`` is read from them,
+    ties under 0.5% to the neighbouring run)."""
+    import statistics
+
+    torch = ctx["torch"]
     from homomorph_tpu_torch.gf2 import kernels as k
 
-    rows = [square_case(ctx, L, B) for L, B in SQUARE_SWEEP]
+    rows, runs = [], []
+    for L in SQUARE_SCAN:
+        B = min(1 << 22, max(1024, SQUARE_SCAN_PAIRS // (L * L)))
+        a, b = random_words(ctx, (B, L)), random_words(ctx, (B, L))
+        want = k.clmul_mapping(a, b, False)
+        for K in k.SQUARE_KS:
+            bad, _ = compare(torch, k.clmul_mapping(a, b, True, K), want)
+            check(bad == 0, f"K1 square path {L}x{L} at B={B}, k={K}: {bad} limbs differ from the comb")
+        del want
+        iters = max(2, int(10.0 / call_ms(torch, lambda: k.clmul_mapping(a, b, True, 1), 1)))
+        times = {K: [] for K in k.SQUARE_KS}
+        for K in (*k.SQUARE_KS, *reversed(k.SQUARE_KS)):
+            times[K].append(call_ms(torch, lambda: k.clmul_mapping(a, b, True, K), iters))
+        med = {K: statistics.median(v) for K, v in times.items()}
+        best, code_k = min(med, key=med.get), k.square_columns(L, L)
+        rows.append(dict(L=L, B=B, ms=med, best_k=best, code_k=code_k))
+        if not runs or runs[-1][1] != best:
+            runs.append((L, best))
+        log(f"[K1 square scan] {L}x{L} B={B}: " + " ".join(f"k={K} {med[K]:.5f}" for K in k.SQUARE_KS)
+            + f" ms; fastest k={best}, the code's k={code_k} at {med[code_k] / med[best]:.3f}x its time")
+        del a, b
+    log(f"[K1 square scan] runs of the fastest k (first width, k): {runs}")
+    return dict(rows=rows, runs=runs)
+
+
+def phase_square_sweep(ctx):
+    """K1's phase, the square path: the comb and each ``k`` timed in turns at
+    SQUARE_SWEEP's widths, the crossover (the least width from which the
+    square path at the code's ``k`` wins at every wider one of the sweep)
+    beside the code's ``SQUARE_MIN``, the best ``k`` beside the code's
+    (``SQUARE_COLUMNS``) there and at every width of :func:`square_scan`,
+    one step's instructions from the built library's SASS; and the counters ``K1.square`` (one a launch on square operands
+    from the crossover, none on unbalanced ones) and ``K1.square.tiled``
+    (one where the code's ``k`` is above 1)."""
+    from homomorph_tpu_torch.gf2 import cuda_build
+    from homomorph_tpu_torch.gf2 import kernels as k
+
+    sass = square_step_sass(cuda_build.build(("clmul",))["clmul"])
+    for K, st in sorted((sass or {}).items()):
+        log(f"[K1 square] SASS, k={K}: a step {st['lds']:.2f} shared loads, {st['alu']:.2f} ALU "
+            f"(IMAD {st['imad']:.2f}), {st['other']:.2f} other; per output column "
+            f"{st['lds'] / K:.2f} loads, {st['alu'] / K:.2f} ALU; {st['steps_a_trip']} steps a trip; "
+            f"{st['ops']}")
+    if sass is None:
+        log("[K1 square] SASS: cuobjdump missing or no loop found")
+    rows = [square_case(ctx, L, B, sass) for L, B in SQUARE_SWEEP]
+    scan = square_scan(ctx)
     least = None
     for r in sorted(rows, key=lambda r: -r["L"]):
-        if r["speedup"] <= 1.0:
+        if not r["speedup"] or r["speedup"] <= 1.0:
             break
         least = r["L"]
     code_min = min((L for L in range(1, 1023) if k.square_path(L, L)), default=None)
-    log(f"[K1 square] measured crossover {least} limbs; SQUARE_MIN in the code {code_min}")
-    for La, Lb in ((32, 32), (48, 48), (9, 256), (48, 64)):
+    log(f"[K1 square] measured crossover {least} limbs; SQUARE_MIN in the code {code_min}; "
+        "best k / the code's k: " + ", ".join(f"{r['L']}: {r['best_k']}/{r['code_k']}" for r in rows))
+    for La, Lb in ((32, 32), (48, 48), (9, 256), (48, 64), (5, 5)):
         a, b = random_words(ctx, (4, La)), random_words(ctx, (4, Lb))
-        before = (counters["K1"], counters["K1.square"])
+        before = (counters["K1"], counters["K1.square"], counters["K1.square.tiled"])
         k.clmul_flat(a, b)
-        moved = (counters["K1"] - before[0], counters["K1.square"] - before[1])
-        want = (1, int(La == Lb and code_min is not None and La >= code_min))
-        check(moved == want, f"K1 {La}x{Lb}: counters K1, K1.square moved {moved}, not {want}")
-    return dict(rows=rows, crossover=least, square_min=code_min)
+        moved = tuple(n - m for n, m in zip(
+            (counters["K1"], counters["K1.square"], counters["K1.square.tiled"]), before))
+        square = La == Lb and code_min is not None and La >= code_min
+        want = (1, int(square), int(square and k.square_columns(La, Lb) > 1))
+        check(moved == want, f"K1 {La}x{Lb}: counters K1, K1.square, K1.square.tiled moved "
+              f"{moved}, not {want}")
+    return dict(rows=rows, crossover=least, square_min=code_min, sass=sass, scan=scan)
 
 
 def phase_kernels(ctx):
@@ -2473,7 +2628,7 @@ def main(argv=None):
         "threefry": "T1", "threefry_dkey": "T1.dkey", "square": "M1", "newton_step": "M2",
         "series_small": "M3", "mask_clmul": "mask.K1", "route_split": "R1", "route_join": "R2",
         "csa_level_in": "C1", "csa_level_out": "C2", "ripple_step": "C3",
-        "clmul_square": "K1.square", "decipher": "D1"}
+        "clmul_square": "K1.square", "clmul_square_tiled": "K1.square.tiled", "decipher": "D1"}
 
     def run_path(fn):
         before = launch_counts(ctx)
@@ -2577,6 +2732,10 @@ def main(argv=None):
         check(0 < paths[path]["clmul_square"] <= paths[path]["clmul"],
               f"K1's square path launched {paths[path]['clmul_square']} of {paths[path]['clmul']} "
               f"times on the {path} path")
+        # the leaves are 32-63 limbs, where SQUARE_COLUMNS gives k > 1
+        check(0 < paths[path]["clmul_square_tiled"] <= paths[path]["clmul_square"],
+              f"K1's square path took k > 1 in {paths[path]['clmul_square_tiled']} of "
+              f"{paths[path]['clmul_square']} launches on the {path} path")
     # the limb-mesh hook is inert without a mesh: K1's launches on the
     # earlier paths, less the mask route's, are those of the runs before
     # either existed

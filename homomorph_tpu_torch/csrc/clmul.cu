@@ -33,7 +33,8 @@
 // Bound on the H100: each row reads (Ls + Lg) limbs and writes (Ls + Lg);
 // the comb's work is 15 shared-memory loads per (limb of s, limb of T)
 // pair at 32 words per SM per clock, and a funnel shift and an XOR per
-// window on the INT32 units.  The loads bind at every shape the paths use.
+// window on the INT32 units.  The loads bind the comb at every shape the
+// paths use; the square path's own count is below.
 // Shapes are any Ls, Lg >= 1; the caller passes the smaller operand first
 // (the product is commutative) so each thread loops over at most Ls limbs.
 //
@@ -41,33 +42,56 @@
 // mapping of the same comb.  Above, a lane of a balanced product walks every
 // limb i of its tile, and output limb m only needs i with m - i in
 // [0, L + 1]: at 32, 41 and 48 limbs 53%, 45% and 52% of its lane-iterations
-// feed an output.  Here a row takes P = L + 2 lanes and every lane walks
-// i = 0 .. L-1 once, in step with its row.  Lane t at step i reads window
-// column j = (t - i) mod P, so it adds into output limb t while i <= t and
-// into limb t + P after (the two are one register: the lane keeps a copy
-// of it at i == t, and the second limb is the XOR of the two).  Every
+// feed an output.  Here a row has P = L + 2 output columns and every lane
+// walks i = 0 .. L-1 once, in step with its row.  Column t at step i reads
+// window column j = (t - i) mod P, so it adds into output limb t while
+// i <= t and into limb t + P after (the two are one register: the lane keeps
+// a copy of it at i == t, and the second limb is the XOR of the two).  Every
 // (limb m, limb i) pair is walked once: L (L + 2) - 1 of the L (L + 2)
-// lane-iterations are needed (only lane L - 2's last step feeds limb 2L,
+// column-steps are needed (only column L - 2's last step feeds limb 2L,
 // which does not exist).  The modulus costs a second copy of the window:
 // each multiple is stored as positions 0 .. 2L+1, columns 2 .. L+1 then
-// 0 .. L+1 (column L + 1 is zero, and stands for column -1), and lane t
+// 0 .. L+1 (column L + 1 is zero, and stands for column -1), and column t
 // reads position t - i + L, a run that slides down by one a step.
 //
+// A lane owns k adjacent columns t0 = k l .. t0 + k - 1 of its row, so a row
+// takes Q = ceil(P / k) lanes (the last lane's columns past P are computed
+// and dropped).  The row's nibble is the same for all its columns, so for
+// each nibble a lane decodes it and forms its address once, loads the k + 1
+// window words t0 - i + L - 1 .. t0 - i + L + k - 1 once, and funnels words
+// c - 1 and c into column t0 + c: 8 k + 8 loads a lane-step (S[i], k for
+// nibble 0, k + 1 for each other) where k lanes of one column each took 16.
+// k = 1 is the mapping before.  k comes from the width (SQUARE_COLUMNS).
+//
 // Several rows share a block (`rows`, square_plan: the fewest idle lanes in
-// the last warp, a row), so a warp may hold lanes of two or three rows, each
+// the last warp, a row), so a warp may hold lanes of two or more rows, each
 // with its own nibble.  The layout keeps their reads in distinct banks: the
 // multiples are [16][rows x row_words] with a multiple's stride a multiple of
-// 32 words and row_words = P (mod 32), so lane (r, t) reads bank
-// (r P + t + L - i) mod 32 = (its thread index + L - i) mod 32 whatever the
-// nibbles: no conflicts.  A row's limbs of s sit at an odd stride, so the
-// rows of a warp read them from distinct banks.  Useful share of lane-iterations, from
-// the design: a row's 99.9%, times the share of live lanes in whole warps:
-// 99.9% at 32 limbs (16 rows, 544 threads), 98.9% at 41 (14 rows, 602 of
-// 608), 99.4% at 48 (7 rows, 350 of 352).  The bound is the old one's,
-// at half the iterations: 15 conflict-free loads a pair, and the funnel
-// shifts, XORs, nibble and address arithmetic (about 40 INT32 operations a
-// step) beside them; staging adds 32 stores a column (two copies), under
-// a tenth of a row's loads from L = 24 up.
+// 32 words and row_words = k Q (mod 32), at least k Q + L, so lane (r, l)
+// reads bank (r k Q + k l + L - i + c - 1) mod 32 = (k x its thread index +
+// L - i + c - 1) mod 32 in its c-th load, whatever the nibbles: with k odd,
+// 32 distinct banks, no conflicts (an even k would need vector loads, whose
+// alignment flips with i).  The staging stores, a column at a time, fall
+// the same way.  A row's limbs of s sit at an odd stride, so the rows of a
+// warp read them from distinct banks.  Useful share of column-steps (live
+// lanes in whole warps, times the row's columns over its k Q, times
+// L (L + 2) - 1 over L (L + 2)): 95.5% at 32 limbs (k = 5, 9 rows, 63 of 64
+// threads, 35 columns for 34), 94.0% at 41 (k = 5, 7 rows), 93.7% at 48
+// (k = 5, 3 rows, 30 of 32 threads).
+//
+// Bound, counted from the SASS of one step (chip_smoke.py's
+// square_step_sass, NVIDIA H100 80GB HBM3): at k = 1, 16 shared loads and
+// 34.5 ALU instructions (8 PRMT, 8 address IMADs, 8 funnel SHFs, 6 LOP3
+// XORs, the select, the loop), so 0.50 clock a column-step on the loads
+// (32 words a clock an SM) and 0.54 on the ALU (64 a clock): the integer
+// issue, not the loads, bound the square path.  At k = 3, 32 loads and 62
+// ALU a lane-step: 0.333 and 0.323 clock a column-step; at k = 5, 48 and 88:
+// 0.300 and 0.275, so the loads bind again.  Staging adds 32 stores a
+// column (two copies), under a tenth of a row's loads from L = 24 up.
+// Registers: 63 a thread at k = 3 and 5 (launch bound 1,024), no spills;
+// shared memory, not threads, caps a block's rows there, and about a third
+// as many warps fit an SM as at k = 1, which the k independent chains and
+// k + 1 independent loads a nibble hide.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -162,34 +186,59 @@ __global__ void clmul_comb_kernel(const uint32_t* __restrict__ small,
 // 63, 128 and 1,022 limbs (1.6-5.6 times; 1.88 at 32, 1.97 at 41, 1.87 at 48:
 // PERF.md section 6), so every square product up to SQUARE_MAX takes it.
 constexpr int SQUARE_MIN = 1;
-// one row's P = L + 2 lanes in a block of at most 1,024 threads
+// one row's P = L + 2 lanes in a block of at most 1,024 threads (k = 1)
 constexpr int SQUARE_MAX = 1022;
 // a block's shared memory when it takes more than one row: two blocks an SM
 constexpr int SQUARE_SMEM_ROWS = 113 * 1024;
 
+// The columns a lane of the square path owns, k, from the width alone: the
+// first width of each run of widths and its k, the fastest k at each width
+// of chip_smoke.py's scan (phase_square_sweep, SQUARE_SCAN: every width 1-64
+// and 13 from 72 to 1,022, k = 1, 3, 5 timed in turns at about 1.3e9
+// limb pairs a launch) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section
+// 6).  k = 1 wins to 8 limbs and at 10-12; from 13 up k = 3 or 5, as the
+// row's columns and the layout's words round (k = 5 at 32, 41 and 48, the
+// u32 product's leaves: 2.0%, 1.5%, 0.4% ahead of k = 3; ties under 0.5%
+// go to the neighbouring run).  Above 64 limbs, off the route's leaves, the
+// scan's 13 widths split between 3 and 5; 5 is within 2.6% of the best at
+// 11 of them (10.5-10.7% behind at 320 and 640).
+constexpr int SQUARE_COLUMNS[][2] = {
+    {1, 1},  {9, 3},  {10, 1}, {13, 3}, {17, 5}, {19, 3}, {29, 5}, {33, 3}, {35, 5}, {39, 3},
+    {41, 5}, {44, 3}, {47, 5}, {49, 3}, {56, 5}, {59, 3}, {62, 5}, {64, 3}, {65, 5}};
+
+int square_columns(int L) {
+    int k = 0;
+    for (const auto& run : SQUARE_COLUMNS)
+        if (L >= run[0]) k = run[1];
+    return k;
+}
+
 struct Square {
+    int k;          // columns a lane: 1, 3 or 5
     int rows;       // rows a block
-    int row_words;  // a row's window in one multiple; = P mod 32
+    int row_words;  // a row's window in one multiple; = k * lanes a row (mod 32)
     int nib_words;  // a multiple's stride: rows x row_words, to a multiple of 32
     int s_words;    // a row's limbs of s: odd
     size_t smem;
 };
 
-// The square path's layout at L limbs: the number of rows a block that
-// leaves the fewest idle lanes a row in its last warp (ties to fewer rows),
-// within 1,024 threads and SQUARE_SMEM_ROWS bytes.  False past SQUARE_MAX.
-bool square_plan(int L, Square* q) {
-    if (L < 1 || L > SQUARE_MAX) return false;
-    const int P = L + 2;
+// The square path's layout at L limbs and k columns a lane: the number of
+// rows a block that leaves the fewest idle lanes a row in its last warp
+// (ties to fewer rows), within 1,024 threads and SQUARE_SMEM_ROWS bytes.
+// False past SQUARE_MAX or for a k the kernel has no instance of.
+bool square_plan(int L, int k, Square* q) {
+    if (L < 1 || L > SQUARE_MAX || (k != 1 && k != 3 && k != 5)) return false;
+    const int Q = (L + 2 + k - 1) / k;  // lanes a row
+    q->k = k;
     q->rows = 0;
-    q->row_words = P + 32 * ((L + 31) / 32);
+    q->row_words = k * Q + 32 * ((L + 31) / 32);
     q->s_words = L | 1;
     int idle = 0;
-    for (int rows = 1; rows * P <= 1024; ++rows) {
+    for (int rows = 1; rows * Q <= 1024; ++rows) {
         const int nib = (rows * q->row_words + 31) / 32 * 32;
         const size_t smem = (size_t)(16 * nib + rows * q->s_words) * sizeof(uint32_t);
         if (rows > 1 && smem > (size_t)SQUARE_SMEM_ROWS) break;
-        const int spare = (rows * P + 31) / 32 * 32 - rows * P;
+        const int spare = (rows * Q + 31) / 32 * 32 - rows * Q;
         if (q->rows == 0 || spare * q->rows < idle * rows) {
             q->rows = rows;
             q->nib_words = nib;
@@ -200,74 +249,113 @@ bool square_plan(int L, Square* q) {
     return true;
 }
 
+template <int K>
 __global__ void __launch_bounds__(1024)
 clmul_comb_kernel_square(const uint32_t* __restrict__ small, const uint32_t* __restrict__ big,
                          uint32_t* __restrict__ out, long long B, int L, int rows,
                          int row_words, int nib_words, int s_words) {
     extern __shared__ uint32_t sh[];
     const int P = L + 2;
-    const int r = threadIdx.x / P;  // the block's row (rows and past: idle lanes)
-    const int t = threadIdx.x - r * P;
+    const int Q = (P + K - 1) / K;  // lanes a row
+    const int r = threadIdx.x / Q;  // the block's row (rows and past: idle lanes)
+    const int t0 = (threadIdx.x - r * Q) * K;  // the lane's first column
     const long long row = (long long)blockIdx.x * rows + r;
     const bool live = r < rows && row < B;
     uint32_t* T = sh + r * row_words;  // multiple u's window at T[u * nib_words + pos]
     uint32_t* S = sh + 16 * nib_words + r * s_words;
 
     if (live) {
-        // lane t stages column j = t: at position L + j, and at j - 2 for j >= 2
+        // column j = t0 + c: at position L + j, and at j - 2 for j >= 2
         const uint32_t* g = big + row * L;
-        const uint32_t g1 = t < L ? __ldg(g + t) : 0u;
-        const uint32_t g0 = (t >= 1 && t <= L) ? __ldg(g + t - 1) : 0u;
-        store_multiples(T + L + t, nib_words, g0, g1);
-        if (t >= 2) store_multiples(T + t - 2, nib_words, g0, g1);
-        if (t < L) S[t] = __ldg(small + row * L + t);
+        uint32_t g0 = (t0 >= 1 && t0 <= L) ? __ldg(g + t0 - 1) : 0u;
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+            const int j = t0 + c;
+            if (j >= P) break;  // the last lane's columns past the row
+            const uint32_t g1 = j < L ? __ldg(g + j) : 0u;
+            store_multiples(T + L + j, nib_words, g0, g1);
+            if (j >= 2) store_multiples(T + j - 2, nib_words, g0, g1);
+            if (j < L) S[j] = __ldg(small + row * L + j);
+            g0 = g1;
+        }
     }
     __syncthreads();
     if (!live) return;
 
-    // position t - i + L at step i, as a byte address: a multiple's word is
-    // then one multiply-add away (nib_bytes), and each nibble one byte permute
-    const char* col = reinterpret_cast<const char*>(T + L + t);
+    // position t0 - i + L at step i, as a byte address: a multiple's words
+    // are then one multiply-add away (nib_bytes), and each nibble one byte
+    // permute; column t0 + c reads words c - 1 and c from there
+    const char* col = reinterpret_cast<const char*>(T + L + t0);
     const unsigned nib_bytes = 4u * nib_words;
-    uint32_t acc = 0u, low = 0u;
+    uint32_t acc[K], low[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c) acc[c] = low[c] = 0u;
 #pragma unroll 2
     for (int i = 0; i < L; ++i, col -= 4) {
         const uint32_t si = S[i];
         const uint32_t even = si & 0x0F0F0F0Fu, odd = (si >> 4) & 0x0F0F0F0Fu;  // nibbles 0, 2, ..; 1, 3, ..
-        acc ^= *reinterpret_cast<const uint32_t*>(col + __byte_perm(even, 0u, 0x4440u) * nib_bytes);
+        {
+            const uint32_t* w0 = reinterpret_cast<const uint32_t*>(
+                col + __byte_perm(even, 0u, 0x4440u) * nib_bytes);
+#pragma unroll
+            for (int c = 0; c < K; ++c) acc[c] ^= w0[c];
+        }
 #pragma unroll
         for (int w = 1; w < 8; ++w) {
             const unsigned nib = __byte_perm(w & 1 ? odd : even, 0u, 0x4440u + (w >> 1));
-            const uint32_t* c = reinterpret_cast<const uint32_t*>(col + nib * nib_bytes);
-            acc ^= __funnelshift_l(c[-1], c[0], 4 * w);
+            const uint32_t* x = reinterpret_cast<const uint32_t*>(col + nib * nib_bytes);
+            uint32_t v[K + 1];  // the window's words t0 - i + L - 1 .. t0 - i + L + K - 1
+#pragma unroll
+            for (int c = 0; c <= K; ++c) v[c] = x[c - 1];
+#pragma unroll
+            for (int c = 0; c < K; ++c) acc[c] ^= __funnelshift_l(v[c], v[c + 1], 4 * w);
         }
-        if (i == t) low = acc;  // limb t is whole; limb t + P gathers from here on
+        // limb t0 + c is whole at i == t0 + c; limb t0 + c + P gathers from there on
+        const int d = i - t0;
+#pragma unroll
+        for (int c = 0; c < K; ++c)
+            if (d == c) low[c] = acc[c];
     }
     uint32_t* o = out + row * 2 * L;
-    if (t < L) {
-        o[t] = low;
-        if (t + P < 2 * L) o[t + P] = acc ^ low;
-    } else if (t < 2 * L) {
-        o[t] = acc;
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+        const int t = t0 + c;
+        if (t < L) {
+            o[t] = low[c];
+            if (t + P < 2 * L) o[t + P] = acc[c] ^ low[c];
+        } else if (t < P && t < 2 * L) {
+            o[t] = acc[c];
+        }
     }
 }
 
-int launch(const void* small, const void* big, void* out, long long B, int Ls, int Lg,
-           bool square, cudaStream_t stream) {
+template <int K>
+cudaError_t launch_square(const void* small, const void* big, void* out, long long B, int L,
+                          const Square& q, long long blocks, cudaStream_t stream) {
+    const int threads = (q.rows * ((L + 2 + K - 1) / K) + 31) / 32 * 32;
+    const cudaError_t err = cudaFuncSetAttribute(
+        clmul_comb_kernel_square<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q.smem);
+    if (err != cudaSuccess) return err;
+    clmul_comb_kernel_square<K><<<(unsigned int)blocks, threads, q.smem, stream>>>(
+        (const uint32_t*)small, (const uint32_t*)big, (uint32_t*)out, B, L, q.rows, q.row_words,
+        q.nib_words, q.s_words);
+    return cudaGetLastError();
+}
+
+// k > 0: the square path with k columns a lane; k == 0: the comb above
+int launch(const void* small, const void* big, void* out, long long B, int Ls, int Lg, int k,
+           cudaStream_t stream) {
     if (B < 1 || Ls < 1 || Lg < 1) return (int)cudaErrorInvalidValue;
-    if (square) {
+    if (k) {
         Square q;
-        if (Ls != Lg || !square_plan(Ls, &q)) return (int)cudaErrorInvalidValue;
+        if (Ls != Lg || !square_plan(Ls, k, &q)) return (int)cudaErrorInvalidValue;
         const long long blocks = (B + q.rows - 1) / q.rows;
         if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-        const int threads = (q.rows * (Ls + 2) + 31) / 32 * 32;
-        const cudaError_t err = cudaFuncSetAttribute(
-            clmul_comb_kernel_square, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q.smem);
-        if (err != cudaSuccess) return (int)err;
-        clmul_comb_kernel_square<<<(unsigned int)blocks, threads, q.smem, stream>>>(
-            (const uint32_t*)small, (const uint32_t*)big, (uint32_t*)out, B, Ls, q.rows,
-            q.row_words, q.nib_words, q.s_words);
-        return (int)cudaGetLastError();
+        switch (k) {
+            case 1: return (int)launch_square<1>(small, big, out, B, Ls, q, blocks, stream);
+            case 3: return (int)launch_square<3>(small, big, out, B, Ls, q, blocks, stream);
+            default: return (int)launch_square<5>(small, big, out, B, Ls, q, blocks, stream);
+        }
     }
     const int Lo = Ls + Lg;
     // output tiles of at most MAX_MT limbs, balanced, in whole warps
@@ -284,7 +372,10 @@ int launch(const void* small, const void* big, void* out, long long B, int Ls, i
     return (int)cudaGetLastError();
 }
 
-bool takes_square(int Ls, int Lg) { return Ls == Lg && Ls >= SQUARE_MIN && Ls <= SQUARE_MAX; }
+// the columns a lane where hm_clmul takes the square path, else 0
+int square_k(int Ls, int Lg) {
+    return Ls == Lg && Ls >= SQUARE_MIN && Ls <= SQUARE_MAX ? square_columns(Ls) : 0;
+}
 
 }  // namespace
 
@@ -293,15 +384,19 @@ bool takes_square(int Ls, int Lg) { return Ls == Lg && Ls >= SQUARE_MIN && Ls <=
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int hm_clmul(const void* small, const void* big, void* out,
                         long long B, int Ls, int Lg, void* stream) {
-    return launch(small, big, out, B, Ls, Lg, takes_square(Ls, Lg), (cudaStream_t)stream);
+    return launch(small, big, out, B, Ls, Lg, square_k(Ls, Lg), (cudaStream_t)stream);
 }
 
-// 1 where hm_clmul takes the square path at these widths, else 0
-extern "C" int hm_clmul_square(int Ls, int Lg) { return takes_square(Ls, Lg) ? 1 : 0; }
+// The columns a lane of the square path where hm_clmul takes it at these
+// widths (1, 3 or 5, by SQUARE_COLUMNS), else 0 (the comb)
+extern "C" int hm_clmul_square(int Ls, int Lg) { return square_k(Ls, Lg); }
 
 // One mapping, named: the square path (square != 0; any Ls == Lg up to
-// SQUARE_MAX) or the comb above.  For measuring the crossover and for tests.
+// SQUARE_MAX) with `columns` a lane (1, 3 or 5; 0: SQUARE_COLUMNS' k), or
+// the comb above.  For measuring the crossover and k, and for tests.
 extern "C" int hm_clmul_mapping(const void* small, const void* big, void* out,
-                                long long B, int Ls, int Lg, int square, void* stream) {
-    return launch(small, big, out, B, Ls, Lg, square != 0, (cudaStream_t)stream);
+                                long long B, int Ls, int Lg, int square, int columns,
+                                void* stream) {
+    const int k = !square ? 0 : columns ? columns : square_columns(Ls);
+    return launch(small, big, out, B, Ls, Lg, k, (cudaStream_t)stream);
 }

@@ -13,9 +13,11 @@ kernel's wrapper:
   that file); its bound is the comb's shared-memory loads.  Square
   products (every leaf of the route) take its square path, which the
   kernel picks from the widths alone (:func:`square_path`): the same comb,
-  ``L + 2`` lanes a row each walking every limb once, so no lane walks a
-  limb pair its output does not need; such a launch also counts
-  ``K1.square``;
+  the row's ``L + 2`` output columns ``k`` to a lane, each lane walking
+  every limb once, so no lane walks a limb pair its output does not need,
+  and each nibble's decode, address and window words serve its ``k``
+  columns (``k`` from the width: :func:`square_columns`); such a launch
+  also counts ``K1.square``, and ``K1.square.tiled`` where ``k > 1``;
 * on a CPU tensor it computes :func:`clmul_plain`, the 32-plane sweep of
   :func:`homomorph_tpu_torch.gf2.poly.clmul`, chunked over the batch.
 
@@ -89,7 +91,7 @@ from ..utils.profiling import counters, span
 
 __all__ = [
     "clmul", "clmul_rows", "clmul_flat", "clmul_plain", "clmul_comb_plain",
-    "clmul_square_plain", "square_layout", "square_path", "clmul_mapping",
+    "clmul_square_plain", "square_layout", "square_path", "square_columns", "clmul_mapping",
     "karatsuba_min", "route_plan", "route_split", "route_join", "split_plan", "split_layout",
     "join_launches", "ascent_layout", "join_plans", "leaf_rows", "route_split_plain",
     "route_join_plain", "join_pieces_plain",
@@ -126,7 +128,7 @@ def _kernel():
         operands = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
         lib.hm_clmul.argtypes = operands + [ctypes.c_void_p]
-        lib.hm_clmul_mapping.argtypes = operands + [ctypes.c_int, ctypes.c_void_p]
+        lib.hm_clmul_mapping.argtypes = operands + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.hm_clmul_square.argtypes = [ctypes.c_int, ctypes.c_int]
         for fn in (lib.hm_clmul, lib.hm_clmul_mapping, lib.hm_clmul_square):
             fn.restype = ctypes.c_int
@@ -135,11 +137,17 @@ def _kernel():
 
 
 @functools.lru_cache(maxsize=256)
+def square_columns(Ls: int, Lg: int) -> int:
+    """The output columns a lane of K1's square path owns at these widths,
+    or 0 where K1 takes the comb (``csrc/clmul.cu`` decides from the widths
+    alone: ``Ls == Lg`` from its measured ``SQUARE_MIN``, ``k`` from its
+    measured ``SQUARE_COLUMNS``); builds the kernel on first use."""
+    return _kernel().hm_clmul_square(Ls, Lg)
+
+
 def square_path(Ls: int, Lg: int) -> bool:
-    """Whether K1 takes its square path at these widths (``csrc/clmul.cu``
-    decides from the widths alone: ``Ls == Lg`` from its measured
-    ``SQUARE_MIN``); builds the kernel on first use."""
-    return bool(_kernel().hm_clmul_square(Ls, Lg))
+    """Whether K1 takes its square path at these widths."""
+    return square_columns(Ls, Lg) > 0
 
 
 def clmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -797,87 +805,117 @@ def clmul_comb_plain(af: torch.Tensor, bf: torch.Tensor) -> torch.Tensor:
     return out[:, : Ls + Lg].contiguous()  # limb Ls+Lg only ever gets zeros
 
 
-def square_layout(L: int) -> "tuple[int, int, int, int]":
+#: ``csrc/clmul.cu``'s ``SQUARE_COLUMNS``: the first width of each run of
+#: widths and the columns ``k`` a lane of the square path owns there (a card
+#: test holds the two equal at every width)
+SQUARE_COLUMNS = ((1, 1), (9, 3), (10, 1), (13, 3), (17, 5), (19, 3), (29, 5), (33, 3), (35, 5),
+                  (39, 3), (41, 5), (44, 3), (47, 5), (49, 3), (56, 5), (59, 3), (62, 5), (64, 3),
+                  (65, 5))
+#: the ``k`` the square path has an instance of: odd, so a warp's lanes
+#: read at an odd stride
+SQUARE_KS = (1, 3, 5)
+
+
+def square_layout(L: int, columns: "int | None" = None) -> "tuple[int, int, int, int, int]":
     """The square path's block layout at ``L`` limbs, as ``csrc/clmul.cu``'s
-    ``square_plan`` makes it: ``(rows, row_words, nib_words, s_words)``, the
-    rows a block (the fewest idle lanes in the last warp, a row, within
+    ``square_plan`` makes it: ``(rows, row_words, nib_words, s_words, k)``,
+    the rows a block (the fewest idle lanes in the last warp, a row, within
     1,024 threads and, past one row, 113 KB), a row's window in one
-    multiple (``L + 2`` mod 32), a multiple's stride (a multiple of 32) and
-    a row's limbs of the smaller operand (odd)."""
-    P = L + 2
-    row_words = P + 32 * -(-L // 32)
+    multiple (``k`` times the row's ``ceil((L + 2) / k)`` lanes, mod 32), a
+    multiple's stride (a multiple of 32), a row's limbs of the smaller
+    operand (odd) and the columns a lane: ``columns``, or by default the
+    width's ``k`` in :data:`SQUARE_COLUMNS`."""
+    K = [k for L0, k in SQUARE_COLUMNS if L >= L0][-1] if columns is None else columns
+    if K not in SQUARE_KS:
+        raise ValueError(f"the square path takes {SQUARE_KS} columns a lane, not {K}")
+    Q = -(-(L + 2) // K)  # lanes a row
+    row_words = K * Q + 32 * -(-L // 32)
     s_words = L | 1
     best = None
-    for rows in range(1, 1024 // P + 1):
+    for rows in range(1, 1024 // Q + 1):
         nib_words = -(-rows * row_words // 32) * 32
         if rows > 1 and (16 * nib_words + rows * s_words) * 4 > 113 * 1024:
             break
-        spare = -(-rows * P // 32) * 32 - rows * P
+        spare = -(-rows * Q // 32) * 32 - rows * Q
         if best is None or spare * best[0] < best[1] * rows:
             best = (rows, spare, nib_words)
-    return best[0], row_words, best[2], s_words
+    return best[0], row_words, best[2], s_words, K
 
 
-def clmul_square_plain(af: torch.Tensor, bf: torch.Tensor) -> torch.Tensor:
+def clmul_square_plain(af: torch.Tensor, bf: torch.Tensor, columns: "int | None" = None) -> torch.Tensor:
     """The square path's comb in torch: flat [B, L] x [B, L] -> [B, 2L],
-    walked as ``csrc/clmul.cu``'s ``clmul_comb_kernel_square`` walks it.
+    walked as ``csrc/clmul.cu``'s ``clmul_comb_kernel_square<k>`` walks it.
 
     Each block's shared memory is a flat tensor laid out by
-    :func:`square_layout`; thread ``(r, t)`` of a block (row ``r``, lane
-    ``t < L + 2``) stages column ``t`` of the 16 multiples at positions
-    ``L + t`` and, for ``t >= 2``, ``t - 2``, then at each step ``i`` reads
-    position ``t - i + L`` (:func:`square_addresses`), adding into output
-    limb ``t`` until ``i == t`` and into limb ``t + L + 2`` after."""
+    :func:`square_layout` (``columns`` as there); thread ``(r, l)`` of a
+    block (row ``r``, lane ``l``) owns the ``k`` columns ``t0 = k l`` ..
+    ``t0 + k - 1`` of the row's ``L + 2`` (columns past them are the last
+    lane's spare), stages each column ``t`` of the 16 multiples at positions
+    ``L + t`` and, for ``t >= 2``, ``t - 2``, then at each step ``i`` and
+    nibble reads the ``k + 1`` words from position ``t0 - i + L - 1`` on
+    (:func:`square_addresses`), adding into output limb ``t`` until
+    ``i == t`` and into limb ``t + L + 2`` after."""
     B, L = af.shape
     if bf.shape != af.shape:
         raise ValueError(f"the square path takes [B, L] x [B, L], got {tuple(af.shape)} and {tuple(bf.shape)}")
-    rows, row_words, nib_words, s_words = square_layout(L)
+    rows, row_words, nib_words, s_words, K = square_layout(L, columns)
     P = L + 2
+    Q = -(-P // K)
     blocks = -(-B // rows)
     dev = af.device
     pad = (0, 0, 0, blocks * rows - B)
     s = F.pad(af, pad).view(blocks, rows, L)
     g = F.pad(bf, pad).view(blocks, rows, L)
-    tid = torch.arange(rows * P, device=dev)
-    r, t = tid // P, tid % P
+    tid = torch.arange(rows * Q, device=dev)
+    r, t0 = tid // Q, tid % Q * K
     sh = torch.zeros((blocks, 16 * nib_words + rows * s_words), dtype=gf2.LIMB_DTYPE, device=dev)
-    gp = F.pad(g, (1, 2))  # gp[..., j + 1] = g[j] for j = -1 .. L + 1
-    g0, g1 = gp[:, r, t], gp[:, r, t + 1]  # g[t - 1], g[t]
-    t2, t4, t8 = (_funnel_l(g0, g1, n) for n in (1, 2, 3))
+    gp = F.pad(g, (1, K * Q - L))  # gp[..., j + 1] = g[j] for j = -1 .. K Q - 1
     u = torch.arange(16, device=dev)[:, None]
-    for bit, mult in ((1, g1), (2, t2), (4, t4), (8, t8)):
-        m = torch.where((u & bit) != 0, mult[:, None, :], 0)  # [blocks, 16, threads]
-        at = r * row_words + u * nib_words
-        sh[:, at + L + t] ^= m
-        twice = t >= 2  # columns 2 .. L + 1 have a second copy
-        sh[:, (at + t - 2)[:, twice]] ^= m[:, :, twice]
-    lanes = t < L
-    sh[:, 16 * nib_words + r[lanes] * s_words + t[lanes]] = s[:, r[lanes], t[lanes]]
+    for c in range(K):
+        t = t0 + c
+        staged = t < P
+        g0, g1 = gp[:, r, t], gp[:, r, t + 1]  # g[t - 1], g[t]
+        t2, t4, t8 = (_funnel_l(g0, g1, n) for n in (1, 2, 3))
+        for bit, mult in ((1, g1), (2, t2), (4, t4), (8, t8)):
+            m = torch.where((u & bit) != 0, mult[:, None, :], 0)  # [blocks, 16, threads]
+            at = r * row_words + u * nib_words
+            sh[:, (at + L + t)[:, staged]] ^= m[:, :, staged]
+            twice = staged & (t >= 2)  # columns 2 .. L + 1 have a second copy
+            sh[:, (at + t - 2)[:, twice]] ^= m[:, :, twice]
+        lanes = t < L
+        sh[:, 16 * nib_words + r[lanes] * s_words + t[lanes]] = s[:, r[lanes], t[lanes]]
 
-    acc = torch.zeros((blocks, rows * P), dtype=gf2.LIMB_DTYPE, device=dev)
+    acc = torch.zeros((K, blocks, rows * Q), dtype=gf2.LIMB_DTYPE, device=dev)
     low = torch.zeros_like(acc)
     for i in range(L):
         si = sh[:, 16 * nib_words + r * s_words + i]
         for w in range(8):
-            at = square_addresses(L, r, t, i, gf2.srl(si, 4 * w) & 15, nib_words, row_words)
-            hi = sh.gather(1, at)
-            acc ^= hi if w == 0 else _funnel_l(sh.gather(1, at - 1), hi, 4 * w)
-        low = torch.where(t == i, acc, low)
+            at = square_addresses(L, r, t0, i, gf2.srl(si, 4 * w) & 15, nib_words, row_words)
+            v = [sh.gather(1, at + c - 1) for c in range(K + 1)]
+            for c in range(K):
+                acc[c] ^= v[c + 1] if w == 0 else _funnel_l(v[c], v[c + 1], 4 * w)
+        for c in range(K):
+            low[c] = torch.where(t0 + c == i, acc[c], low[c])
 
     out = torch.zeros((blocks, rows, 2 * L), dtype=gf2.LIMB_DTYPE, device=dev)
-    out[:, r[lanes], t[lanes]] = low[:, lanes]
-    top = lanes & (t + P < 2 * L)
-    out[:, r[top], t[top] + P] = (acc ^ low)[:, top]
-    mid = (t >= L) & (t < 2 * L)
-    out[:, r[mid], t[mid]] = acc[:, mid]
+    for c in range(K):
+        t = t0 + c
+        lanes = t < L
+        out[:, r[lanes], t[lanes]] = low[c][:, lanes]
+        top = lanes & (t + P < 2 * L)
+        out[:, r[top], t[top] + P] = (acc[c] ^ low[c])[:, top]
+        mid = (t >= L) & (t < P) & (t < 2 * L)
+        out[:, r[mid], t[mid]] = acc[c][:, mid]
     return out.view(blocks * rows, 2 * L)[:B].contiguous()
 
 
-def square_addresses(L: int, r, t, i: int, nib, nib_words: int, row_words: int):
-    """The shared-memory word that thread ``(r, t)`` of the square path reads
-    at step ``i`` for a nibble ``nib``: multiple ``nib``'s window of row
-    ``r``, position ``t - i + L`` (the funnel's low word is the one below)."""
-    return nib.long() * nib_words + r * row_words + t - i + L
+def square_addresses(L: int, r, t0, i: int, nib, nib_words: int, row_words: int):
+    """The shared-memory word at which thread ``(r, l)`` of the square path,
+    whose first column is ``t0``, reads at step ``i`` for a nibble ``nib``:
+    multiple ``nib``'s window of row ``r``, position ``t0 - i + L``.  Its
+    column ``t0 + c`` funnels the words at ``c - 1`` and ``c`` from there, so
+    a nibble's ``k + 1`` loads are the words ``-1 .. k - 1`` from it."""
+    return nib.long() * nib_words + r * row_words + t0 - i + L
 
 
 def _check(af: torch.Tensor, bf: torch.Tensor) -> None:
@@ -897,8 +935,10 @@ def clmul_flat(af: torch.Tensor, bf: torch.Tensor) -> torch.Tensor:
     """The kernel's wrapper: flat [B, La] x [B, Lb] -> [B, La+Lb] int32.
 
     A CPU tensor gets :func:`clmul_plain`; a CUDA tensor launches the
-    kernel on the current stream (and counts the launch as ``K1``, and as
-    ``K1.square`` too where it takes the square path) or raises.  A
+    kernel on the current stream (and counts the launch as ``K1``, as
+    ``K1.square`` too where it takes the square path, and as
+    ``K1.square.tiled`` as well where that path's lanes own more than one
+    output column) or raises.  A
     tensor on PyTorch's ``meta`` device gets an empty output of the
     product's shape and counts nothing: the compiled pipelines read an
     operation's output metadata that way, with no device work."""
@@ -924,17 +964,22 @@ def clmul_flat(af: torch.Tensor, bf: torch.Tensor) -> torch.Tensor:
     if err:
         raise RuntimeError(f"clmul kernel launch failed: cudaError {err}")
     counters.add("K1")
-    if square_path(small.shape[1], big.shape[1]):
+    columns = square_columns(small.shape[1], big.shape[1])
+    if columns:
         counters.add("K1.square")
+        if columns > 1:
+            counters.add("K1.square.tiled")
     return out
 
 
-def clmul_mapping(af: torch.Tensor, bf: torch.Tensor, square: bool) -> torch.Tensor:
+def clmul_mapping(af: torch.Tensor, bf: torch.Tensor, square: bool,
+                  columns: "int | None" = None) -> torch.Tensor:
     """K1 through one thread mapping, named: the square path (``square``:
-    any ``La == Lb`` up to the kernel's ``SQUARE_MAX``) or the comb of
-    unbalanced products, on CUDA tensors, whatever :func:`clmul_flat` would
-    take.  It counts no launch: the crossover measurement and the card
-    tests call it; no path does."""
+    any ``La == Lb`` up to the kernel's ``SQUARE_MAX``; ``columns`` a lane,
+    one of :data:`SQUARE_KS`, or by default the width's ``k``) or the comb
+    of unbalanced products, on CUDA tensors, whatever :func:`clmul_flat`
+    would take.  It counts no launch: the crossover and ``k`` measurements
+    and the card tests call it; no path does."""
     _check(af, bf)
     if af.device.type != "cuda":
         raise ValueError(f"clmul_mapping launches on cuda, not {af.device}")
@@ -944,7 +989,7 @@ def clmul_mapping(af: torch.Tensor, bf: torch.Tensor, square: bool) -> torch.Ten
     with torch.cuda.device(af.device):
         err = _kernel().hm_clmul_mapping(
             small.data_ptr(), big.data_ptr(), out.data_ptr(), af.shape[0], small.shape[1],
-            big.shape[1], int(square), torch.cuda.current_stream().cuda_stream)
+            big.shape[1], int(square), columns or 0, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"clmul kernel launch failed: cudaError {err}")
     return out

@@ -299,7 +299,8 @@ class Counters:
     (:data:`KERNELS`; a CPU or ``meta`` call launches nothing),
     ``mask.K1`` (the share of K1's launches the decrypt masks' route steps
     make), ``K1.square`` (the share of K1's launches that take its
-    square path) and ``clmul.expand`` (the limbs the clmul dispatcher
+    square path), ``K1.square.tiled`` (the share of those whose lanes own
+    several output columns) and ``clmul.expand`` (the limbs the clmul dispatcher
     writes to copy an operand whose rows are broadcast, on the CPU too).
 
     A count made eagerly adds at once.  A capture launches nothing: what is

@@ -66,35 +66,73 @@ def test_clmul_kernel_matches_the_comb_mirror(B, La, Lb):
     assert torch.equal(got, k.clmul_plain(a, b))
 
 
+def square_counts():
+    return counters["K1"], counters["K1.square"], counters["K1.square.tiled"]
+
+
+def moved_since(before):
+    return tuple(n - m for n, m in zip(square_counts(), before))
+
+
 @pytest.mark.parametrize("L", range(1, 64))
 def test_clmul_square_path_matches_plain_and_its_mirror(L):
     """Every square width a leaf or a direct product can have below the
     route: clmul_flat (the square path wherever K1 takes it, counted as
-    ``K1.square``) and the square mapping launched by name, over two blocks
-    of rows and a partial third, against the plain sweep and the square
-    path's torch mirror; all-ones rows too."""
+    ``K1.square``, and as ``K1.square.tiled`` too where its lanes own
+    several columns) and the square mapping launched by name, over two
+    blocks of rows and a partial third, against the plain sweep and the
+    square path's torch mirror; all-ones rows too."""
     B = 2 * k.square_layout(L)[0] + 3
     a, b = on_card((B, L), 60 + L), on_card((B, L), 160 + L)
     a[0], b[0] = -1, -1
-    before = (counters["K1"], counters["K1.square"])
+    before = square_counts()
     got = k.clmul_flat(a, b)
     torch.cuda.synchronize()
-    assert (counters["K1"] - before[0], counters["K1.square"] - before[1]) == (1, int(k.square_path(L, L)))
+    columns = k.square_columns(L, L)
+    assert moved_since(before) == (1, int(columns > 0), int(columns > 1))
     want = k.clmul_plain(a, b)
     assert torch.equal(got, want)
     assert torch.equal(k.clmul_mapping(a, b, True), want)
     assert torch.equal(k.clmul_square_plain(a, b), want)
 
 
+@pytest.mark.parametrize("K", k.SQUARE_KS)
+@pytest.mark.parametrize("L", [1, 5, 16, 32, 41, 48, 63, 128, 1022])
+def test_clmul_square_path_at_each_k(L, K):
+    """Each ``k`` the kernel has, named through ``hm_clmul_mapping``, over
+    two blocks of rows and a partial third, against the plain sweep and
+    the mirror at the same ``k``."""
+    B = 2 * k.square_layout(L, K)[0] + 3
+    a, b = on_card((B, L), 10 * L + K), on_card((B, L), 10 * L + K + 5)
+    a[0], b[0] = -1, -1
+    got = k.clmul_mapping(a, b, True, K)
+    torch.cuda.synchronize()
+    want = k.clmul_plain(a, b)
+    assert torch.equal(got, want)
+    assert torch.equal(k.clmul_square_plain(a, b, K), want)
+
+
+def test_the_kernels_table_of_k_is_the_mirrors():
+    """``hm_clmul_square`` gives, at every square width, the ``k`` of the
+    mirror's copy of ``SQUARE_COLUMNS``, and 0 (the comb) off the square."""
+    on_card((1,), 0)
+    assert [k.square_columns(L, L) for L in range(1, 1023)] == [
+        k.square_layout(L)[4] for L in range(1, 1023)]
+    assert k.square_columns(1023, 1023) == k.square_columns(9, 256) == k.square_columns(48, 64) == 0
+
+
 @pytest.mark.parametrize("B,L", [(1259712, 32), (384912, 48), (49152, 41)])
 def test_clmul_square_path_at_the_u32_products_widest_leaf_launches(B, L):
-    """The u32 product's (d = 2432) widest K1 launches at each leaf width:
-    the square path against the plain sweep, the comb of unbalanced
-    products and, in chunks of rows, the square path's mirror."""
+    """The u32 product's (d = 2432) widest K1 launches at each leaf width,
+    held in full: the square path at the table's ``k`` against the comb of
+    unbalanced products and the plain sweep, and in chunks of rows against
+    the square path's mirror."""
     a, b = on_card((B, L), 7 * L), on_card((B, L), 7 * L + 1)
+    before = square_counts()
     got = k.clmul_flat(a, b)
     torch.cuda.synchronize()
     assert k.square_path(L, L)
+    assert moved_since(before) == (1, 1, int(k.square_columns(L, L) > 1))
     assert torch.equal(got, k.clmul_plain(a, b))
     assert torch.equal(got, k.clmul_mapping(a, b, False))
     for r0 in range(0, B, 65536):
@@ -105,10 +143,10 @@ def test_clmul_square_path_at_the_u32_products_widest_leaf_launches(B, L):
 @pytest.mark.parametrize("B,La,Lb", [(4, 9, 256), (5, 48, 64), (6, 5, 9), (3, 96, 192), (7, 2, 1)])
 def test_unbalanced_products_stay_on_the_comb(B, La, Lb):
     a, b = on_card((B, La), La), on_card((B, Lb), Lb)
-    before = (counters["K1"], counters["K1.square"])
+    before = square_counts()
     got = k.clmul_flat(a, b)
     torch.cuda.synchronize()
-    assert (counters["K1"] - before[0], counters["K1.square"] - before[1]) == (1, 0)
+    assert moved_since(before) == (1, 0, 0)
     assert not k.square_path(La, Lb)
     assert torch.equal(got, k.clmul_mapping(a, b, False))
     assert torch.equal(got, k.clmul_plain(a, b))
@@ -119,8 +157,10 @@ def test_unbalanced_products_stay_on_the_comb(B, La, Lb):
 def test_the_u32_product_takes_the_square_path_in_every_product():
     """The checked u32 product at d = 2432 on 16 pairs as a CUDA graph, as
     the benchmark's ``mul_graph`` replays it: its 85 routed products each
-    count one ``K1.square`` (every leaf is square), the graph holds 419 work
-    nodes as before the square path, and the products decrypt right."""
+    count one ``K1.square`` (every leaf is square) and, where the leaves'
+    ``k`` is above 1 (all of them: 32-48 limbs), one ``K1.square.tiled``;
+    the graph holds 419 work nodes as before the square path, and the
+    products decrypt right."""
     import homomorph_tpu_torch as ht
     from homomorph_tpu_torch.experiments.common import CHECK_SEED, context
     from homomorph_tpu_torch.models import HomomorphicMultiplication
@@ -135,12 +175,12 @@ def test_the_u32_product_takes_the_square_path_in_every_product():
     a, b = ctx.encrypt(xs, ht.U32, batch=True), ctx.encrypt(ys, ht.U32, batch=True)
     got = fn(a, b)
     (manifest,) = fn.graphed.manifests
-    assert manifest["K1"] == manifest["K1.square"] == 85
+    assert manifest["K1"] == manifest["K1.square"] == manifest["K1.square.tiled"] == 85
     assert fn.graphed.launches == [419]
-    before = counters["K1.square"]
+    before = square_counts()
     got = fn(a, b)
     torch.cuda.synchronize()
-    assert counters["K1.square"] == before + 85
+    assert moved_since(before) == (85, 85, 85)
     assert [int(v) for v in ctx.decrypt(got)] == [x * y % 2**32 for x, y in zip(xs, ys)]
 
 

@@ -9,11 +9,13 @@
 * ``clmul_comb_plain`` follows K1's 4-bit comb (the 16 multiples of the
   wider operand, the nibble walk with funnel shifts); it is held against
   ``homomorph_tpu.gf2.kernels.clmul``.
-* ``clmul_square_plain`` follows K1's square path (a row's ``L + 2`` lanes
-  each walking every limb once, the window stored twice, several rows a
-  block); it is held against ``homomorph_tpu.gf2.kernels.clmul`` and the
-  plain sweep at every square width up to 64, and its layout's reads
-  against the banks of the card's shared memory.
+* ``clmul_square_plain`` follows K1's square path (a row's ``L + 2``
+  columns, ``k`` to a lane, each lane walking every limb once, the window
+  stored twice, several rows a block); it is held against
+  ``homomorph_tpu.gf2.kernels.clmul`` and the plain sweep at every square
+  width up to 64, at every ``k`` the kernel has and at the widths where
+  its table changes ``k``, and its layout's reads against the banks of the
+  card's shared memory.
 
 Inputs come from numpy with a seed; parity is bit-exact (integer GF(2)
 values, tolerance 0).  ``tests/test_torch_cuda.py`` holds the kernels
@@ -145,19 +147,56 @@ class TestClmulSquare:
                               tpoly.to_numpy(tk.clmul_square_plain(a, a)))
         assert counters["K1.square"] == before  # a CPU call launches nothing
 
-    @pytest.mark.parametrize("L", [1, 2, 3, 5, 9, 16, 30, 32, 33, 41, 48, 63, 64, 100, 255, 1022])
-    def test_a_warps_reads_hit_distinct_banks(self, L):
-        """At any step and any nibbles, the 32 lanes of a warp (of one, two or
-        more rows) read 32 distinct banks, for both words of the funnel; the
-        staging stores do too, and the rows' limbs of the smaller operand lie
-        in distinct banks.  The block fits 1,024 threads and 227 KB."""
+    @pytest.mark.parametrize("K", tk.SQUARE_KS)
+    @pytest.mark.parametrize("L", [1, 2, 5, 9, 16, 32, 41, 48, 63])
+    def test_every_k_matches_the_plain_product(self, L, K):
+        """Each ``k`` the kernel has an instance of, at widths whose last
+        lane owns columns past the row and whose last block is partial."""
+        rng = np.random.default_rng(L * 100 + K)
+        B = 2 * tk.square_layout(L, K)[0] + 3
+        a = rng.integers(0, 2**32, size=(B, L), dtype=np.uint32)
+        b = rng.integers(0, 2**32, size=(B, L), dtype=np.uint32)
+        a[0] = b[0] = np.uint32(0xFFFFFFFF)
+        want = tpoly.to_numpy(tk.clmul_plain(T(a), T(b)))
+        assert np.array_equal(tpoly.to_numpy(tk.clmul_square_plain(T(a), T(b), K)), want)
+
+    @pytest.mark.parametrize(
+        "L", sorted({L for L0, _ in tk.SQUARE_COLUMNS[1:] for L in (L0 - 1, L0)})
+    )
+    def test_where_the_table_changes_k(self, L):
+        """Each side of every width where ``SQUARE_COLUMNS`` changes ``k``,
+        at the table's ``k``, the last block partial."""
+        rng = np.random.default_rng(L)
+        B = 2 * tk.square_layout(L)[0] + 1
+        a = rng.integers(0, 2**32, size=(B, L), dtype=np.uint32)
+        b = rng.integers(0, 2**32, size=(B, L), dtype=np.uint32)
+        want = tpoly.to_numpy(tk.clmul_plain(T(a), T(b)))
+        assert np.array_equal(tpoly.to_numpy(tk.clmul_square_plain(T(a), T(b))), want)
+
+    def test_the_table_of_k(self):
+        """``SQUARE_COLUMNS`` starts at one limb, rises, and names only a
+        ``k`` the kernel has; ``square_layout`` refuses any other."""
+        starts = [L0 for L0, _ in tk.SQUARE_COLUMNS]
+        assert starts[0] == 1 and starts == sorted(set(starts))
+        assert all(K in tk.SQUARE_KS for _, K in tk.SQUARE_COLUMNS)
+        for K in (0, 2, 4, 7):
+            with pytest.raises(ValueError, match="columns a lane"):
+                tk.square_layout(32, K)
+
+    @staticmethod
+    def _distinct_banks(L, K):
+        """At any step and any nibbles, the 32 lanes of a warp (of one, two
+        or more rows) read 32 distinct banks in each of a nibble's ``k + 1``
+        loads; the staging stores do too, and the rows' limbs of the smaller
+        operand lie in distinct banks.  The block fits 1,024 threads and
+        227 KB, and every read lies in its row's window."""
         import torch
 
-        rows, row_words, nib_words, s_words = tk.square_layout(L)
-        P = L + 2
-        assert rows * P <= 1024 and (16 * nib_words + rows * s_words) * 4 <= 232448
-        tid = torch.arange(rows * P)
-        r, t = tid // P, tid % P
+        rows, row_words, nib_words, s_words, K = tk.square_layout(L, K)
+        Q = -(-(L + 2) // K)
+        assert rows * Q <= 1024 and (16 * nib_words + rows * s_words) * 4 <= 232448
+        tid = torch.arange(rows * Q)
+        r, t0 = tid // Q, tid % Q * K
         gen = torch.Generator().manual_seed(L)
 
         def distinct_a_warp(words, live=None):
@@ -166,18 +205,33 @@ class TestClmulSquare:
                 banks = words[w0 : w0 + 32][live[w0 : w0 + 32]] % 32
                 assert len(banks.unique()) == len(banks)
 
-        first = torch.ones_like(t, dtype=torch.bool)
+        first = torch.ones_like(t0, dtype=torch.bool)
         first[1:] = r[1:] != r[:-1]
         first[::32] = True  # each row's first lane in each warp
-        for i in sorted({0, 1, L // 2, L - 1}):
+        for i in sorted({0, 1, L // 2, L - 1} & set(range(L))):  # steps i < L
             nib = torch.randint(0, 16, (rows,), generator=gen)[r]
-            at = tk.square_addresses(L, r, t, i, nib, nib_words, row_words)
-            distinct_a_warp(at)
-            distinct_a_warp(at - 1)
+            at = tk.square_addresses(L, r, t0, i, nib, nib_words, row_words)
+            for c in range(K + 1):
+                distinct_a_warp(at + c - 1)
+            pos = at - nib * nib_words - r * row_words
+            assert int(pos.min()) - 1 >= 0 and int(pos.max()) + K - 1 < row_words
             distinct_a_warp(16 * nib_words + r * s_words + i, first)  # one word a row
         u = int(torch.randint(0, 16, (1,), generator=gen))
-        distinct_a_warp(u * nib_words + r * row_words + L + t)
-        distinct_a_warp(u * nib_words + r * row_words + t - 2, t >= 2)
+        for c in range(K):
+            t = t0 + c
+            distinct_a_warp(u * nib_words + r * row_words + L + t, t < L + 2)
+            distinct_a_warp(u * nib_words + r * row_words + t - 2, (t >= 2) & (t < L + 2))
+
+    @pytest.mark.parametrize("L", [1, 2, 3, 5, 9, 16, 30, 32, 33, 41, 48, 63, 64, 100, 255, 1022])
+    def test_a_warps_reads_hit_distinct_banks(self, L):
+        """The layout at the width's own ``k`` (:meth:`_distinct_banks`)."""
+        self._distinct_banks(L, None)
+
+    @pytest.mark.parametrize("K", tk.SQUARE_KS)
+    @pytest.mark.parametrize("L", [1, 2, 9, 32, 41, 48, 63, 255, 1022])
+    def test_every_k_reads_distinct_banks(self, L, K):
+        """The layout at each ``k`` the kernel has (:meth:`_distinct_banks`)."""
+        self._distinct_banks(L, K)
 
 
 def _smoke():
